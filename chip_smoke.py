@@ -8,15 +8,22 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build: the CUDA kernels under ``src/repro_torch/kernels/csrc`` are
    compiled with ``nvcc`` into ``build/`` (seconds printed);
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the serving path's full-width shapes (Yi-6B heads), with times of the
-   kernel, the plain version and, for attention, one PyTorch library call;
+   the serving path's full-width shapes (Yi-6B heads) and, for the claim
+   kernel, at pool sizes up to 2**20 slots, with times of the kernel, the
+   plain version and, where there is one, a PyTorch library call;
 4. small-input reference: the port's ``Engine`` on the Yi-6B smoke config in
    float32, on the card (kernels) and on the CPU (plain versions), must give
    token-identical outputs;
 5. main path: Yi-6B at full width and depth in bfloat16, random weights from
    ``--seed``, 16 requests through ``Engine(device_admission=True)`` with
-   ``submit_many`` and ``run_until_idle``; every kernel's launch count is read
-   from this run alone.
+   ``submit_many`` and ``run_until_idle``; the launch counts of the three
+   serving kernels are read from this run alone;
+6. device CMP queue: a seeded FIFO churn through ``repro_torch.core.slotpool``
+   (produce, claim, advance, reclaim) on a 65,536-slot pool, the page pool
+   of a card that holds Yi-6B, on the card and on the CPU, compared every
+   round; strict FIFO and the pool invariants are checked, and the claim
+   kernel's launch count is read from this run alone; then the claims/s of
+   ``slotpool.claim`` on the card and a profile of 50 claims.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``kernels`` JSON line, and the card's name and power limit come earlier.
@@ -112,6 +119,69 @@ def check_ring(ring, rng) -> dict:
                 replaces="src/repro/kernels/cmp_ring.py:111", max_abs_err=0.0,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
+
+
+def _claim_cycles(rng, n: int) -> dict:
+    """The cycle patterns the claim kernel is held on: unique, all tied, and
+    repeated negative and positive values with some INT32_MAX among them."""
+    mixed = rng.integers(-1000, 1000, size=n)
+    mixed[rng.random(n) < 0.05] = np.iinfo(np.int32).max
+    return {"permuted": rng.permutation(n), "tied": np.full(n, 7), "mixed": mixed}
+
+
+def check_claim(claim, rng) -> dict:
+    """The claim kernel against its plain version, bit-exact (``torch.equal``
+    on new_state and ids), over pool sizes, k (k > N included), tiles and
+    cycle patterns; a tile above what one CTA holds must be refused. Times
+    at N = 2,048 (one tile), 4,096 and 65,536, k = 64."""
+    from repro_torch.kernels import _build
+
+    dev, imax = "cuda", np.iinfo(np.int32).max
+    max_block = _build.lib().rt_cmp_claim_max_block()
+    cases = refused = 0
+    for n in (1, 7, 2047, 2048, 2049, 4096, 65536, 1 << 20):
+        state = torch.from_numpy(rng.choice([0, 1, 2], size=n).astype(np.int32)).to(dev)
+        ks = (1, 64, n + 3) if n <= 2049 else (1, 64)
+        for cname, cyc in _claim_cycles(rng, n).items():
+            cycle = torch.from_numpy(cyc.astype(np.int32)).to(dev)
+            for k in ks:
+                want = claim.plain(state, cycle, k=k)
+                for bn in (None, 128, n):
+                    if min(n, bn or claim.DEFAULT_BLOCK) > max_block:
+                        try:
+                            claim.cmp_claim(state, cycle, k=k, block_n=bn)
+                        except ValueError:
+                            refused += 1
+                            continue
+                        raise AssertionError(f"cmp_claim took block_n={bn} > {max_block}")
+                    got = claim.cmp_claim(state, cycle, k=k, block_n=bn)
+                    for nm, g, w in zip(("new_state", "ids"), got, want):
+                        if not torch.equal(g, w):
+                            raise AssertionError(f"cmp_claim N={n} k={k} block_n={bn} "
+                                                 f"cycles {cname}: {nm} differs")
+                    cases += 1
+    log(f"[kernels] cmp_claim: bit-exact on {cases} (N, k, block_n, cycles) cases, "
+        f"N from 1 to {1 << 20}; {refused} tiles above {max_block} refused")
+    k, timed = 64, {}
+    # the largest single tile; the JAX dev bench's pool; the full-card page pool
+    for n in (2048, 4096, 65536):
+        state = torch.from_numpy(rng.choice([0, 1, 2], size=n).astype(np.int32)).to(dev)
+        cycle = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+        key = torch.where(state == 1, cycle, imax)
+        ms = cuda_ms(lambda: claim.cmp_claim(state, cycle, k=k), 200)
+        plain_ms = cuda_ms(lambda: claim.plain(state, cycle, k=k), 50)
+        lib_ms = cuda_ms(lambda: torch.topk(key, k, largest=False), 200)
+        b_ms, b_by = bound(4 * (3 * n + k), 0)  # state, cycle in; new_state, ids out
+        path = "tiled, default block" if n > claim.DEFAULT_BLOCK else "one tile"
+        log(f"[kernels] cmp_claim N={n} k={k} ({path}): kernel_ms={ms:.5f} "
+            f"plain_ms={plain_ms:.5f} topk_ms={lib_ms:.5f} (selection only, tie order "
+            f"unspecified) bound_ms={b_ms:.7f} ({b_by})")
+        timed[n] = (ms, plain_ms, lib_ms, b_ms, b_by)
+    ms, plain_ms, lib_ms, b_ms, b_by = timed[65536]
+    return dict(name="cmp_claim", source="src/repro_torch/kernels/csrc/cmp_claim.cu",
+                replaces="src/repro/kernels/cmp_claim.py:95,137", max_abs_err=0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def _sdpa_heads(q, k, v, H, KV):
@@ -329,38 +399,107 @@ def main_path(seed: int, kernels: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the device CMP queue
+# ---------------------------------------------------------------------------
+
+
+def device_queue(seed: int, kernels: dict) -> dict:
+    """FIFO churn on a 65,536-slot pool, card against CPU every round; then
+    the rate of ``slotpool.claim`` on the card."""
+    from repro_torch.core import slotpool
+    from repro_torch.kernels import cmp_claim
+
+    n, window, rounds = 65536, 128, 500
+    rng = np.random.default_rng(seed)
+    pools = {"cuda": slotpool.make(n, "cuda"), "cpu": slotpool.make(n, "cpu")}
+    for dev in pools:  # a backlog of half the pool
+        pools[dev], _, _ = slotpool.produce(pools[dev], n // 2)
+    torch.cuda.synchronize()
+    for mod in kernels.values():
+        mod.launches = 0
+    claimed = []
+    for r in range(rounds):
+        kp, kc, delta = (int(x) for x in rng.integers(1, 65, size=3))
+        outs = {}
+        for dev, pool in pools.items():
+            pool, pids, pvalid = slotpool.produce(pool, kp)
+            cycle = pool.cycle
+            pool, ids, valid = slotpool.claim(pool, kc)
+            pool = slotpool.advance(pool, torch.minimum(pool.deque_cycle + delta,
+                                                        pool.enq_cycle))
+            pool, nrec = slotpool.reclaim(pool, window)
+            pools[dev] = pool
+            outs[dev] = (cycle, pids, pvalid, ids, valid, nrec, *pool)
+        for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"device queue round {r}: output {i} differs "
+                                     f"between card and CPU")
+        cycle, ids, valid = (outs["cpu"][i] for i in (0, 3, 4))
+        claimed += cycle[ids[valid].long()].tolist()
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    # N > the default tile, so every claim is tiled: two launches each
+    if launches["cmp_claim"] != 2 * rounds:
+        raise AssertionError(f"cmp_claim launches {launches['cmp_claim']} != 2 x "
+                             f"{rounds} tiled claims")
+    if len(claimed) < rounds or any(b <= a for a, b in zip(claimed, claimed[1:])):
+        raise AssertionError("claimed cycles are not strictly ascending (FIFO)")
+    pool = pools["cuda"]
+    slotpool.check_invariants(pool, window)
+    log(f"[queue] N={n} window={window}: {rounds} rounds of produce/claim/advance/"
+        f"reclaim (k in [1, 64]), card == CPU every round; {len(claimed)} claims in "
+        f"strictly ascending cycle order; invariants hold; {slotpool.counts(pool)}")
+    calls, k = 200, 64
+    got = torch.zeros((), dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        pool, ids, valid = slotpool.claim(pool, k)
+        got += valid.sum()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_claims = int(got)
+    if n_claims != calls * k:
+        raise AssertionError(f"{n_claims} of {calls * k} claims were valid")
+    kernel_ms = cuda_ms(lambda: cmp_claim.cmp_claim(pool.state, pool.cycle, k=k), 200)
+    log(f"[queue] slotpool.claim k={k} on the card: {n_claims / wall:.1f} claims/s "
+        f"({wall / calls * 1e3:.5f} ms a call, host clock); cmp_claim kernel "
+        f"{kernel_ms:.5f} ms a call (CUDA events); launches {launches}")
+    held = [pool]
+
+    def one_claim():
+        held[0], _, _ = slotpool.claim(held[0], k)
+
+    profile_steps(one_claim, 50, f"50 slotpool.claim calls (k={k}, N={n})")
+    return launches
+
+
 def _self_device_us(evt) -> float:
     return getattr(evt, "self_device_time_total",
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def profile_decode(eng, cfg, rng, steps: int = 4) -> None:
-    """Where a decode step's time goes: a full batch of 8 lanes (64-token
-    prompts) decodes ``steps`` steps under ``torch.profiler``; prints the
+def profile_steps(step, steps: int, what: str) -> None:
+    """Run ``step`` ``steps`` times under ``torch.profiler``; print the
     device's busy share of the window and the largest device kernels and
-    host ops. Runs after the launch counts were read."""
+    host ops, per step."""
     from torch.profiler import ProfilerActivity, profile
 
-    prompts = [rng.integers(0, cfg.vocab_size, size=64).tolist()
-               for _ in range(eng.max_batch)]
-    eng.submit_many(prompts, max_new_tokens=steps + 2)
-    eng.step()  # admit (prefill) every lane, decode once
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    eng.run_until_idle()
     avgs = prof.key_averages()
     # kernels only: an op's own entry repeats the device time of its kernels
     dev = sorted((e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
                   and _self_device_us(e) > 0), key=_self_device_us, reverse=True)
     busy_ms = sum(_self_device_us(e) for e in dev) / 1e3
-    log(f"[profile] {steps} decode steps x {eng.max_batch} lanes under the "
-        f"profiler: wall {wall_ms / steps:.3f} ms/step, device busy "
-        f"{busy_ms / steps:.3f} ms/step, busy share {busy_ms / wall_ms:.4f}")
+    log(f"[profile] {what} under the profiler: wall {wall_ms / steps:.3f} ms/step, "
+        f"device busy {busy_ms / steps:.4f} ms/step, busy share {busy_ms / wall_ms:.4f}")
     for e in dev[:8]:
         log(f"[profile] device {_self_device_us(e) / 1e3 / steps:9.4f} ms/step "
             f"x{e.count // steps:5d}  {e.key[:90]}")
@@ -369,6 +508,18 @@ def profile_decode(eng, cfg, rng, steps: int = 4) -> None:
     for e in host[:8]:
         log(f"[profile] host   {e.self_cpu_time_total / 1e3 / steps:9.4f} ms/step "
             f"x{e.count // steps:5d}  {e.key[:90]}")
+
+
+def profile_decode(eng, cfg, rng, steps: int = 4) -> None:
+    """Where a decode step's time goes: a full batch of 8 lanes (64-token
+    prompts) decodes ``steps`` steps under ``torch.profiler``. Runs after
+    the launch counts were read."""
+    prompts = [rng.integers(0, cfg.vocab_size, size=64).tolist()
+               for _ in range(eng.max_batch)]
+    eng.submit_many(prompts, max_new_tokens=steps + 2)
+    eng.step()  # admit (prefill) every lane, decode once
+    profile_steps(eng.step, steps, f"{steps} decode steps x {eng.max_batch} lanes")
+    eng.run_until_idle()
 
 
 def main() -> int:
@@ -382,7 +533,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
     from repro_torch.kernels import _build
-    from repro_torch.kernels import cmp_ring, flash_attention, paged_attention
+    from repro_torch.kernels import cmp_claim, cmp_ring, flash_attention, paged_attention
 
     # phase 1: card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -408,15 +559,18 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = [check_ring(cmp_ring, rng), check_paged(paged_attention, gen),
-            check_flash(flash_attention, gen)]
+            check_flash(flash_attention, gen), check_claim(cmp_claim, rng)]
 
     # phase 4: small-input reference
     small_reference(args.seed)
 
     # phase 5: the main path
     kernels = {"cmp_ring": cmp_ring, "paged_attention": paged_attention,
-               "flash_attention": flash_attention}
+               "flash_attention": flash_attention, "cmp_claim": cmp_claim}
     launches = main_path(args.seed, kernels)
+
+    # phase 6: the device CMP queue
+    launches["cmp_claim"] = device_queue(args.seed, kernels)["cmp_claim"]
     for row in rows:
         row["route"] = "cuda"
         row["launches"] = launches[row["name"]]

@@ -22,9 +22,11 @@ written. State is int32 throughout, with 0-d int32 tensors for
 package's. Invalid lanes carry ``id == num_slots``; the scatters here drop
 them explicitly (``_set_drop``), as ``.at[].set(mode="drop")`` does in JAX.
 
-The k-way earliest-cycle ``claim`` is not here yet: it waits for the
-``cmp_claim`` CUDA kernel. ``claim_ids`` (claim *specific* slots), which is
-all :class:`~repro_torch.serving.kv_cache.PagedKVPool` uses, is.
+The k-way earliest-cycle ``claim`` (strict FIFO) runs the ``cmp_claim``
+kernel (:func:`repro_torch.kernels.ops.claim`: CUDA on the card, its plain
+version on the CPU) and reads nothing back to the host.
+:class:`~repro_torch.serving.kv_cache.PagedKVPool` uses ``claim_ids``
+(claim *specific* slots) instead.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 
 from repro_torch.core import domain
 from repro_torch.core.domain import AVAILABLE, CLAIMED, FREE
+from repro_torch.kernels import ops as kops
 
 _INT_MAX = torch.iinfo(torch.int32).max
 
@@ -95,6 +98,32 @@ def produce(pool: SlotPool, k: int) -> Tuple[SlotPool, torch.Tensor, torch.Tenso
     cycle = _set_drop(pool.cycle, ids, new_cycles)
     enq_cycle = (pool.enq_cycle + counts.sum()).to(torch.int32)
     return pool._replace(state=state, cycle=cycle, enq_cycle=enq_cycle), ids, valid
+
+
+# ---------------------------------------------------------------------------
+# claim: AVAILABLE -> CLAIMED (dequeue / block release)
+# ---------------------------------------------------------------------------
+
+
+def claim(pool: SlotPool, k: int) -> Tuple[SlotPool, torch.Tensor, torch.Tensor]:
+    """Claim up to ``k`` earliest-cycle AVAILABLE slots (strict FIFO).
+
+    The earliest-claim property (paper §3.7 FIFO invariant 3) comes from
+    the claim kernel, which fuses the selection with the AVAILABLE ->
+    CLAIMED transition; ``deque_cycle`` then advances by the domain's
+    monotone max-publish (dequeue Phase 5), and the claimed slots retire at
+    the *new* boundary (``claim_ids`` writes the old one). Returns (pool',
+    ids[k], valid[k]); no value is read back to the host.
+    """
+    n = pool.num_slots
+    state, ids = kops.claim(pool.state, pool.cycle, k=k)
+    valid = ids < n
+    seen = pool.cycle[ids.clamp(0, n - 1).long()]
+    claimed_max = torch.where(valid, seen, 0).max().to(torch.int32)
+    deque_cycle = domain.publish_boundary(pool.deque_cycle, claimed_max).to(torch.int32)
+    retire = _set_drop(pool.retire_cycle, ids, deque_cycle)
+    return pool._replace(state=state, retire_cycle=retire,
+                         deque_cycle=deque_cycle), ids, valid
 
 
 # ---------------------------------------------------------------------------

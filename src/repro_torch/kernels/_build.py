@@ -38,9 +38,12 @@ SIGNATURES = {
     "rt_cmp_ring_step": [_P] * 7 + [_I] * 5 + [_P],
     "rt_paged_attention": [_P] * 6 + [_I] * 7 + [_P],
     "rt_flash_attention": [_P] * 5 + [_I] * 9 + [_P],
+    "rt_cmp_claim_tiles": [_P] * 5 + [_I] * 3 + [_P],
+    "rt_cmp_claim_merge": [_P] * 3 + [_I] * 4 + [_P],
     "rt_cmp_ring_max_n": [],
     "rt_paged_attention_max_rep_hd": [],
     "rt_flash_attention_max_hd": [],
+    "rt_cmp_claim_max_block": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None

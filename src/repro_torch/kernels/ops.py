@@ -4,6 +4,7 @@ for CUDA tensors."""
 
 from __future__ import annotations
 
+from repro_torch.kernels import cmp_claim as _claim
 from repro_torch.kernels import cmp_ring as _ring
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
@@ -26,3 +27,10 @@ def ring_step(state, cycle, meta, req, *, k, window):
     """Fused admission-ring step (reclaim + enqueue-many + k-way claim +
     frontier publish) in one call; ``req`` = (push_n, want) host ints."""
     return _ring.cmp_ring_step(state, cycle, meta, req, k=k, window=window)
+
+
+def claim(state, cycle, *, k, block_n=None):
+    """Fused earliest-claim: (new_state, ids), ids == N marks an invalid
+    lane. Pools larger than one tile take the tiled path (per-tile
+    candidates + cross-tile merge)."""
+    return _claim.cmp_claim(state, cycle, k=k, block_n=block_n)

@@ -105,3 +105,27 @@ def ref_ring_step(state, cycle, meta, req, *, k, window):
     i32 = torch.int32
     return (state.to(i32), cycle.to(i32), new_meta.to(i32),
             claimed_cycles.to(i32))
+
+
+def ref_claim(state, cycle, k):
+    """Claim the k earliest-cycle AVAILABLE slots, ties to the lowest id.
+
+    state, cycle: int32 [N]. Returns (new_state [N], ids [k], valid [k]):
+    the chosen ids in ascending (cycle, id) order, AVAILABLE -> CLAIMED at
+    each; lanes past the claimable slots hold ``N`` (also when k > N). A
+    slot whose cycle is INT32_MAX is never claimable, as in the Pallas
+    kernel. A stable sort of the key lists equal keys in index order, which
+    is the kernel's tie order (``torch.topk``'s is unspecified)."""
+    n = state.shape[0]
+    key = torch.where(state == AVAILABLE, cycle, _INT_MAX)
+    head, order = torch.sort(key, stable=True)
+    head, order = head[:k], order[:k]
+    if k > n:  # over-ask: pad with invalid lanes
+        head = torch.cat([head, head.new_full((k - n,), _INT_MAX)])
+        order = torch.cat([order, order.new_full((k - n,), n)])
+    valid = head != _INT_MAX
+    ids = torch.where(valid, order, n).to(torch.int32)
+    # scatter with id == N dropped: it lands in a spare slot that is cut off
+    ext = torch.cat([state, state.new_zeros(1)])
+    ext[ids.long()] = CLAIMED
+    return ext[:-1], ids, valid

@@ -6,13 +6,15 @@ skip; on a machine with one, run them with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: 2e-5 in float32 (sums in another order), 3e-2 (flash) and
-4e-2 (paged) in bfloat16, the reference tests' tolerances."""
+4e-2 (paged) in bfloat16, the reference tests' tolerances; the CMP kernels
+(ring, claim) and the slot pool bit-exact."""
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import cmp_ring, flash_attention, paged_attention
+from repro_torch.core import slotpool
+from repro_torch.kernels import cmp_claim, cmp_ring, flash_attention, paged_attention
 
 pytestmark = pytest.mark.cuda
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -45,6 +47,57 @@ def test_ring_kernel_is_bit_exact(dev, n, k):
             assert torch.equal(a, b)
         state, cycle, meta = got[:3]
     assert cmp_ring.launches == before + 60
+
+
+def _claim_inputs(n, seed, dev):
+    rng = np.random.default_rng(seed)
+    state = rng.choice([0, 1, 2], size=n).astype(np.int32)
+    cycle = rng.permutation(n).astype(np.int32)
+    cycle[rng.random(n) < 0.05] = np.iinfo(np.int32).max
+    cycle[rng.random(n) < 0.05] = -1
+    return (torch.from_numpy(state).to(dev), torch.from_numpy(cycle).to(dev))
+
+
+@pytest.mark.parametrize("n", [1, 300, 2048, 2049, 65536])
+@pytest.mark.parametrize("k,block_n", [(1, None), (64, None), (64, 128), (5, 7),
+                                       ("n+3", None), ("n+3", 256)])
+def test_claim_kernel_is_bit_exact(dev, n, k, block_n):
+    k = n + 3 if k == "n+3" else k
+    state, cycle = _claim_inputs(n, n + k, dev)
+    tiled = n > (block_n or cmp_claim.DEFAULT_BLOCK)
+    before = cmp_claim.launches
+    got = cmp_claim.cmp_claim(state, cycle, k=k, block_n=block_n)
+    assert cmp_claim.launches == before + (2 if tiled else 1)
+    want = cmp_claim.plain(state, cycle, k=k)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_claim_kernel_refuses_a_tile_above_one_cta(dev):
+    state, cycle = _claim_inputs(65536, 0, dev)
+    with pytest.raises(ValueError):
+        cmp_claim.cmp_claim(state, cycle, k=4, block_n=65536)
+
+
+def test_slotpool_claim_on_card_matches_cpu(dev):
+    """A short FIFO churn on a 5000-slot pool (tiled claims): card and CPU
+    pools stay bit-identical after every op."""
+    rng = np.random.default_rng(3)
+    pools = {"cuda": slotpool.make(5000, dev), "cpu": slotpool.make(5000, "cpu")}
+    for name in pools:
+        pools[name], _, _ = slotpool.produce(pools[name], 3000)
+    for _ in range(40):
+        kp, kc = int(rng.integers(1, 65)), int(rng.integers(1, 65))
+        outs = {}
+        for name, pool in pools.items():
+            pool, _, _ = slotpool.produce(pool, kp)
+            pool, ids, valid = slotpool.claim(pool, kc)
+            pool = slotpool.advance(pool, pool.deque_cycle + 1)
+            pool, _ = slotpool.reclaim(pool, 128)
+            pools[name], outs[name] = pool, (ids, valid)
+        for a, b in zip(outs["cuda"] + tuple(pools["cuda"]),
+                        outs["cpu"] + tuple(pools["cpu"])):
+            assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("B,H,KV,hd,page,P,pps", [

@@ -25,16 +25,18 @@ def _same_out(t, j):
 
 @pytest.mark.parametrize("seed", range(6))
 def test_random_op_sequences_match_jax(seed):
-    """produce / produce_with_reclaim / claim_ids / advance / reclaim /
-    reclaim_retired in random order, compared after every op. claim_ids
+    """produce / produce_with_reclaim / claim / claim_ids / advance /
+    reclaim / reclaim_retired in random order, compared after every op.
+    claim (the earliest-cycle claim kernel's plain version) over-asks too,
+    and retires at the new boundary; claim_ids
     takes a random subset of the live slots plus at least one sentinel
     lane, which the JAX scatters drop (mode="drop") and the port masks."""
     rng = np.random.default_rng(seed)
     n = (5, 8, 13)[seed % 3]
     tp, jp = tsp.make(n, "cpu"), jsp.make(n)
     for _ in range(60):
-        op = rng.choice(["produce", "pwr", "claim_ids", "advance", "reclaim",
-                         "reclaim_retired"])
+        op = rng.choice(["produce", "pwr", "claim", "claim_ids", "advance",
+                         "reclaim", "reclaim_retired"])
         if op == "produce":
             k = int(rng.choice([1, 3, n + 2]))  # over-asks pad with invalid lanes
             tp, tid, tv = tsp.produce(tp, k)
@@ -44,6 +46,11 @@ def test_random_op_sequences_match_jax(seed):
             k, w = int(rng.choice([2, 4])), int(rng.choice([0, 3]))
             tp, tid, tv = tsp.produce_with_reclaim(tp, k, w)
             jp, jid, jv = jsp.produce_with_reclaim(jp, k, w)
+            _same_out(tid, jid), _same_out(tv, jv)
+        elif op == "claim":
+            k = int(rng.choice([1, 3, n + 2]))
+            tp, tid, tv = tsp.claim(tp, k)
+            jp, jid, jv = jsp.claim(jp, k)
             _same_out(tid, jid), _same_out(tv, jv)
         elif op == "claim_ids":
             live = np.flatnonzero(np.asarray(jp.state) == jsp.AVAILABLE)
