@@ -10,7 +10,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's full-width shapes (Yi-6B heads) and, for the claim
    kernel, at pool sizes up to 2**20 slots, with times of the kernel, the
-   plain version and, where there is one, a PyTorch library call;
+   plain version and, where there is one, a PyTorch library call (the
+   attention kernels and SDPA timed as device time from a CUDA graph of
+   back-to-back calls, and as the eager loop of earlier runs);
 4. small-input reference: the port's ``Engine`` on the Yi-6B smoke config in
    float32, on the card (kernels) and on the CPU (plain versions), must give
    token-identical outputs;
@@ -34,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +51,31 @@ TOL_BF16 = 2e-2                # atol = rtol: f32 sums in another order + bf16 r
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def graph_ms(fn, iters: int, reps: int = 5) -> float:
+    """Mean device time of one call of ``fn``: ``iters`` calls captured in a
+    CUDA graph (after a warm-up call outside it), replayed ``reps`` times
+    between CUDA events. Measures the device, not the host's launch loop."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -69,6 +97,19 @@ def bound(bytes_moved: float, flops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _kernel_name(ptxas_line: str) -> str:
+    """The kernel's name out of a mangled symbol in a ptxas line (the
+    length-prefixed identifier that ends in ``_kernel``), with its template
+    arguments."""
+    for m in re.finditer(r"\d+", ptxas_line):
+        for i in range(m.start(), m.end()):  # the run may end a hash: try its tails
+            name = ptxas_line[m.end():m.end() + int(ptxas_line[i:m.end()])]
+            if name[:1].isalpha() and name.endswith("_kernel"):
+                tail = re.match(r"I(\w*?)EE", ptxas_line[m.end() + len(name):])
+                return name + (f"<{tail.group(1)}>" if tail else "")
+    return "?"
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -193,38 +234,70 @@ def _sdpa_heads(q, k, v, H, KV):
 
 
 def check_paged(pa, gen) -> dict:
-    B, H, KV, hd, page, pps = 8, 32, 4, 128, 16, 64
-    P = B * pps + 1
+    """The split-K paged kernel against its plain version at the decode
+    shape (B=8, Yi-6B heads, pps=64): mixed seq_lens, then every lane at 256
+    (the main path's contexts) and at 1024 (max_seq). Times: the kernel's
+    device time from a CUDA graph of back-to-back calls that rotate over 4
+    disjoint page sets (67 MB, more than the 50 MB L2), SDPA the same way on
+    dense copies, and the eager wrapper loop of earlier runs (warm L2)."""
+    B, H, KV, hd, page, pps, sets = 8, 32, 4, 128, 16, 64, 4
+    P = sets * B * pps + 1
     dev, dt = "cuda", torch.bfloat16
     q = torch.randn(B, H, hd, generator=gen, device=dev).to(dt)
     kp = torch.randn(P, KV, page, hd, generator=gen, device=dev).to(dt)
     vp = torch.randn(P, KV, page, hd, generator=gen, device=dev).to(dt)
-    bt = (torch.randperm(P - 1, generator=gen, device=dev)[:B * pps] + 1)
-    bt = bt.view(B, pps).to(torch.int32).contiguous()
+    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    bts = [perm[i * B * pps:(i + 1) * B * pps].view(B, pps).to(torch.int32).contiguous()
+           for i in range(sets)]
+    bt = bts[0]
     sl = torch.tensor([0, 1, 17, 300, 511, 777, 1000, 1024], dtype=torch.int32,
                       device=dev)
     err = check_close("paged_attention", pa.paged_attention(q, kp, vp, bt, sl),
                       pa.plain(q, kp, vp, bt, sl))
-    # time at the decode shape of a full batch near max_seq
-    sl_t = torch.full((B,), 1024, dtype=torch.int32, device=dev)
-    ms = cuda_ms(lambda: pa.paged_attention(q, kp, vp, bt, sl_t), 200)
-    plain_ms = cuda_ms(lambda: pa.plain(q, kp, vp, bt, sl_t), 20)
-    # library yardstick: SDPA over the same K/V already gathered to dense
-    # (the gather is not timed)
-    T = pps * page
-    kd = kp[bt.long()].movedim(2, 1).reshape(B, KV, T, hd)
-    vd = vp[bt.long()].movedim(2, 1).reshape(B, KV, T, hd)
-    qs, kd, vd = _sdpa_heads(q[:, :, None], kd, vd, H, KV)
-    mask = (torch.arange(T, device=dev)[None, :] < sl_t[:, None])[:, None, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = cuda_ms(lambda: sdpa(qs, kd, vd, attn_mask=mask, enable_gqa=True), 200)
-    toks = int(sl_t.sum())
-    moved = 2 * (2 * B * H * hd + 2 * toks * KV * hd) + 4 * (B * pps + B)
-    b_ms, b_by = bound(moved, 4 * toks * H * hd)
-    log(f"[kernels] paged_attention B={B} H={H} KV={KV} hd={hd} page={page} "
-        f"pps={pps} bf16: max_abs_err={err:.3e} (atol=rtol={TOL_BF16}); at seq_len 1024: "
-        f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} sdpa_ms={lib_ms:.5f} "
-        f"bound_ms={b_ms:.5f} ({b_by})")
+    T = pps * page
+    timed = {}
+    for n in (256, 1024):
+        sl_t = torch.full((B,), n, dtype=torch.int32, device=dev)
+        err = max(err, check_close(f"paged_attention seq_len {n}",
+                                   pa.paged_attention(q, kp, vp, bt, sl_t),
+                                   pa.plain(q, kp, vp, bt, sl_t)))
+        rot = [0]
+
+        def kernel():
+            rot[0] = (rot[0] + 1) % sets
+            pa.paged_attention(q, kp, vp, bts[rot[0]], sl_t)
+
+        ms = graph_ms(kernel, 4 * sets)
+        eager_ms = cuda_ms(lambda: pa.paged_attention(q, kp, vp, bt, sl_t), 200)
+        plain_ms = cuda_ms(lambda: pa.plain(q, kp, vp, bt, sl_t), 20)
+        # library yardstick: SDPA over the same K/V already gathered to dense
+        # (the gather is not timed), one dense copy per page set
+        dense = [[x[b.long()].movedim(2, 1).reshape(B, KV, T, hd) for x in (kp, vp)]
+                 for b in bts]
+        qs, _, _ = _sdpa_heads(q[:, :, None], None, None, H, KV)
+        mask = (torch.arange(T, device=dev)[None, :] < sl_t[:, None])[:, None, None]
+
+        def library():
+            rot[0] = (rot[0] + 1) % sets
+            kd, vd = dense[rot[0]]
+            sdpa(qs, kd, vd, attn_mask=mask, enable_gqa=True)
+
+        lib_ms = graph_ms(library, 4 * sets)
+        lib_eager = cuda_ms(lambda: sdpa(qs, *dense[0], attn_mask=mask, enable_gqa=True),
+                            200)
+        del dense
+        toks = int(sl_t.sum())
+        moved = 2 * (2 * B * H * hd + 2 * toks * KV * hd) + 4 * (B * pps + B)
+        b_ms, b_by = bound(moved, 4 * toks * H * hd)
+        log(f"[kernels] paged_attention B={B} H={H} KV={KV} hd={hd} page={page} "
+            f"pps={pps} bf16 seq_len {n}: kernel_ms={ms:.5f} (graph, cold L2) "
+            f"eager_ms={eager_ms:.5f} plain_ms={plain_ms:.5f} sdpa_ms={lib_ms:.5f} "
+            f"(graph) sdpa_eager_ms={lib_eager:.5f} bound_ms={b_ms:.7f} ({b_by}); "
+            f"{pa.launches_per_call(pps, page)} launches a call")
+        timed[n] = (ms, plain_ms, b_ms, b_by, lib_ms)
+    log(f"[kernels] paged_attention: max_abs_err={err:.3e} (atol=rtol={TOL_BF16})")
+    ms, plain_ms, b_ms, b_by, lib_ms = timed[1024]
     return dict(name="paged_attention",
                 source="src/repro_torch/kernels/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:102", max_abs_err=err,
@@ -233,10 +306,15 @@ def check_paged(pa, gen) -> dict:
 
 
 def check_flash(fa, gen) -> dict:
+    """The flash kernel (bf16: wgmma tiles) against its plain version at
+    Yi-6B's heads, B=1; times at S=T=512 (the yardstick of earlier runs) and
+    128 (a prefill length of the main path): device time from a CUDA graph,
+    SDPA the same way, and the eager wrapper loop of earlier runs."""
     B, H, KV, hd = 1, 32, 4, 128
     dev, dt = "cuda", torch.bfloat16
     errs = []
-    cases = [(512, True, 0), (300, True, 0), (512, True, 128), (300, False, 0)]
+    cases = [(512, True, 0), (300, True, 0), (512, True, 128), (300, False, 0),
+             (128, True, 0)]
     inputs = {}
     for S, causal, window in cases:
         q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(dt)
@@ -251,18 +329,25 @@ def check_flash(fa, gen) -> dict:
         log(f"[kernels] flash_attention B={B} H={H} KV={KV} hd={hd} S=T={S} "
             f"causal={causal} window={window} bf16: max_abs_err={err:.3e} "
             f"(atol=rtol={TOL_BF16})")
-    S = 512
-    q, k, v = inputs[(S, True, 0)]
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 100)
-    plain_ms = cuda_ms(lambda: fa.plain(q, k, v, causal=True), 20)
-    qs, ks, vs = _sdpa_heads(q, k, v, H, KV)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True), 100)
-    pairs = S * (S + 1) // 2
-    moved = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
-    b_ms, b_by = bound(moved, 4 * B * H * pairs * hd)
-    log(f"[kernels] flash_attention causal S=T={S}: kernel_ms={ms:.5f} "
-        f"plain_ms={plain_ms:.5f} sdpa_ms={lib_ms:.5f} bound_ms={b_ms:.5f} ({b_by})")
+    timed = {}
+    for S in (128, 512):
+        q, k, v = inputs[(S, True, 0)]
+        ms = graph_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20)
+        eager_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 100)
+        plain_ms = cuda_ms(lambda: fa.plain(q, k, v, causal=True), 20)
+        qs, ks, vs = _sdpa_heads(q, k, v, H, KV)
+        lib_ms = graph_ms(lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True), 20)
+        lib_eager = cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True), 100)
+        pairs = S * (S + 1) // 2
+        moved = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
+        b_ms, b_by = bound(moved, 4 * B * H * pairs * hd)
+        log(f"[kernels] flash_attention causal S=T={S}: kernel_ms={ms:.5f} (graph) "
+            f"eager_ms={eager_ms:.5f} plain_ms={plain_ms:.5f} sdpa_ms={lib_ms:.5f} "
+            f"(graph) sdpa_eager_ms={lib_eager:.5f} bound_ms={b_ms:.7f} ({b_by}); "
+            f"kernel/sdpa {ms / lib_ms:.3f}")
+        timed[S] = (ms, plain_ms, b_ms, b_by, lib_ms)
+    ms, plain_ms, b_ms, b_by, lib_ms = timed[512]
     return dict(name="flash_attention",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:112",
@@ -375,9 +460,11 @@ def main_path(seed: int, kernels: dict) -> dict:
         raise AssertionError("non-finite logits on the main path")
     decode_ms, prefill_ms = fwd.ms("decode"), fwd.ms("prefill")
     n_dec, n_pre = len(decode_ms), len(prefill_ms)
-    if launches["paged_attention"] != n_dec * cfg.num_layers:
+    per_call = kernels["paged_attention"].launches_per_call(eng.pps, eng.page_size)
+    if launches["paged_attention"] != per_call * n_dec * cfg.num_layers:
         raise AssertionError(f"paged launches {launches['paged_attention']} != "
-                             f"{n_dec} decode steps x {cfg.num_layers}")
+                             f"{per_call} a call x {n_dec} decode steps x "
+                             f"{cfg.num_layers} layers")
     if launches["flash_attention"] != n_pre * cfg.num_layers:
         raise AssertionError(f"flash launches {launches['flash_attention']} != "
                              f"{n_pre} prefills x {cfg.num_layers}")
@@ -500,7 +587,8 @@ def profile_steps(step, steps: int, what: str) -> None:
     busy_ms = sum(_self_device_us(e) for e in dev) / 1e3
     log(f"[profile] {what} under the profiler: wall {wall_ms / steps:.3f} ms/step, "
         f"device busy {busy_ms / steps:.4f} ms/step, busy share {busy_ms / wall_ms:.4f}")
-    for e in dev[:8]:
+    # the top 8, and the port's attention kernels wherever they rank
+    for e in dev[:8] + [e for e in dev[8:] if "paged" in e.key or "flash" in e.key]:
         log(f"[profile] device {_self_device_us(e) / 1e3 / steps:9.4f} ms/step "
             f"x{e.count // steps:5d}  {e.key[:90]}")
     host = sorted((e for e in avgs if e.device_type == torch.autograd.DeviceType.CPU),
@@ -551,9 +639,12 @@ def main() -> int:
     _build.lib()
     log(f"[build] {lib_path.relative_to(_build.ROOT)} ready in "
         f"{time.perf_counter() - t0:.2f}s")
+    kernel = "?"
     for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = _kernel_name(line)
+        elif "registers" in line or "spill" in line:
+            log(f"[build] {kernel}: {line.replace('ptxas info    :', '').strip()}")
 
     # phase 3: kernels against their plain versions
     rng = np.random.default_rng(args.seed)

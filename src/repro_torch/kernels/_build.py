@@ -36,7 +36,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes (all return int, a cudaError_t).
 SIGNATURES = {
     "rt_cmp_ring_step": [_P] * 7 + [_I] * 5 + [_P],
-    "rt_paged_attention": [_P] * 6 + [_I] * 7 + [_P],
+    "rt_paged_attention": [_P] * 8 + [_I] * 8 + [_P],
     "rt_flash_attention": [_P] * 5 + [_I] * 9 + [_P],
     "rt_cmp_claim_tiles": [_P] * 5 + [_I] * 3 + [_P],
     "rt_cmp_claim_merge": [_P] * 3 + [_I] * 4 + [_P],

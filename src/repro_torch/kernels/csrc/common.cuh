@@ -22,5 +22,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' mask value
+constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x * kLog2e)
 
 }  // namespace rt

@@ -1,25 +1,49 @@
-// Paged decode attention for Hopper.
+// Paged decode attention for Hopper: split-K over pages plus a combine pass.
 //
 // Replaces: src/repro/kernels/paged_attention.py :: _paged_kernel (the
 // pallas_call in paged_attention). One query token per sequence attends
 // over its KV pages: q [B,H,hd], k/v pages [P,KV,page,hd], block_tables
-// [B,pps] int32, seq_lens [B] int32 -> out [B,H,hd]. Online softmax over
-// pages in f32, scale 1/sqrt(hd), positions >= seq_len masked with -1e30,
-// pages with p*page >= seq_len skipped, out = acc / max(l, 1e-30); a
-// sequence of length 0 gives zeros. GQA is r-major: query head h reads KV
-// head h % KV.
+// [B,pps] int32, seq_lens [B] int32 -> out [B,H,hd]. Softmax in f32, scale
+// 1/sqrt(hd), positions >= seq_len masked (-1e30, probability 0), pages with
+// p*page >= seq_len never read, out = acc / max(l, 1e-30); a sequence of
+// length 0 gives zeros. GQA is r-major: query head h reads KV head h % KV.
 //
 // What bounds it: device-memory bytes. Decode reads every live K and V
 // element once for one query token per head, about 2 FLOP per byte, far
-// below the card's ~295 FLOP/byte balance point in bf16.
-// Design: one block per (KV head, sequence) serves all H/KV query heads of
-// that KV head, so each page is read from device memory once (the Pallas
-// grid (B,H,pps) reads it once per query head). The block loads its own
-// block-table row and seq_len (no scalar prefetch), stages one K and one V
-// page at a time in shared memory as f32 (K rows padded to hd+1 so the
-// score loop is free of bank conflicts), and keeps m and l in shared memory
-// and acc in registers. At B=8, KV=4 that is 32 blocks on 132 SMs: the next
-// step is a split-K pass over pages.
+// below the card's ~295 FLOP/byte balance point in bf16. At B=8, 1,024
+// tokens, that is 16.9 MB, 5.05 us at 3.35 TB/s: the card needs hundreds of
+// KB in flight, so the work has to be spread over every SM.
+// Design: the grid is (KV head, sequence, split). A split is a fixed chunk
+// of pages_per_split pages chosen on the host from the page size alone (64
+// tokens; 4 pages of 16), so the split count follows from pps and never
+// from seq_lens (the decode path reads nothing back to the host). A CTA
+// serves all H/KV query heads of its KV head, so each page is read once,
+// and issues 16-byte cp.async copies of all its live K and V rows at once
+// (K and V in two commit groups: scores start while V is in flight). Each
+// split writes (m, l, acc[rep, hd]) in f32 to scratch the wrapper
+// allocates; a second launch combines the splits of each (sequence, head):
+//   out = sum_i 2^(m_i - M) acc_i / max(sum_i 2^(m_i - M) l_i, 1e-30).
+// A split with no live token writes m = -1e30, l = 0, acc = 0, which weighs
+// 0 against any live split and gives zeros when all are empty. With one
+// split the first launch writes the output itself. Softmax in exp2 with
+// log2(e)/sqrt(hd) folded into the scale.
+//
+// bfloat16 (paged_mma_kernel): both products on the tensor cores with
+// mma.sync m16n8k16, the H/KV query heads padded to the 16 rows of the A
+// tile. A per-phase clock64 trace on an H100 showed the CUDA-core version
+// latency-bound in every phase (about 10 us a CTA for 64 tokens); here a
+// warp scores its 8 tokens in hd/16 mma (K by ldmatrix from rows padded by
+// 16 bytes, so the 8 rows of a matrix hit distinct banks), the softmax
+// reduces over a quad by shuffles and across the 8 warps in shared memory,
+// P goes to shared memory as bf16 and P.V runs a warp per 16 columns of hd
+// (V by ldmatrix.trans). Rows past the live tokens are zeroed, since a 0
+// probability times stale bits would be NaN.
+//
+// float32 (paged_f32_kernel): the tensor cores would need TF32, which misses
+// the f32 tolerance (2e-5), so the CUDA cores: a thread scores one (token,
+// head) pair with 4 partial sums (a warp takes 32 tokens of one head, q
+// reads broadcast, K rows padded), a thread per head runs the softmax, and
+// a thread per output element sums P.V.
 #include <cmath>
 
 #include "common.cuh"
@@ -27,138 +51,463 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxAcc = 16;  // rep*hd <= kThreads * kMaxAcc
+constexpr int kMaxRepHd = kThreads * 16;
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+constexpr int kVec = 4;  // floats in a 16-byte copy
+
+// A split with no live token: (m, l, acc) = (-1e30, 0, 0), or zeros in the
+// output when it is the only split. part indexes (b, head 0, split).
 template <typename T>
+__device__ __forceinline__ void write_empty_split(T* out, float* part_acc, float* part_ml,
+                                                  int64_t part, int b, int g, int H, int KV,
+                                                  int hd) {
+  const int rep = H / KV, n_split = gridDim.z;
+  for (int e = threadIdx.x; e < rep * hd; e += blockDim.x) {
+    const int h = (e / hd) * KV + g, d = e % hd;
+    if (n_split == 1)
+      out[(static_cast<int64_t>(b) * H + h) * hd + d] = rt::from_f<T>(0.f);
+    else
+      part_acc[(part + static_cast<int64_t>(h) * n_split) * hd + d] = 0.f;
+  }
+  if (n_split > 1)
+    for (int r = threadIdx.x; r < rep; r += blockDim.x) {
+      const int64_t o = part + static_cast<int64_t>(r * KV + g) * n_split;
+      part_ml[2 * o] = rt::kNegInf;
+      part_ml[2 * o + 1] = 0.f;
+    }
+}
+
 __global__ void __launch_bounds__(kThreads)
-paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-             const T* __restrict__ v_pages, const int* __restrict__ block_tables,
-             const int* __restrict__ seq_lens, T* __restrict__ out, int H, int KV,
-             int page, int hd, int pps, float scale) {
-  extern __shared__ float smem[];
+paged_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
+                 const float* __restrict__ v_pages, const int* __restrict__ block_tables,
+                 const int* __restrict__ seq_lens, float* __restrict__ out,
+                 float* __restrict__ part_acc, float* __restrict__ part_ml, int H, int KV,
+                 int page, int hd, int pps, int ppc, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rep = H / KV;
-  const int hdp = hd + 1;
-  float* q_s = smem;                  // [rep][hd]
-  float* k_s = q_s + rep * hd;        // [page][hd+1]
-  float* v_s = k_s + page * hdp;      // [page][hd]
-  float* p_s = v_s + page * hd;       // [rep][page]
-  float* m_s = p_s + rep * page;      // [rep]
-  float* l_s = m_s + rep;             // [rep]
-  float* c_s = l_s + rep;             // [rep]
+  const int chunk = ppc * page;  // tokens of a full split
+  const int kp = hd + kVec;      // padded K row
+  float* k_s = reinterpret_cast<float*>(smem_raw);  // [chunk][hd + kVec]
+  float* v_s = k_s + chunk * kp;                    // [chunk][hd]
+  float* q_s = v_s + chunk * hd;                    // [rep][hd]
+  float* s_s = q_s + rep * hd;                      // [rep][chunk]
+  float* m_s = s_s + rep * chunk;                   // [rep]
+  float* l_s = m_s + rep;                           // [rep]
 
-  const int g = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int seq_len = seq_lens[b];
-  const int n_pages = seq_len > 0 ? min((seq_len + page - 1) / page, pps) : 0;
-  const int n_out = rep * hd;
+  const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z, n_split = gridDim.z;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int live = min(seq_lens[b], pps * page);      // tokens that exist
+  const int t0 = split * chunk;
+  const int n_t = max(0, min(chunk, live - t0));      // live tokens of this split
+  const int64_t part = (static_cast<int64_t>(b) * H) * n_split + split;  // + h*n_split
 
-  for (int e = tid; e < n_out; e += kThreads) {
-    const int r = e / hd, d = e % hd;
-    q_s[e] = rt::to_f(q[(static_cast<int64_t>(b) * H + r * KV + g) * hd + d]);
+  if (n_t == 0) {  // weight 0 in the combine; zeros when it is the only split
+    write_empty_split(out, part_acc, part_ml, part, b, g, H, KV, hd);
+    return;
   }
+
+  // K, then V, of the live pages: 16-byte copies, two commit groups; K rows
+  // padded by 16 bytes
+  const int vec_per_row = hd / kVec, vec_per_page = page * vec_per_row;
+  const int n_vec = ((n_t + page - 1) / page) * vec_per_page;
+  const int* bt = block_tables + static_cast<int64_t>(b) * pps + split * ppc;
+  for (int pass = 0; pass < 2; ++pass) {
+    const float* src = pass == 0 ? k_pages : v_pages;
+    float* dst = pass == 0 ? k_s : v_s;
+    const int ld = pass == 0 ? kp : hd;
+    for (int e = tid; e < n_vec; e += kThreads) {
+      const int p = e / vec_per_page, w = e % vec_per_page;
+      const int64_t pid = bt[p];
+      cp_async16(dst + (p * page + w / vec_per_row) * ld + (w % vec_per_row) * kVec,
+                 src + ((pid * KV + g) * page) * hd + w * kVec);
+    }
+    cp_async_commit();
+  }
+  for (int e = tid; e < rep * hd; e += kThreads)
+    q_s[e] = q[(static_cast<int64_t>(b) * H + (e / hd) * KV + g) * hd + e % hd];
+  cp_async_wait<1>();  // this thread's K copies landed
+  __syncthreads();     // everyone's K copies and q_s visible
+
+  // scores, in log2 units: a thread per (token, head), 4 partial sums; a
+  // warp takes 32 tokens of one head, so its q reads are broadcasts and,
+  // with the padded rows, its K reads hit distinct banks
+  const int n_groups = (n_t + 31) / 32;
+  for (int e = tid; e < n_groups * 32 * rep; e += kThreads) {
+    const int w = e / 32, r = w % rep, t = (w / rep) * 32 + lane;
+    if (t >= n_t) continue;
+    const float* kr = k_s + t * kp;
+    const float* qr = q_s + r * hd;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int c = 0; c < hd; c += kVec) {
+      const float4 k4 = *reinterpret_cast<const float4*>(kr + c);
+      const float4 q4 = *reinterpret_cast<const float4*>(qr + c);
+      acc.x += q4.x * k4.x;
+      acc.y += q4.y * k4.y;
+      acc.z += q4.z * k4.z;
+      acc.w += q4.w * k4.w;
+    }
+    s_s[r * chunk + t] = (acc.x + acc.y + acc.z + acc.w) * scale_log2;
+  }
+  __syncthreads();
+
+  // the chunk's softmax, a thread per query head (every token here is live)
   for (int r = tid; r < rep; r += kThreads) {
-    m_s[r] = rt::kNegInf;
-    l_s[r] = 0.f;
+    float* row = s_s + r * chunk;
+    float mx = rt::kNegInf;
+#pragma unroll 8
+    for (int t = 0; t < n_t; ++t) mx = fmaxf(mx, row[t]);
+    float sum = 0.f;
+#pragma unroll 8
+    for (int t = 0; t < n_t; ++t) {
+      const float p = exp2f(row[t] - mx);
+      row[t] = p;
+      sum += p;
+    }
+    m_s[r] = mx;
+    l_s[r] = sum;
   }
-  float acc[kMaxAcc];
-#pragma unroll
-  for (int i = 0; i < kMaxAcc; ++i) acc[i] = 0.f;
+  cp_async_wait<0>();  // V landed
+  __syncthreads();
 
-  for (int p = 0; p < n_pages; ++p) {
-    const int64_t pid = block_tables[static_cast<int64_t>(b) * pps + p];
-    const int64_t base = (pid * KV + g) * static_cast<int64_t>(page) * hd;
-    for (int e = tid; e < page * hd; e += kThreads) {
-      const int t = e / hd, d = e % hd;
-      k_s[t * hdp + d] = rt::to_f(k_pages[base + e]);
-      v_s[e] = rt::to_f(v_pages[base + e]);
-    }
-    __syncthreads();
-    // scores s[r][t], masked past seq_len
-    for (int e = tid; e < rep * page; e += kThreads) {
-      const int r = e / page, t = e % page;
-      float dot = 0.f;
-      for (int d = 0; d < hd; ++d) dot += q_s[r * hd + d] * k_s[t * hdp + d];
-      p_s[e] = (p * page + t < seq_len) ? dot * scale : rt::kNegInf;
-    }
-    __syncthreads();
-    // online softmax, one thread per query head
+  // acc[r][d] = sum_t p[r][t] v[t][d], a thread per output
+  for (int e = tid; e < rep * hd; e += kThreads) {
+    const int r = e / hd, d = e % hd, h = r * KV + g;
+    const float* pr = s_s + r * chunk;
+    float a = 0.f;
+#pragma unroll 4
+    for (int t = 0; t < n_t; ++t) a += pr[t] * v_s[t * hd + d];
+    if (n_split == 1)
+      out[(static_cast<int64_t>(b) * H + h) * hd + d] = a / fmaxf(l_s[r], 1e-30f);
+    else
+      part_acc[(part + static_cast<int64_t>(h) * n_split) * hd + d] = a;
+  }
+  if (n_split > 1)
     for (int r = tid; r < rep; r += kThreads) {
-      const float m_prev = m_s[r];
-      float mx = rt::kNegInf;
-      for (int t = 0; t < page; ++t) mx = fmaxf(mx, p_s[r * page + t]);
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = 0; t < page; ++t) {
-        const float pr = (p * page + t < seq_len) ? expf(p_s[r * page + t] - m_new) : 0.f;
-        p_s[r * page + t] = pr;
-        sum += pr;
-      }
-      const float corr = expf(m_prev - m_new);
-      l_s[r] = l_s[r] * corr + sum;
-      m_s[r] = m_new;
-      c_s[r] = corr;
+      const int64_t o = part + static_cast<int64_t>(r * KV + g) * n_split;
+      part_ml[2 * o] = m_s[r];
+      part_ml[2 * o + 1] = l_s[r];
     }
-    __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor-core tiles (mma.sync m16n8k16), one 64-token split a CTA
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk = 64;    // tokens of a split on the tensor-core path
+constexpr int kMmaRows = 16;  // query heads of a KV head, padded to the tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+// d += a b: A 16x16 (4 x bf16x2), B 16x8 (2 x bf16x2), D 16x8 f32
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragments (lane l, g4 = l / 4, q4 = l % 4): D rows g4 and g4 + 8 (query
+// heads), columns 2 q4, 2 q4 + 1 of the n8 tile; A registers i hold row
+// g4 + 8 (i % 2), k = 8 (i / 2) + 2 q4 + {0, 1}.
+template <int kMaxKs>
+__global__ void __launch_bounds__(kThreads)
+paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
+                 const __nv_bfloat16* __restrict__ v_pages,
+                 const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
+                 float* __restrict__ part_ml, int H, int KV, int page, int hd, int pps,
+                 int ppc, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rep = H / KV, ld = hd + 8;  // rows padded by 16 bytes: ldmatrix hits 8 banks
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][hd + 8]
+  __nv_bfloat16* v_s = k_s + kChunk * ld;                             // [64][hd + 8]
+  __nv_bfloat16* p_s = v_s + kChunk * ld;                             // [16][64 + 8]
+  float* mx_s = reinterpret_cast<float*>(p_s + kMmaRows * (kChunk + 8));  // [8 warps][16]
+  float* sm_s = mx_s + 8 * kMmaRows;                                  // [8 warps][16]
+
+  const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z, n_split = gridDim.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g4 = lane / 4, q4 = lane % 4;
+  const int live = min(seq_lens[b], pps * page);
+  const int n_t = max(0, min(kChunk, live - split * kChunk));
+  const int64_t part = (static_cast<int64_t>(b) * H) * n_split + split;  // + h*n_split
+
+  if (n_t == 0) {  // weight 0 in the combine; zeros when it is the only split
+    write_empty_split(out, part_acc, part_ml, part, b, g, H, KV, hd);
+    return;
+  }
+
+  // live K, then V, rows: 16-byte cp.async copies, two commit groups; rows
+  // past the live ones are zeroed (a 0 probability times stale bits is NaN)
+  const int vpr = hd / 8;
+  const int* bt = block_tables + static_cast<int64_t>(b) * pps + split * ppc;
+  for (int pass = 0; pass < 2; ++pass) {
+    const __nv_bfloat16* src = pass == 0 ? k_pages : v_pages;
+    __nv_bfloat16* dst = pass == 0 ? k_s : v_s;
+    for (int e = tid; e < kChunk * vpr; e += kThreads) {
+      const int t = e / vpr, c = e % vpr;
+      if (t < n_t) {
+        const int64_t pid = bt[t / page];
+        cp_async16(dst + t * ld + c * 8, src + ((pid * KV + g) * page + t % page) * hd + c * 8);
+      } else {
+        *reinterpret_cast<uint4*>(dst + t * ld + c * 8) = make_uint4(0, 0, 0, 0);
+      }
+    }
+    cp_async_commit();
+  }
+  // q as A fragments, straight from device memory: rows are query heads
+  uint32_t qa[kMaxKs][4];
+  const int nks = hd / 16;
+  const int64_t qrow0 = (static_cast<int64_t>(b) * H + g4 * KV + g) * hd;
+  const int64_t qrow1 = (static_cast<int64_t>(b) * H + (g4 + 8) * KV + g) * hd;
 #pragma unroll
-    for (int i = 0; i < kMaxAcc; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < n_out) {
-        const int r = e / hd, d = e % hd;
-        float a = acc[i] * c_s[r];
-        for (int t = 0; t < page; ++t) a += p_s[r * page + t] * v_s[t * hd + d];
-        acc[i] = a;
-      }
+  for (int ks = 0; ks < kMaxKs; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = g4 + 8 * (i % 2), kcol = 16 * ks + 8 * (i / 2) + 2 * q4;
+      qa[ks][i] = (ks < nks && row < rep)
+          ? *reinterpret_cast<const uint32_t*>(q + (i % 2 ? qrow1 : qrow0) + kcol) : 0u;
     }
-    __syncthreads();
+  cp_async_wait<1>();
+  __syncthreads();  // K in place
+
+  // S = Q K^T for this warp's 8 tokens
+  float sc[4] = {0.f, 0.f, 0.f, 0.f};
+  const int tok = 8 * warp;
+#pragma unroll
+  for (int ks = 0; ks < kMaxKs; ++ks) {
+    if (ks < nks) {
+      uint32_t b0, b1;
+      ldsm_x2(smem_u32(k_s + (tok + lane % 8) * ld + 16 * ks + 8 * ((lane / 8) % 2)), b0, b1);
+      mma16816(sc, qa[ks], b0, b1);
+    }
+  }
+  // softmax over the split for each head: quad shuffles, then across warps
+  const int t0 = tok + 2 * q4;
+  float p[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = t0 + i % 2 < n_t ? sc[i] * scale_log2 : rt::kNegInf;
+  float ma = fmaxf(p[0], p[1]), mb = fmaxf(p[2], p[3]);
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, off));
+    mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, off));
+  }
+  if (q4 == 0) {
+    mx_s[warp * kMmaRows + g4] = ma;
+    mx_s[warp * kMmaRows + g4 + 8] = mb;
+  }
+  __syncthreads();
+  ma = mb = rt::kNegInf;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    ma = fmaxf(ma, mx_s[w * kMmaRows + g4]);
+    mb = fmaxf(mb, mx_s[w * kMmaRows + g4 + 8]);
   }
 #pragma unroll
-  for (int i = 0; i < kMaxAcc; ++i) {
-    const int e = tid + i * kThreads;
-    if (e < n_out) {
-      const int r = e / hd, d = e % hd;
-      out[(static_cast<int64_t>(b) * H + r * KV + g) * hd + d] =
-          rt::from_f<T>(acc[i] / fmaxf(l_s[r], 1e-30f));
+  for (int i = 0; i < 4; ++i) p[i] = p[i] == rt::kNegInf ? 0.f : exp2f(p[i] - (i < 2 ? ma : mb));
+  float la = p[0] + p[1], lb = p[2] + p[3];
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    la += __shfl_xor_sync(0xffffffffu, la, off);
+    lb += __shfl_xor_sync(0xffffffffu, lb, off);
+  }
+  if (q4 == 0) {
+    sm_s[warp * kMmaRows + g4] = la;
+    sm_s[warp * kMmaRows + g4 + 8] = lb;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(p_s + g4 * (kChunk + 8) + t0) =
+      __floats2bfloat162_rn(p[0], p[1]);
+  *reinterpret_cast<__nv_bfloat162*>(p_s + (g4 + 8) * (kChunk + 8) + t0) =
+      __floats2bfloat162_rn(p[2], p[3]);
+  cp_async_wait<0>();
+  __syncthreads();  // V, P and the per-warp sums in place
+
+  // O = P V: a warp per pair of 8-column tiles of hd
+  uint32_t pa[kChunk / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < kChunk / 16; ++ks)
+    ldsm_x4(smem_u32(p_s + (lane % 8 + 8 * ((lane / 8) % 2)) * (kChunk + 8) + 16 * ks +
+                     8 * (lane / 16)),
+            pa[ks]);
+  la = lb = 0.f;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    la += sm_s[w * kMmaRows + g4];
+    lb += sm_s[w * kMmaRows + g4 + 8];
+  }
+  for (int pair = warp; pair < hd / 16; pair += 8) {
+    float o[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int ks = 0; ks < kChunk / 16; ++ks) {
+      uint32_t vb[4];
+      ldsm_x4_t(smem_u32(v_s + (16 * ks + lane % 8 + 8 * ((lane / 8) % 2)) * ld + 16 * pair +
+                         8 * (lane / 16)),
+                vb);
+      mma16816(o[0], pa[ks], vb[0], vb[1]);
+      mma16816(o[1], pa[ks], vb[2], vb[3]);
     }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = g4 + 8 * half, col = 16 * pair + 8 * j + 2 * q4;
+        if (r >= rep) continue;
+        const int h = r * KV + g;
+        const float a0 = o[j][2 * half], a1 = o[j][2 * half + 1];
+        if (n_split == 1) {
+          const float inv = 1.f / fmaxf(half ? lb : la, 1e-30f);
+          *reinterpret_cast<__nv_bfloat162*>(out + (static_cast<int64_t>(b) * H + h) * hd +
+                                             col) = __floats2bfloat162_rn(a0 * inv, a1 * inv);
+        } else {
+          *reinterpret_cast<float2*>(part_acc + (part + static_cast<int64_t>(h) * n_split) *
+                                                    hd + col) = make_float2(a0, a1);
+        }
+      }
+  }
+  if (n_split > 1 && warp == 0 && q4 == 0)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = g4 + 8 * half;
+      if (r >= rep) continue;
+      const int64_t o = part + static_cast<int64_t>(r * KV + g) * n_split;
+      part_ml[2 * o] = half ? mb : ma;
+      part_ml[2 * o + 1] = half ? lb : la;
+    }
+}
+
+// One CTA per (sequence, query head): weigh each split by 2^(m_i - M).
+template <typename T>
+__global__ void __launch_bounds__(128)
+paged_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                     T* __restrict__ out, int n_split, int hd) {
+  extern __shared__ float ml_s[];  // [n_split][2]
+  const int64_t bh = blockIdx.x;
+  for (int i = threadIdx.x; i < 2 * n_split; i += blockDim.x)
+    ml_s[i] = part_ml[bh * n_split * 2 + i];
+  __syncthreads();
+  float M = rt::kNegInf;
+  for (int i = 0; i < n_split; ++i) M = fmaxf(M, ml_s[2 * i]);
+  float denom = 0.f;
+  for (int i = 0; i < n_split; ++i) denom += exp2f(ml_s[2 * i] - M) * ml_s[2 * i + 1];
+  const float inv = 1.f / fmaxf(denom, 1e-30f);
+  const float* acc = part_acc + bh * n_split * hd;
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float a = 0.f;
+    for (int i = 0; i < n_split; ++i) a += exp2f(ml_s[2 * i] - M) * acc[i * hd + d];
+    out[bh * hd + d] = rt::from_f<T>(a * inv);
   }
 }
 
+// the combine launch, when there is more than one split
 template <typename T>
-int launch(const void* q, const void* kp, const void* vp, const void* bt,
-           const void* sl, void* out, int B, int H, int KV, int page, int hd,
-           int pps, cudaStream_t stream) {
-  const int rep = H / KV;
-  const size_t smem = sizeof(float) *
-      (rep * hd + page * (hd + 1) + page * hd + rep * page + 3 * rep);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(KV, B);
-  paged_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      static_cast<const int*>(bt), static_cast<const int*>(sl), static_cast<T*>(out),
-      H, KV, page, hd, pps, 1.0f / sqrtf(static_cast<float>(hd)));
+int combine(void* part_acc, void* part_ml, void* out, int BH, int n_split, int hd,
+            cudaStream_t stream) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  paged_combine_kernel<T><<<BH, 128, 2 * n_split * sizeof(float), stream>>>(
+      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
+      static_cast<T*>(out), n_split, hd);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(const void* q, const void* kp, const void* vp, const void* bt, const void* sl,
+               void* out, void* part_acc, void* part_ml, int B, int H, int KV, int page,
+               int hd, int pps, int ppc, cudaStream_t stream) {
+  if (hd % kVec != 0 || ppc <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int rep = H / KV, chunk = ppc * page;
+  const int n_split = (pps + ppc - 1) / ppc;
+  const size_t smem =
+      sizeof(float) * (chunk * (2 * hd + kVec) + rep * hd + rep * chunk + 2 * rep);
+  static size_t smem_set = 48 * 1024;  // the attribute only grows
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
+  }
+  paged_f32_kernel<<<dim3(KV, B, n_split), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kp), static_cast<const float*>(vp),
+      static_cast<const int*>(bt), static_cast<const int*>(sl), static_cast<float*>(out),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), H, KV, page, hd, pps, ppc,
+      rt::kLog2e / sqrtf(static_cast<float>(hd)));
+  return combine<float>(part_acc, part_ml, out, B * H, n_split, hd, stream);
+}
+
+template <int kMaxKs>
+int launch_mma(const void* q, const void* kp, const void* vp, const void* bt, const void* sl,
+               void* out, void* part_acc, void* part_ml, int B, int H, int KV, int page,
+               int hd, int pps, int ppc, cudaStream_t stream) {
+  const int n_split = (pps + ppc - 1) / ppc;
+  const int smem = 2 * kChunk * (hd + 8) * 2 + kMmaRows * (kChunk + 8) * 2 +
+                   2 * 8 * kMmaRows * 4;
+  static int smem_set = 48 * 1024;  // the attribute only grows
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_mma_kernel<kMaxKs>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
+  }
+  paged_mma_kernel<kMaxKs><<<dim3(KV, B, n_split), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(bt),
+      static_cast<const int*>(sl), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), H, KV, page, hd, pps, ppc,
+      rt::kLog2e / sqrtf(static_cast<float>(hd)));
+  return combine<__nv_bfloat16>(part_acc, part_ml, out, B * H, n_split, hd, stream);
 }
 
 }  // namespace
 
+// ppc: pages per split (the host's choice); with (pps + ppc - 1) / ppc > 1
+// splits, part_acc holds [B, H, splits, hd] and part_ml [B, H, splits, 2]
+// floats, and a combine launch follows.
 extern "C" int rt_paged_attention(const void* q, const void* k_pages,
                                   const void* v_pages, const void* block_tables,
-                                  const void* seq_lens, void* out, int B, int H,
-                                  int KV, int page, int hd, int pps, int dtype,
-                                  void* stream) {
-  if (B <= 0 || KV <= 0 || H % KV != 0 || (H / KV) * hd > kThreads * kMaxAcc)
+                                  const void* seq_lens, void* out, void* part_acc,
+                                  void* part_ml, int B, int H, int KV, int page, int hd,
+                                  int pps, int ppc, int dtype, void* stream) {
+  if (B <= 0 || KV <= 0 || pps <= 0 || H % KV != 0 || (H / KV) * hd > kMaxRepHd)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kF32)
-    return launch<float>(q, k_pages, v_pages, block_tables, seq_lens, out, B, H,
-                         KV, page, hd, pps, s);
-  if (dtype == rt::kBF16)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, block_tables, seq_lens, out,
-                                 B, H, KV, page, hd, pps, s);
+    return launch_f32(q, k_pages, v_pages, block_tables, seq_lens, out, part_acc, part_ml, B,
+                      H, KV, page, hd, pps, ppc, s);
+  if (dtype == rt::kBF16) {
+    if (ppc * page != kChunk || hd % 16 != 0 || hd > 256 || H / KV > kMmaRows)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return (hd <= 128 ? launch_mma<8> : launch_mma<16>)(
+        q, k_pages, v_pages, block_tables, seq_lens, out, part_acc, part_ml, B, H, KV, page,
+        hd, pps, ppc, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int rt_paged_attention_max_rep_hd() { return kThreads * kMaxAcc; }
+extern "C" int rt_paged_attention_max_rep_hd() { return kMaxRepHd; }

@@ -9,6 +9,10 @@ inputs through their strides (only head_dim must be contiguous), and the
 output it returns is a [B, H, S, hd] view of a [B, S, H, hd] buffer, so
 the model-layout wrapper in ``ops`` moves no data either way.
 
+bfloat16 runs on the tensor cores (wgmma tiles fed by TMA copies over
+tensor maps built per call from the strides); float32 stays on the CUDA
+cores, as TF32 would miss the f32 tolerance.
+
 On a CPU tensor the wrapper runs the plain version, ``plain`` (=
 ``ref.ref_flash_attention``); on a CUDA tensor it launches the kernel or
 raises. ``launches`` counts kernel launches.
@@ -49,7 +53,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     if B == 0 or S == 0:
         return out
-    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    st = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    if q.dtype == torch.bfloat16:  # TMA: 16-byte aligned base and strides
+        _build.require(hd % 8 == 0 and T > 0 and all(s % 8 == 0 for s in st)
+                       and all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+                       "flash_attention: bfloat16 needs head_dim % 8 == 0, T > 0 and "
+                       "16-byte aligned rows")
+    strides = (ctypes.c_int64 * 12)(*st)
     err = lib.rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
         B, H, KV, S, T, hd, int(causal), int(sliding_window),

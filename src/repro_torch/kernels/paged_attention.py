@@ -6,9 +6,20 @@ Replaces the Pallas kernel ``repro/kernels/paged_attention.py``
 layouts are the JAX package's: q [B, H, hd], k/v pages [P, KV, page, hd],
 block_tables [B, pages_per_seq] int32, seq_lens [B] int32 -> [B, H, hd].
 
+The kernel splits each sequence's pages into chunks of ``pages_per_split``
+pages (64 tokens), one CTA per (KV head, sequence, chunk), and a second
+launch combines the chunks' partial softmax sums. The split count comes
+from the page size and ``pages_per_seq`` alone, never from ``seq_lens``, so
+a call reads nothing back to the host. bfloat16 runs both products on the
+tensor cores (mma.sync); float32 stays on the CUDA cores, as TF32 would
+miss the f32 tolerance. ``ref.ref_paged_attention_split`` is the same
+partition and combine in plain PyTorch (the tests hold it to the JAX
+package).
+
 On a CPU tensor the wrapper runs the plain version, ``plain`` (=
 ``ref.ref_paged_attention``); on a CUDA tensor it launches the kernel or
-raises. ``launches`` counts kernel launches.
+raises. ``launches`` counts kernel launches: ``launches_per_call`` of them
+a call.
 """
 
 from __future__ import annotations
@@ -19,6 +30,21 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_paged_attention as plain
 
 launches = 0
+SPLIT_TOKENS = 64  # tokens a CTA takes: 4 pages of 16 -> 16 splits at 1,024 tokens
+
+
+def pages_per_split(page: int) -> int:
+    return max(1, SPLIT_TOKENS // page)
+
+
+def num_splits(pps: int, page: int) -> int:
+    return -(-pps // pages_per_split(page))
+
+
+def launches_per_call(pps: int, page: int) -> int:
+    """Kernel launches of one call: the split pass, plus the combine when
+    there is more than one split."""
+    return 1 if num_splits(pps, page) == 1 else 2
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -37,7 +63,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     _build.require(tuple(v_pages.shape) == tuple(k_pages.shape),
                    "paged_attention: k/v page shapes differ")
     _build.require(tuple(block_tables.shape) == (B, pps)
-                   and tuple(seq_lens.shape) == (B,),
+                   and tuple(seq_lens.shape) == (B,) and pps > 0,
                    "paged_attention: block_tables [B,pps] / seq_lens [B] mismatch")
     for name, t, dt in (("q", q, q.dtype), ("k_pages", k_pages, q.dtype),
                         ("v_pages", v_pages, q.dtype),
@@ -45,16 +71,31 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
                         ("seq_lens", seq_lens, torch.int32)):
         _build.require(t.device == q.device and t.dtype == dt and t.is_contiguous(),
                        f"paged_attention: {name} must be contiguous {dt} on {q.device}")
+    _build.require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0
+                   and hd % 4 == 0, "paged_attention: K/V rows are copied 16 bytes at a "
+                   "time: pages 16-byte aligned, head_dim % 4 == 0")
+    if q.dtype == torch.bfloat16:  # tensor-core tiles: 16 x 8 x 16, 64-token splits
+        _build.require(SPLIT_TOKENS % page == 0 and hd % 16 == 0 and hd <= 256
+                       and H // KV <= 16, "paged_attention: bfloat16 needs a page size "
+                       "dividing 64, head_dim % 16 == 0 and <= 256, H/KV <= 16")
     lib = _build.lib()
     _build.require((H // KV) * hd <= lib.rt_paged_attention_max_rep_hd(),
                    "paged_attention: (H/KV)*head_dim too large for one block")
     out = torch.empty_like(q)
     if B == 0:
         return out
+    ppc = pages_per_split(page)
+    n_split = num_splits(pps, page)
+    part_acc = part_ml = None
+    if n_split > 1:
+        part_acc = torch.empty((B, H, n_split, hd), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B, H, n_split, 2), dtype=torch.float32, device=q.device)
     err = lib.rt_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), B, H, KV, page, hd, pps,
+        seq_lens.data_ptr(), out.data_ptr(),
+        None if part_acc is None else part_acc.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(), B, H, KV, page, hd, pps, ppc,
         _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
     _build.check(err, "paged_attention")
-    launches += 1
+    launches += launches_per_call(pps, page)
     return out

@@ -64,6 +64,40 @@ def ref_paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
     return out.to(q.dtype)
 
 
+def ref_paged_attention_split(q, k_pages, v_pages, block_tables, seq_lens,
+                              pages_per_split):
+    """The paged kernel's algorithm in plain PyTorch (for the tests): the
+    pages cut into splits of ``pages_per_split``, each split's partial
+    softmax (m, l, acc) in f32, masked past seq_len, an empty split giving
+    (-1e30, 0, 0), then the combine
+    out = sum_i e^(m_i - M) acc_i / max(sum_i e^(m_i - M) l_i, 1e-30)."""
+    B, H, hd = q.shape
+    P, KV, page, _ = k_pages.shape
+    pps = block_tables.shape[1]
+    rep = H // KV
+    chunk = pages_per_split * page
+    n_split = -(-pps // pages_per_split)
+    T = n_split * chunk  # the last split may reach past pps: masked
+    bt = block_tables.long()
+    kg = k_pages[bt].movedim(2, 1).reshape(B, KV, pps * page, hd)
+    vg = v_pages[bt].movedim(2, 1).reshape(B, KV, pps * page, hd)
+    pad = (0, 0, 0, T - pps * page)
+    kg = torch.nn.functional.pad(kg.repeat(1, rep, 1, 1).float(), pad)
+    vg = torch.nn.functional.pad(vg.repeat(1, rep, 1, 1).float(), pad)
+    s = torch.einsum("bhd,bhtd->bht", q.float(), kg) / math.sqrt(hd)
+    valid = (torch.arange(T, device=q.device)[None, :]
+             < torch.clamp(seq_lens, max=pps * page)[:, None])[:, None]
+    s = torch.where(valid, s, NEG_INF).view(B, H, n_split, chunk)
+    valid = valid.view(B, 1, n_split, chunk)
+    m = s.max(dim=-1).values                                        # [B,H,n]
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhnt,bhntd->bhnd", p, vg.view(B, H, n_split, chunk, hd))
+    w = torch.exp(m - m.max(dim=-1, keepdim=True).values)
+    out = (w[..., None] * acc).sum(2) / torch.clamp((w * l).sum(-1), min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
 def ref_ring_step(state, cycle, meta, req, *, k, window):
     """The fused admission-ring step in plain torch: window reclaim +
     batched ring enqueue (contiguous prefix accept) + k-way earliest claim +

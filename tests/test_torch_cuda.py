@@ -147,3 +147,99 @@ def test_flash_kernel_reads_strided_model_layout(dev):
     want = flash_attention.plain(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=True).transpose(1, 2)
     _close(got, want.contiguous(), 2e-5)
+
+
+@pytest.mark.parametrize("S,T,hd,causal,window", [
+    (64, 64, 128, True, 0),      # one 64x64x128 tile
+    (64, 64, 64, False, 0),      # one tile, hd 64 (one swizzled block)
+    (65, 65, 128, True, 0),      # ragged: a second tile of one row
+    (200, 200, 128, True, 0),    # ragged S and T
+    (512, 512, 128, True, 100),  # window edge inside tiles
+    (96, 333, 128, False, 0),    # non-causal, T != S
+    (130, 70, 128, True, 0),     # causal, T < S
+    (128, 128, 40, True, 0)])    # hd 40, zero-padded to 64
+def test_flash_bf16_tensor_core_tiles(dev, S, T, hd, causal, window):
+    """The bf16 wgmma kernel at the serving path's heads (H=32, KV=4)."""
+    g = torch.Generator(device=dev).manual_seed(S * 7 + T + hd)
+    q = torch.randn(1, 32, S, hd, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, 4, T, hd, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(1, 4, T, hd, generator=g, device=dev).to(torch.bfloat16)
+    before = flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    assert flash_attention.launches == before + 1
+    want = flash_attention.plain(q, k, v, causal=causal, sliding_window=window)
+    _close(got.contiguous(), want, 3e-2)
+
+
+def test_flash_bf16_reads_strided_model_layout(dev):
+    """bf16 model layout [B, S, H, hd] (as prefill hands it in) through strides."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(2, 150, 32, 128, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(2, 150, 4, 128, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(2, 150, 4, 128, generator=g, device=dev).to(torch.bfloat16)
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert got.is_contiguous()
+    want = flash_attention.plain(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True).transpose(1, 2)
+    _close(got, want.contiguous(), 3e-2)
+
+
+def test_flash_bf16_refuses_unaligned_rows(dev):
+    q = torch.zeros(1, 2, 8, 12, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, q[:, :1], q[:, :1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_split_edges(dev, dtype):
+    """pps = 64 pages of 16 (the serving path's table): 16 splits of 4 pages.
+    B = 1 lanes at seq_len 0, 1, a chunk multiple (64, 128), a chunk edge
+    inside a page (65, 72), a partial last page (1000) and the full 1024."""
+    H, KV, hd, page, pps = 32, 4, 128, 16, 64
+    P = pps + 3
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(1, H, hd, generator=g, device=dev).to(DT[dtype])
+    kp = torch.randn(P, KV, page, hd, generator=g, device=dev).to(DT[dtype])
+    vp = torch.randn(P, KV, page, hd, generator=g, device=dev).to(DT[dtype])
+    bt = torch.randperm(P, generator=g, device=dev)[:pps].view(1, pps).to(torch.int32)
+    tol = 2e-5 if dtype == "float32" else 4e-2
+    for n in (0, 1, 64, 65, 72, 128, 1000, 1024):
+        sl = torch.tensor([n], dtype=torch.int32, device=dev)
+        before = paged_attention.launches
+        got = paged_attention.paged_attention(q, kp, vp, bt, sl)
+        assert paged_attention.launches == before + paged_attention.launches_per_call(
+            pps, page) == before + 2
+        want = paged_attention.plain(q, kp, vp, bt, sl)
+        _close(got, want, tol)
+        if n == 0:
+            assert not got.any()
+
+
+def test_paged_launches_per_call(dev):
+    """One launch when the table fits one split, two (split + combine)
+    otherwise."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    for pps, want in ((4, 1), (5, 2), (64, 2)):
+        q = torch.randn(2, 8, 64, generator=g, device=dev)
+        kp = torch.randn(pps * 2, 2, 16, 64, generator=g, device=dev)
+        bt = torch.arange(pps * 2, device=dev, dtype=torch.int32).view(2, pps)
+        sl = torch.tensor([pps * 16, 3], dtype=torch.int32, device=dev)
+        before = paged_attention.launches
+        got = paged_attention.paged_attention(q, kp, kp, bt, sl)
+        assert paged_attention.launches - before == want
+        _close(got, paged_attention.plain(q, kp, kp, bt, sl), 2e-5)
+
+
+def test_paged_bf16_refuses_what_its_tiles_do_not_take(dev):
+    """bf16 runs on 16 x 8 x 16 tensor-core tiles over 64-token splits: a page
+    that does not divide 64, or a head_dim that is not a multiple of 16, is
+    refused rather than run."""
+    for page, hd in ((48, 64), (16, 40)):
+        q = torch.zeros(1, 4, hd, device=dev, dtype=torch.bfloat16)
+        kp = torch.zeros(4, 2, page, hd, device=dev, dtype=torch.bfloat16)
+        bt = torch.zeros(1, 2, device=dev, dtype=torch.int32)
+        sl = torch.ones(1, device=dev, dtype=torch.int32)
+        with pytest.raises(ValueError):
+            paged_attention.paged_attention(q, kp, kp, bt, sl)

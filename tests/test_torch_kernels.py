@@ -14,7 +14,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.cmp_ring import cmp_ring_step as pallas_ring_step
 from repro.kernels.flash_attention import flash_attention as pallas_flash
-from repro_torch.kernels import cmp_ring, flash_attention, ops, paged_attention
+from repro_torch.kernels import cmp_ring, flash_attention, ops, paged_attention, ref
 
 _jax_ring = jax.jit(jref.ref_ring_step, static_argnames=("k", "window"))
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -150,6 +150,45 @@ def test_paged_attention_matches_jax(B, H, KV, hd, page, P, pps, dtype):
     live = sl > 0  # the jnp oracle averages V over an empty sequence
     oracle = jref.ref_paged_attention(qj, kj, vj, jnp.asarray(bt), jnp.asarray(sl))
     _close(got[torch.from_numpy(live)], np.asarray(oracle, np.float32)[live], tol)
+
+
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3, 4, 7, 9])
+def test_paged_split_combine_matches_jax(pages_per_split):
+    """The CUDA kernel's split-K partition and combine, mirrored in plain
+    PyTorch, against the JAX oracle: seq_lens at 1, inside a page, at a
+    page edge, at a split edge, one past it, and the full table, so some
+    splits lie wholly past seq_len and one split is cut short by pps. At
+    seq_len 0 (the JAX oracle's known fault) the port's plain version is the
+    yardstick: zeros."""
+    B, H, KV, hd, page, P, pps = 7, 8, 2, 32, 4, 40, 8
+    rng = np.random.default_rng(pages_per_split)
+    q = rng.standard_normal((B, H, hd), np.float32)
+    kp = rng.standard_normal((P, KV, page, hd), np.float32)
+    vp = rng.standard_normal((P, KV, page, hd), np.float32)
+    bt = rng.integers(0, P, (B, pps)).astype(np.int32)
+    chunk = pages_per_split * page
+    sl = np.array([0, 1, 3, page, chunk, chunk + 1, pps * page], np.int32)
+    got = ref.ref_paged_attention_split(
+        *(torch.from_numpy(x) for x in (q, kp, vp, bt, sl)), pages_per_split)
+    live = sl > 0
+    oracle = jref.ref_paged_attention(*(jnp.asarray(x) for x in (q, kp, vp, bt, sl)))
+    _close(got[torch.from_numpy(live)], np.asarray(oracle, np.float32)[live], 2e-5)
+    plain = paged_attention.plain(*(torch.from_numpy(x) for x in (q, kp, vp, bt, sl)))
+    assert torch.equal(got[~torch.from_numpy(live)], plain[~torch.from_numpy(live)])
+    assert not got[~torch.from_numpy(live)].any()
+
+
+def test_paged_split_count_comes_from_the_table_width():
+    """The host picks the split from the page size and pages_per_seq only:
+    the main path's 64 pages of 16 give 16 splits and two launches a call;
+    a table that fits one split is one launch."""
+    assert paged_attention.pages_per_split(16) == 4
+    assert paged_attention.num_splits(64, 16) == 16
+    assert paged_attention.launches_per_call(64, 16) == 2
+    assert paged_attention.num_splits(4, 16) == 1
+    assert paged_attention.launches_per_call(4, 16) == 1
+    assert paged_attention.pages_per_split(128) == 1
+    assert paged_attention.num_splits(5, 4) == 1  # 16 pages of 4 tokens per split
 
 
 # ---------------------------------------------------------------------------
