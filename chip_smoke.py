@@ -9,10 +9,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    compiled with ``nvcc`` into ``build/`` (seconds printed);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's full-width shapes (Yi-6B heads) and, for the claim
-   kernel, at pool sizes up to 2**20 slots, with times of the kernel, the
-   plain version and, where there is one, a PyTorch library call (the
-   attention kernels and SDPA timed as device time from a CUDA graph of
-   back-to-back calls, and as the eager loop of earlier runs);
+   kernel and its fused slot-pool entry, at pool sizes up to 2**20 slots,
+   with times of the kernel, the plain version and, where there is one, a
+   PyTorch library call: each kernel and library call timed as device time
+   from a CUDA graph of back-to-back calls, and as the eager loop of
+   earlier runs;
 4. small-input reference: the port's ``Engine`` on the Yi-6B smoke config in
    float32, on the card (kernels) and on the CPU (plain versions), must give
    token-identical outputs;
@@ -24,8 +25,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    (produce, claim, advance, reclaim) on a 65,536-slot pool, the page pool
    of a card that holds Yi-6B, on the card and on the CPU, compared every
    round; strict FIFO and the pool invariants are checked, and the claim
-   kernel's launch count is read from this run alone; then the claims/s of
-   ``slotpool.claim`` on the card and a profile of 50 claims.
+   kernel's launch count (one a claim) is read from this run alone; then
+   the claims/s of ``slotpool.claim`` on the card and a profile of 50
+   claims (at most 2 ``cudaLaunchKernel`` a claim).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``kernels`` JSON line, and the card's name and power limit come earlier.
@@ -129,6 +131,22 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 # ---------------------------------------------------------------------------
 
 
+def time_ring(ring) -> tuple:
+    """The ring kernel at the engine's ring (N=128, k=64, a quarter of the
+    ring pushed): (graph ms, eager ms) of one call."""
+    n, k, window = 128, 64, 32
+    state = torch.zeros(n, dtype=torch.int32, device="cuda")
+    cycle, meta = torch.zeros_like(state), torch.zeros(2, dtype=torch.int32, device="cuda")
+    state, cycle, meta, _ = ring.cmp_ring_step(state, cycle, meta, (n // 2, 0), k=k,
+                                               window=window)
+    req = (n // 4, k)
+
+    def call():
+        ring.cmp_ring_step(state, cycle, meta, req, k=k, window=window)
+
+    return graph_ms(call, 200), cuda_ms(call, 200)
+
+
 def check_ring(ring, rng) -> dict:
     n, k, window = 128, 64, 32  # the engine's ring at max_batch 8
     dev = "cuda"
@@ -148,14 +166,14 @@ def check_ring(ring, rng) -> dict:
     if claimed_total == 0:
         raise AssertionError("cmp_ring trajectory never claimed")
     req = (n // 4, k)
-    ms = cuda_ms(lambda: ring.cmp_ring_step(state, cycle, meta, req, k=k,
-                                            window=window), 200)
+    ms, eager_ms = time_ring(ring)
     plain_ms = cuda_ms(lambda: ring.plain(state, cycle, meta, req, k=k,
                                           window=window), 50)
     moved = 4 * (4 * n + 2 + 2 + k)  # state, cycle in+out; meta in+out; claimed
     b_ms, b_by = bound(moved, 0)
     log(f"[kernels] cmp_ring N={n} k={k}: bit-exact over {steps} steps "
-        f"({claimed_total} claims); kernel_ms={ms:.5f} plain_ms={plain_ms:.5f}")
+        f"({claimed_total} claims); kernel_ms={ms:.5f} (graph) eager_ms={eager_ms:.5f} "
+        f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.7f} ({b_by})")
     return dict(name="cmp_ring", source="src/repro_torch/kernels/csrc/cmp_ring.cu",
                 replaces="src/repro/kernels/cmp_ring.py:111", max_abs_err=0.0,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -170,54 +188,89 @@ def _claim_cycles(rng, n: int) -> dict:
     return {"permuted": rng.permutation(n), "tied": np.full(n, 7), "mixed": mixed}
 
 
+CLAIM_TIMED = (2048, 4096, 65536)  # the JAX tile; the JAX dev bench's pool; the page pool
+
+
+def time_claim(claim, rng, n: int, k: int = 64) -> tuple:
+    """The claim kernel at N slots (random states, permuted cycles), k = 64:
+    (graph ms, eager ms, topk graph ms, topk eager ms) of one call;
+    ``torch.topk`` selects from the key precomputed outside the timing."""
+    state = torch.from_numpy(rng.choice([0, 1, 2], size=n).astype(np.int32)).to("cuda")
+    cycle = torch.from_numpy(rng.permutation(n).astype(np.int32)).to("cuda")
+    key = torch.where(state == 1, cycle, np.iinfo(np.int32).max)
+
+    def kernel():
+        claim.cmp_claim(state, cycle, k=k)
+
+    def library():
+        torch.topk(key, k, largest=False)
+
+    return (graph_ms(kernel, 200), cuda_ms(kernel, 200), graph_ms(library, 200),
+            cuda_ms(library, 200))
+
+
 def check_claim(claim, rng) -> dict:
     """The claim kernel against its plain version, bit-exact (``torch.equal``
-    on new_state and ids), over pool sizes, k (k > N included), tiles and
-    cycle patterns; a tile above what one CTA holds must be refused. Times
-    at N = 2,048 (one tile), 4,096 and 65,536, k = 64."""
-    from repro_torch.kernels import _build
-
-    dev, imax = "cuda", np.iinfo(np.int32).max
-    max_block = _build.lib().rt_cmp_claim_max_block()
-    cases = refused = 0
+    on new_state and ids), over pool sizes, k (k > N included), ``block_n``
+    (which does not change the result) and cycle patterns; the fused
+    slot-pool entry ``claim_pool`` on all five outputs. Times at N = 2,048,
+    4,096 and 65,536, k = 64: device time from a CUDA graph, and the eager
+    wrapper loop of earlier runs."""
+    dev = "cuda"
+    cases = pool_cases = 0
     for n in (1, 7, 2047, 2048, 2049, 4096, 65536, 1 << 20):
         state = torch.from_numpy(rng.choice([0, 1, 2], size=n).astype(np.int32)).to(dev)
+        retire = torch.from_numpy(rng.integers(-9, 9, size=n).astype(np.int32)).to(dev)
         ks = (1, 64, n + 3) if n <= 2049 else (1, 64)
         for cname, cyc in _claim_cycles(rng, n).items():
             cycle = torch.from_numpy(cyc.astype(np.int32)).to(dev)
             for k in ks:
                 want = claim.plain(state, cycle, k=k)
                 for bn in (None, 128, n):
-                    if min(n, bn or claim.DEFAULT_BLOCK) > max_block:
-                        try:
-                            claim.cmp_claim(state, cycle, k=k, block_n=bn)
-                        except ValueError:
-                            refused += 1
-                            continue
-                        raise AssertionError(f"cmp_claim took block_n={bn} > {max_block}")
                     got = claim.cmp_claim(state, cycle, k=k, block_n=bn)
                     for nm, g, w in zip(("new_state", "ids"), got, want):
                         if not torch.equal(g, w):
                             raise AssertionError(f"cmp_claim N={n} k={k} block_n={bn} "
                                                  f"cycles {cname}: {nm} differs")
                     cases += 1
-    log(f"[kernels] cmp_claim: bit-exact on {cases} (N, k, block_n, cycles) cases, "
-        f"N from 1 to {1 << 20}; {refused} tiles above {max_block} refused")
+                for dq in (-5, 3, n + 100):
+                    deque = torch.tensor(dq, dtype=torch.int32, device=dev)
+                    got = claim.claim_pool(state, cycle, retire, deque, k=k)
+                    want_pool = claim.plain_pool(state, cycle, retire, deque, k=k)
+                    for nm, g, w in zip(("new_state", "ids", "valid", "retire_cycle",
+                                         "deque_cycle"), got, want_pool):
+                        if not torch.equal(g, w):
+                            raise AssertionError(f"claim_pool N={n} k={k} deque={dq} "
+                                                 f"cycles {cname}: {nm} differs")
+                    pool_cases += 1
+    log(f"[kernels] cmp_claim: bit-exact on {cases} (N, k, block_n, cycles) cases and "
+        f"claim_pool on {pool_cases} (N, k, deque_cycle, cycles) cases, N from 1 to "
+        f"{1 << 20}; one launch a call")
     k, timed = 64, {}
-    # the largest single tile; the JAX dev bench's pool; the full-card page pool
-    for n in (2048, 4096, 65536):
+    for n in CLAIM_TIMED:
+        ms, eager_ms, lib_ms, lib_eager = time_claim(claim, rng, n, k)
         state = torch.from_numpy(rng.choice([0, 1, 2], size=n).astype(np.int32)).to(dev)
         cycle = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
-        key = torch.where(state == 1, cycle, imax)
-        ms = cuda_ms(lambda: claim.cmp_claim(state, cycle, k=k), 200)
         plain_ms = cuda_ms(lambda: claim.plain(state, cycle, k=k), 50)
-        lib_ms = cuda_ms(lambda: torch.topk(key, k, largest=False), 200)
         b_ms, b_by = bound(4 * (3 * n + k), 0)  # state, cycle in; new_state, ids out
-        path = "tiled, default block" if n > claim.DEFAULT_BLOCK else "one tile"
-        log(f"[kernels] cmp_claim N={n} k={k} ({path}): kernel_ms={ms:.5f} "
-            f"plain_ms={plain_ms:.5f} topk_ms={lib_ms:.5f} (selection only, tie order "
-            f"unspecified) bound_ms={b_ms:.7f} ({b_by})")
+        log(f"[kernels] cmp_claim N={n} k={k}: kernel_ms={ms:.5f} (graph) "
+            f"eager_ms={eager_ms:.5f} plain_ms={plain_ms:.5f} topk_ms={lib_ms:.5f} "
+            f"(graph; selection only, tie order unspecified) topk_eager_ms={lib_eager:.5f} "
+            f"bound_ms={b_ms:.7f} ({b_by}); kernel/topk {ms / lib_ms:.3f}")
         timed[n] = (ms, plain_ms, lib_ms, b_ms, b_by)
+    n = 65536
+    state = torch.from_numpy(rng.choice([0, 1, 2], size=n).astype(np.int32)).to(dev)
+    cycle = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+    retire, deque = torch.zeros_like(state), torch.zeros((), dtype=torch.int32, device=dev)
+
+    def pool_call():
+        claim.claim_pool(state, cycle, retire, deque, k=k)
+
+    pool_ms, pool_eager = graph_ms(pool_call, 200), cuda_ms(pool_call, 200)
+    pool_plain = cuda_ms(lambda: claim.plain_pool(state, cycle, retire, deque, k=k), 50)
+    b_ms, b_by = bound(4 * (5 * n + k) + k + 8, 0)  # + retire in/out, valid, deque
+    log(f"[kernels] claim_pool N={n} k={k}: kernel_ms={pool_ms:.5f} (graph) "
+        f"eager_ms={pool_eager:.5f} plain_ms={pool_plain:.5f} bound_ms={b_ms:.7f} ({b_by})")
     ms, plain_ms, lib_ms, b_ms, b_by = timed[65536]
     return dict(name="cmp_claim", source="src/repro_torch/kernels/csrc/cmp_claim.cu",
                 replaces="src/repro/kernels/cmp_claim.py:95,137", max_abs_err=0.0,
@@ -526,10 +579,9 @@ def device_queue(seed: int, kernels: dict) -> dict:
         claimed += cycle[ids[valid].long()].tolist()
     torch.cuda.synchronize()
     launches = {name: mod.launches for name, mod in kernels.items()}
-    # N > the default tile, so every claim is tiled: two launches each
-    if launches["cmp_claim"] != 2 * rounds:
-        raise AssertionError(f"cmp_claim launches {launches['cmp_claim']} != 2 x "
-                             f"{rounds} tiled claims")
+    if launches["cmp_claim"] != rounds:  # one launch a claim
+        raise AssertionError(f"cmp_claim launches {launches['cmp_claim']} != "
+                             f"{rounds} claims")
     if len(claimed) < rounds or any(b <= a for a, b in zip(claimed, claimed[1:])):
         raise AssertionError("claimed cycles are not strictly ascending (FIFO)")
     pool = pools["cuda"]
@@ -549,16 +601,25 @@ def device_queue(seed: int, kernels: dict) -> dict:
     n_claims = int(got)
     if n_claims != calls * k:
         raise AssertionError(f"{n_claims} of {calls * k} claims were valid")
-    kernel_ms = cuda_ms(lambda: cmp_claim.cmp_claim(pool.state, pool.cycle, k=k), 200)
+    def pool_claim():
+        cmp_claim.claim_pool(pool.state, pool.cycle, pool.retire_cycle,
+                             pool.deque_cycle, k=k)
+
+    kernel_ms, eager_ms = graph_ms(pool_claim, 200), cuda_ms(pool_claim, 200)
     log(f"[queue] slotpool.claim k={k} on the card: {n_claims / wall:.1f} claims/s "
-        f"({wall / calls * 1e3:.5f} ms a call, host clock); cmp_claim kernel "
-        f"{kernel_ms:.5f} ms a call (CUDA events); launches {launches}")
+        f"({wall / calls * 1e3:.5f} ms a call, host clock); its kernel (claim_pool) "
+        f"{kernel_ms:.5f} ms a call (graph), {eager_ms:.5f} eager; launches {launches}")
     held = [pool]
 
     def one_claim():
         held[0], _, _ = slotpool.claim(held[0], k)
 
-    profile_steps(one_claim, 50, f"50 slotpool.claim calls (k={k}, N={n})")
+    steps = 50
+    avgs = profile_steps(one_claim, steps, f"{steps} slotpool.claim calls (k={k}, N={n})")
+    per_call = sum(e.count for e in avgs if e.key == "cudaLaunchKernel") / steps
+    log(f"[profile] cudaLaunchKernel per slotpool.claim: {per_call:.2f}")
+    if per_call > 2:
+        raise AssertionError(f"slotpool.claim issues {per_call} kernel launches a call")
     return launches
 
 
@@ -596,6 +657,7 @@ def profile_steps(step, steps: int, what: str) -> None:
     for e in host[:8]:
         log(f"[profile] host   {e.self_cpu_time_total / 1e3 / steps:9.4f} ms/step "
             f"x{e.count // steps:5d}  {e.key[:90]}")
+    return avgs
 
 
 def profile_decode(eng, cfg, rng, steps: int = 4) -> None:

@@ -20,11 +20,12 @@ Every op takes a pool and returns a new one; the input tensors are never
 written. State is int32 throughout, with 0-d int32 tensors for
 ``enq_cycle``/``deque_cycle``, so a pool compares bit for bit with the JAX
 package's. Invalid lanes carry ``id == num_slots``; the scatters here drop
-them explicitly (``_set_drop``), as ``.at[].set(mode="drop")`` does in JAX.
+them explicitly (``ref.set_drop``), as ``.at[].set(mode="drop")`` does in JAX.
 
 The k-way earliest-cycle ``claim`` (strict FIFO) runs the ``cmp_claim``
-kernel (:func:`repro_torch.kernels.ops.claim`: CUDA on the card, its plain
-version on the CPU) and reads nothing back to the host.
+kernel with the pool's epilogue fused in
+(:func:`repro_torch.kernels.ops.claim_pool`: one CUDA launch on the card,
+its plain version on the CPU) and reads nothing back to the host.
 :class:`~repro_torch.serving.kv_cache.PagedKVPool` uses ``claim_ids``
 (claim *specific* slots) instead.
 """
@@ -38,6 +39,7 @@ import torch
 from repro_torch.core import domain
 from repro_torch.core.domain import AVAILABLE, CLAIMED, FREE
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import set_drop
 
 _INT_MAX = torch.iinfo(torch.int32).max
 
@@ -59,15 +61,6 @@ def make(num_slots: int, device="cuda") -> SlotPool:
     s = torch.zeros((), dtype=torch.int32, device=device)
     return SlotPool(state=z, cycle=z.clone(), retire_cycle=z.clone(),
                     enq_cycle=s, deque_cycle=s.clone())
-
-
-def _set_drop(arr: torch.Tensor, ids: torch.Tensor, values) -> torch.Tensor:
-    """``arr.at[ids].set(values, mode="drop")`` for ids in ``[0, n]``: the
-    sentinel ``n`` lands in a spare trailing slot that is cut off, so it
-    is dropped without a host read and without an out-of-bounds write."""
-    ext = torch.cat([arr, arr.new_zeros(1)])
-    ext[ids.long()] = values
-    return ext[:-1]
 
 
 # ---------------------------------------------------------------------------
@@ -94,8 +87,8 @@ def produce(pool: SlotPool, k: int) -> Tuple[SlotPool, torch.Tensor, torch.Tenso
     # Paper Phase 1: each produced slot gets the next monotone cycle.
     counts = valid.to(torch.int32)
     new_cycles = (pool.enq_cycle + torch.cumsum(counts, 0)).to(torch.int32)
-    state = _set_drop(pool.state, ids, AVAILABLE)
-    cycle = _set_drop(pool.cycle, ids, new_cycles)
+    state = set_drop(pool.state, ids, AVAILABLE)
+    cycle = set_drop(pool.cycle, ids, new_cycles)
     enq_cycle = (pool.enq_cycle + counts.sum()).to(torch.int32)
     return pool._replace(state=state, cycle=cycle, enq_cycle=enq_cycle), ids, valid
 
@@ -112,16 +105,12 @@ def claim(pool: SlotPool, k: int) -> Tuple[SlotPool, torch.Tensor, torch.Tensor]
     the claim kernel, which fuses the selection with the AVAILABLE ->
     CLAIMED transition; ``deque_cycle`` then advances by the domain's
     monotone max-publish (dequeue Phase 5), and the claimed slots retire at
-    the *new* boundary (``claim_ids`` writes the old one). Returns (pool',
-    ids[k], valid[k]); no value is read back to the host.
+    the *new* boundary (``claim_ids`` writes the old one). All of it is one
+    kernel launch on the card (``kops.claim_pool``). Returns (pool', ids[k],
+    valid[k]); no value is read back to the host.
     """
-    n = pool.num_slots
-    state, ids = kops.claim(pool.state, pool.cycle, k=k)
-    valid = ids < n
-    seen = pool.cycle[ids.clamp(0, n - 1).long()]
-    claimed_max = torch.where(valid, seen, 0).max().to(torch.int32)
-    deque_cycle = domain.publish_boundary(pool.deque_cycle, claimed_max).to(torch.int32)
-    retire = _set_drop(pool.retire_cycle, ids, deque_cycle)
+    state, ids, valid, retire, deque_cycle = kops.claim_pool(
+        pool.state, pool.cycle, pool.retire_cycle, pool.deque_cycle, k=k)
     return pool._replace(state=state, retire_cycle=retire,
                          deque_cycle=deque_cycle), ids, valid
 
@@ -138,8 +127,8 @@ def claim_ids(pool: SlotPool, ids: torch.Tensor, valid: torch.Tensor) -> SlotPoo
     if ids.numel() == 0:
         return pool
     ids = torch.where(valid, ids, n).to(torch.int32)
-    state = _set_drop(pool.state, ids, CLAIMED)
-    retire = _set_drop(pool.retire_cycle, ids, pool.deque_cycle)
+    state = set_drop(pool.state, ids, CLAIMED)
+    retire = set_drop(pool.retire_cycle, ids, pool.deque_cycle)
     seen = pool.cycle[ids.clamp(0, n - 1).long()]
     claimed_max = torch.where(valid, seen, 0).max().to(torch.int32)
     deque_cycle = domain.publish_boundary(pool.deque_cycle, claimed_max)

@@ -31,6 +31,12 @@ def ring_step(state, cycle, meta, req, *, k, window):
 
 def claim(state, cycle, *, k, block_n=None):
     """Fused earliest-claim: (new_state, ids), ids == N marks an invalid
-    lane. Pools larger than one tile take the tiled path (per-tile
-    candidates + cross-tile merge)."""
+    lane. One launch on the card at every N; ``block_n`` is kept for parity
+    with the JAX package and does not change the result."""
     return _claim.cmp_claim(state, cycle, k=k, block_n=block_n)
+
+
+def claim_pool(state, cycle, retire_cycle, deque_cycle, *, k):
+    """``slotpool.claim`` fused: (new_state, ids, valid, new_retire_cycle,
+    new_deque_cycle) in one launch on the card."""
+    return _claim.claim_pool(state, cycle, retire_cycle, deque_cycle, k=k)

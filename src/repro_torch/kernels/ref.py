@@ -159,7 +159,13 @@ def ref_claim(state, cycle, k):
         order = torch.cat([order, order.new_full((k - n,), n)])
     valid = head != _INT_MAX
     ids = torch.where(valid, order, n).to(torch.int32)
-    # scatter with id == N dropped: it lands in a spare slot that is cut off
-    ext = torch.cat([state, state.new_zeros(1)])
-    ext[ids.long()] = CLAIMED
-    return ext[:-1], ids, valid
+    return set_drop(state, ids, CLAIMED), ids, valid
+
+
+def set_drop(arr, ids, values):
+    """``arr.at[ids].set(values, mode="drop")`` for ids in ``[0, n]``: the
+    sentinel ``n`` lands in a spare trailing slot that is cut off, so it
+    is dropped without a host read and without an out-of-bounds write."""
+    ext = torch.cat([arr, arr.new_zeros(1)])
+    ext[ids.long()] = values
+    return ext[:-1]

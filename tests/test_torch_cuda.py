@@ -7,7 +7,7 @@ skip; on a machine with one, run them with
 
 Tolerances: 2e-5 in float32 (sums in another order), 3e-2 (flash) and
 4e-2 (paged) in bfloat16, the reference tests' tolerances; the CMP kernels
-(ring, claim) and the slot pool bit-exact."""
+(ring, claim, the fused slot-pool claim) and the slot pool bit-exact."""
 
 import numpy as np
 import pytest
@@ -64,24 +64,116 @@ def _claim_inputs(n, seed, dev):
 def test_claim_kernel_is_bit_exact(dev, n, k, block_n):
     k = n + 3 if k == "n+3" else k
     state, cycle = _claim_inputs(n, n + k, dev)
-    tiled = n > (block_n or cmp_claim.DEFAULT_BLOCK)
     before = cmp_claim.launches
     got = cmp_claim.cmp_claim(state, cycle, k=k, block_n=block_n)
-    assert cmp_claim.launches == before + (2 if tiled else 1)
+    assert cmp_claim.launches == before + 1  # one launch at every N
     want = cmp_claim.plain(state, cycle, k=k)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
 
-def test_claim_kernel_refuses_a_tile_above_one_cta(dev):
-    state, cycle = _claim_inputs(65536, 0, dev)
-    with pytest.raises(ValueError):
-        cmp_claim.cmp_claim(state, cycle, k=4, block_n=65536)
+@pytest.mark.parametrize("n", [65536, 1 << 20])
+def test_claim_bits_do_not_depend_on_block_n(dev, n):
+    """block_n is the JAX package's tile; the kernel picks its own, so every
+    block_n (tiles above the old one-CTA limit included) gives the same bits."""
+    state, cycle = _claim_inputs(n, 5, dev)
+    want = cmp_claim.plain(state, cycle, k=64)
+    for block_n in (None, 64, 128, n, 1 << 20):
+        got = cmp_claim.cmp_claim(state, cycle, k=64, block_n=block_n)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def _pool_args(n, seed, dev):
+    rng = np.random.default_rng(seed)
+    state, cycle = _claim_inputs(n, seed, dev)
+    retire = torch.from_numpy(rng.integers(-9, 9, size=n).astype(np.int32)).to(dev)
+    deque = torch.tensor(int(rng.integers(-3, 50)), dtype=torch.int32, device=dev)
+    return state, cycle, retire, deque
+
+
+@pytest.mark.parametrize("n", [7, 512, 513, 5000, 65536])
+def test_claim_pool_matches_plain_over_a_churn(dev, n):
+    """claim_pool (claim + slotpool.claim's epilogue, one launch) against its
+    plain version on all five outputs, over rounds that feed each claim's
+    state and retire cycles into the next, with fresh AVAILABLE slots."""
+    rng = np.random.default_rng(n)
+    state, cycle, retire, deque = _pool_args(n, n, dev)
+    for _ in range(12):
+        k = int(rng.choice([1, 64, n + 3]))
+        before = cmp_claim.launches
+        got = cmp_claim.claim_pool(state, cycle, retire, deque, k=k)
+        assert cmp_claim.launches == before + 1
+        want = cmp_claim.plain_pool(state, cycle, retire, deque, k=k)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        state, _, _, retire, deque = got
+        fresh = torch.from_numpy(rng.random(n) < 0.2).to(dev)
+        state = torch.where(fresh, 1, state).to(torch.int32)
+
+
+@pytest.mark.parametrize("n", [300, 65536])
+def test_claim_pool_graph_replay_matches_eager(dev, n):
+    """A CUDA graph of claim_pool calls replays to the eager calls' bits, replay
+    after replay: the arrival counter the last CTA resets is clean each time."""
+    state, cycle, retire, deque = _pool_args(n, 1, dev)
+    want = [cmp_claim.claim_pool(state, cycle, retire, deque, k=k) for k in (64, 5)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cmp_claim.claim_pool(state, cycle, retire, deque, k=64)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [cmp_claim.claim_pool(state, cycle, retire, deque, k=k) for k in (64, 5)]
+    for _ in range(3):
+        for got in outs:
+            for t in got:
+                t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, w in zip(outs, want):
+            for a, b in zip(got, w):
+                assert torch.equal(a, b)
+        again = cmp_claim.claim_pool(state, cycle, retire, deque, k=64)  # eager between replays
+        for a, b in zip(again, want[0]):
+            assert torch.equal(a, b)
+
+
+def test_claim_pool_graphs_on_one_capture_stream_replay_in_any_order(dev):
+    """Two graphs captured on torch's shared capture stream, the first call on
+    that stream under capture, share one counter zeroed before either
+    capture: replaying the second graph first gives the eager bits."""
+    n = 65536
+    state, cycle, retire, deque = _pool_args(n, 2, dev)
+    want = {k: cmp_claim.claim_pool(state, cycle, retire, deque, k=k) for k in (64, 5)}
+    graphs, outs = {}, {}
+    for k in (64, 5):
+        graphs[k] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[k]):
+            outs[k] = cmp_claim.claim_pool(state, cycle, retire, deque, k=k)
+    for k in (5, 64, 5):
+        graphs[k].replay()
+        torch.cuda.synchronize()
+        for a, b in zip(outs[k], want[k]):
+            assert torch.equal(a, b)
+
+
+def test_claim_refuses_a_first_call_under_capture(dev, monkeypatch):
+    """A device's counters are zeroed outside capture: with none made yet, a
+    call under capture raises instead of capturing the fill."""
+    monkeypatch.setattr(cmp_claim, "_blocks", {})
+    monkeypatch.setattr(cmp_claim, "_counters", {})
+    state, cycle = _claim_inputs(4096, 3, dev)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="under CUDA-graph capture"):
+        with torch.cuda.graph(graph):
+            cmp_claim.cmp_claim(state, cycle, k=64)
 
 
 def test_slotpool_claim_on_card_matches_cpu(dev):
-    """A short FIFO churn on a 5000-slot pool (tiled claims): card and CPU
-    pools stay bit-identical after every op."""
+    """A short FIFO churn on a 5000-slot pool (one claim_pool launch a
+    claim): card and CPU pools stay bit-identical after every op."""
     rng = np.random.default_rng(3)
     pools = {"cuda": slotpool.make(5000, dev), "cpu": slotpool.make(5000, "cpu")}
     for name in pools:
