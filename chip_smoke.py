@@ -8,19 +8,24 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build: the CUDA kernels under ``src/repro_torch/kernels/csrc`` are
    compiled with ``nvcc`` into ``build/`` (seconds printed);
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the serving path's full-width shapes (Yi-6B heads) and, for the claim
-   kernel and its fused slot-pool entry, at pool sizes up to 2**20 slots,
+   the serving path's full-width shapes (the attention kernels at the heads
+   of both served models: Yi-6B's and granite-moe's), the admission ring
+   at the engine's rings of max_batch 8, 256 and 1,024 (N = 128, 4,096,
+   16,384) and on states that break its enqueue invariant, and the claim
+   kernel and its fused slot-pool entry at pool sizes up to 2**20 slots,
    with times of the kernel, the plain version and, where there is one, a
    PyTorch library call: each kernel and library call timed as device time
    from a CUDA graph of back-to-back calls, and as the eager loop of
-   earlier runs;
-4. small-input reference: the port's ``Engine`` on the Yi-6B smoke config in
-   float32, on the card (kernels) and on the CPU (plain versions), must give
-   token-identical outputs;
-5. main path: Yi-6B at full width and depth in bfloat16, random weights from
-   ``--seed``, 16 requests through ``Engine(device_admission=True)`` with
+   earlier runs; beside the ring, its general path and a launch floor;
+4. small-input reference: the port's ``Engine`` on the Yi-6B and
+   granite-moe smoke configs in float32, on the card (kernels) and on the
+   CPU (plain versions), must give token-identical outputs;
+5. main path: Yi-6B, then granite-moe-3b-a800m (MoE: 40 experts, top-8), at
+   full width and depth in bfloat16, random weights from ``--seed``, 16
+   requests each through ``Engine(device_admission=True)`` with
    ``submit_many`` and ``run_until_idle``; the launch counts of the three
-   serving kernels are read from this run alone;
+   serving kernels are read from each model's run alone, and a decode step
+   of each is profiled;
 6. device CMP queue: a seeded FIFO churn through ``repro_torch.core.slotpool``
    (produce, claim, advance, reclaim) on a 65,536-slot pool, the page pool
    of a card that holds Yi-6B, on the card and on the CPU, compared every
@@ -36,6 +41,7 @@ the ``kernels`` JSON line, and the card's name and power limit come earlier.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -49,6 +55,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense
 TOL_BF16 = 2e-2                # atol = rtol: f32 sums in another order + bf16 rounding
+SERVED = ("yi_6b", "granite_moe")  # phase 5's models, dense then MoE
 
 
 def log(msg: str) -> None:
@@ -131,10 +138,14 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 # ---------------------------------------------------------------------------
 
 
-def time_ring(ring) -> tuple:
-    """The ring kernel at the engine's ring (N=128, k=64, a quarter of the
-    ring pushed): (graph ms, eager ms) of one call."""
-    n, k, window = 128, 64, 32
+RING_SIZES = (128, 4096, 16384)  # the engine's ring at max_batch 8, 256 and 1,024
+
+
+def time_ring(ring, n: int = 128) -> tuple:
+    """The ring kernel at the engine's ring of N slots (k = N/2, window
+    N/4), a quarter of the ring pushed onto a half-full ring: (graph ms,
+    eager ms) of one call."""
+    k, window = n // 2, n // 4
     state = torch.zeros(n, dtype=torch.int32, device="cuda")
     cycle, meta = torch.zeros_like(state), torch.zeros(2, dtype=torch.int32, device="cuda")
     state, cycle, meta, _ = ring.cmp_ring_step(state, cycle, meta, (n // 2, 0), k=k,
@@ -147,33 +158,87 @@ def time_ring(ring) -> tuple:
     return graph_ms(call, 200), cuda_ms(call, 200)
 
 
+def _broken_ring(rng, n: int) -> tuple:
+    """A ring state the engine never makes: random states and permuted
+    cycles, so the kernel takes its general path (a sort of the keys)."""
+    state = torch.from_numpy(rng.integers(0, 3, size=n).astype(np.int32)).to("cuda")
+    cycle = torch.from_numpy(rng.permutation(n).astype(np.int32)).to("cuda")
+    meta = torch.tensor([n // 2, 0], dtype=torch.int32, device="cuda")
+    return state, cycle, meta
+
+
 def check_ring(ring, rng) -> dict:
-    n, k, window = 128, 64, 32  # the engine's ring at max_batch 8
+    """The ring kernel against its plain version, bit-exact: a trajectory
+    of the engine's ring at each of RING_SIZES, then states that break the
+    enqueue invariant (random states; permuted, duplicate and wrapped
+    cycles). Times by graph at each size, of the general path at the
+    largest, and of a launch floor (a one-element fill_)."""
     dev = "cuda"
-    state = torch.zeros(n, dtype=torch.int32, device=dev)
-    cycle = torch.zeros(n, dtype=torch.int32, device=dev)
-    meta = torch.zeros(2, dtype=torch.int32, device=dev)
-    steps, claimed_total = 240, 0
-    for step in range(steps):
-        req = (int(rng.integers(0, n // 2 + 1)), int(rng.integers(0, k + 1)))
-        got = ring.cmp_ring_step(state, cycle, meta, req, k=k, window=window)
-        want = ring.plain(state, cycle, meta, req, k=k, window=window)
-        for nm, g, w in zip(("state", "cycle", "meta", "claimed"), got, want):
-            if not torch.equal(g, w):
-                raise AssertionError(f"cmp_ring step {step}: {nm} differs")
-        claimed_total += int((got[3] >= 0).sum())
-        state, cycle, meta = got[0], got[1], got[2]
-    if claimed_total == 0:
-        raise AssertionError("cmp_ring trajectory never claimed")
-    req = (n // 4, k)
-    ms, eager_ms = time_ring(ring)
-    plain_ms = cuda_ms(lambda: ring.plain(state, cycle, meta, req, k=k,
-                                          window=window), 50)
-    moved = 4 * (4 * n + 2 + 2 + k)  # state, cycle in+out; meta in+out; claimed
-    b_ms, b_by = bound(moved, 0)
-    log(f"[kernels] cmp_ring N={n} k={k}: bit-exact over {steps} steps "
-        f"({claimed_total} claims); kernel_ms={ms:.5f} (graph) eager_ms={eager_ms:.5f} "
-        f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.7f} ({b_by})")
+    for n in RING_SIZES:
+        k, window = n // 2, n // 4
+        state = torch.zeros(n, dtype=torch.int32, device=dev)
+        cycle = torch.zeros(n, dtype=torch.int32, device=dev)
+        meta = torch.zeros(2, dtype=torch.int32, device=dev)
+        steps, claimed_total = (240 if n <= 128 else 60), 0
+        for step in range(steps):
+            req = (int(rng.integers(0, n // 2 + 1)), int(rng.integers(0, k + 1)))
+            got = ring.cmp_ring_step(state, cycle, meta, req, k=k, window=window)
+            want = ring.plain(state, cycle, meta, req, k=k, window=window)
+            for nm, g, w in zip(("state", "cycle", "meta", "claimed"), got, want):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"cmp_ring N={n} step {step}: {nm} differs")
+            claimed_total += int((got[3] >= 0).sum())
+            state, cycle, meta = got[0], got[1], got[2]
+        if claimed_total == 0:
+            raise AssertionError(f"cmp_ring N={n} trajectory never claimed")
+        log(f"[kernels] cmp_ring N={n} k={k}: bit-exact over {steps} engine steps "
+            f"({claimed_total} claims)")
+    imax = np.iinfo(np.int32).max
+    cases = 0
+    for n in RING_SIZES:
+        for kind in ("random", "duplicate", "wrapped"):
+            state, cycle, meta = _broken_ring(rng, n)
+            if kind == "duplicate":
+                cycle = cycle % 7
+            elif kind == "wrapped":  # cycles just below INT32_MAX, the frontier past it
+                cycle = (imax - cycle.long()).to(torch.int32)
+                meta = torch.tensor([-imax - 1 + n // 3, imax - n], dtype=torch.int32,
+                                    device=dev)
+            for k, req in ((n // 2, (n // 4, n // 2)), (n, (n, n)), (n // 2, (0, 0))):
+                got = ring.cmp_ring_step(state, cycle, meta, req, k=k, window=n // 4)
+                want = ring.plain(state, cycle, meta, req, k=k, window=n // 4)
+                for nm, g, w in zip(("state", "cycle", "meta", "claimed"), got, want):
+                    if not torch.equal(g, w):
+                        raise AssertionError(f"cmp_ring N={n} {kind} k={k} req={req}: "
+                                             f"{nm} differs")
+                cases += 1
+    log(f"[kernels] cmp_ring: bit-exact on {cases} invariant-breaking cases (random "
+        f"states, duplicate and wrapped cycles; k up to N, want 0, push_n N)")
+    floor = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor_ms = graph_ms(lambda: floor.fill_(1), 200)
+    rows = {}
+    for n in RING_SIZES:
+        k = n // 2
+        ms, eager_ms = time_ring(ring, n)
+        state = torch.zeros(n, dtype=torch.int32, device=dev)
+        cycle, meta = torch.zeros_like(state), torch.zeros(2, dtype=torch.int32, device=dev)
+        state, cycle, meta, _ = ring.plain(state, cycle, meta, (n // 2, 0), k=k,
+                                           window=n // 4)
+        plain_ms = cuda_ms(lambda: ring.plain(state, cycle, meta, (n // 4, k), k=k,
+                                              window=n // 4), 50)
+        moved = 4 * (4 * n + 2 + 2 + k)  # state, cycle in+out; meta in+out; claimed
+        b_ms, b_by = bound(moved, 0)
+        log(f"[kernels] cmp_ring N={n} k={k}: kernel_ms={ms:.5f} (graph) "
+            f"eager_ms={eager_ms:.5f} plain_ms={plain_ms:.5f} bound_ms={b_ms:.7f} "
+            f"({b_by}) launch_floor_ms={floor_ms:.5f} (graph of fill_)")
+        rows[n] = (ms, plain_ms, b_ms, b_by)
+    n = RING_SIZES[-1]
+    state, cycle, meta = _broken_ring(rng, n)
+    general_ms = graph_ms(lambda: ring.cmp_ring_step(state, cycle, meta, (n // 4, n // 2),
+                                                     k=n // 2, window=n // 4), 20)
+    log(f"[kernels] cmp_ring N={n} k={n // 2} general path (random states, permuted "
+        f"cycles): kernel_ms={general_ms:.5f} (graph)")
+    ms, plain_ms, b_ms, b_by = rows[128]
     return dict(name="cmp_ring", source="src/repro_torch/kernels/csrc/cmp_ring.cu",
                 replaces="src/repro/kernels/cmp_ring.py:111", max_abs_err=0.0,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -286,35 +351,55 @@ def _sdpa_heads(q, k, v, H, KV):
     return q[:, perm], k, v
 
 
+def served_heads() -> dict:
+    """(H, KV, hd) of each model that phase 5 serves, from its config."""
+    from repro_torch.configs import get_config
+
+    cfgs = {arch: get_config(arch) for arch in SERVED}
+    return {arch: (c.num_heads, c.num_kv_heads, c.resolved_head_dim)
+            for arch, c in cfgs.items()}
+
+
 def check_paged(pa, gen) -> dict:
     """The split-K paged kernel against its plain version at the decode
-    shape (B=8, Yi-6B heads, pps=64): mixed seq_lens, then every lane at 256
-    (the main path's contexts) and at 1024 (max_seq). Times: the kernel's
+    shape of each served model (B=8, pps=64; Yi-6B's heads, then
+    granite-moe's): mixed seq_lens, then every lane at 256 (the main path's
+    contexts) and at 1024 (max_seq). Times at Yi-6B's heads: the kernel's
     device time from a CUDA graph of back-to-back calls that rotate over 4
     disjoint page sets (67 MB, more than the 50 MB L2), SDPA the same way on
     dense copies, and the eager wrapper loop of earlier runs (warm L2)."""
-    B, H, KV, hd, page, pps, sets = 8, 32, 4, 128, 16, 64, 4
+    B, page, pps, sets = 8, 16, 64, 4
     P = sets * B * pps + 1
     dev, dt = "cuda", torch.bfloat16
-    q = torch.randn(B, H, hd, generator=gen, device=dev).to(dt)
-    kp = torch.randn(P, KV, page, hd, generator=gen, device=dev).to(dt)
-    vp = torch.randn(P, KV, page, hd, generator=gen, device=dev).to(dt)
     perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
     bts = [perm[i * B * pps:(i + 1) * B * pps].view(B, pps).to(torch.int32).contiguous()
            for i in range(sets)]
     bt = bts[0]
-    sl = torch.tensor([0, 1, 17, 300, 511, 777, 1000, 1024], dtype=torch.int32,
-                      device=dev)
-    err = check_close("paged_attention", pa.paged_attention(q, kp, vp, bt, sl),
-                      pa.plain(q, kp, vp, bt, sl))
+    lens = {"mixed": torch.tensor([0, 1, 17, 300, 511, 777, 1000, 1024], dtype=torch.int32,
+                                  device=dev)}
+    for n in (256, 1024):
+        lens[n] = torch.full((B,), n, dtype=torch.int32, device=dev)
+    err, inputs, heads = 0.0, {}, served_heads()
+    for arch, (H, KV, hd) in heads.items():
+        q = torch.randn(B, H, hd, generator=gen, device=dev).to(dt)
+        kp = torch.randn(P, KV, page, hd, generator=gen, device=dev).to(dt)
+        vp = torch.randn(P, KV, page, hd, generator=gen, device=dev).to(dt)
+        inputs[arch] = (q, kp, vp)
+        arch_err = max(check_close(f"paged_attention {arch} heads seq_lens {name}",
+                                   pa.paged_attention(q, kp, vp, bt, sl),
+                                   pa.plain(q, kp, vp, bt, sl))
+                       for name, sl in lens.items())
+        log(f"[kernels] paged_attention B={B} H={H} KV={KV} hd={hd} page={page} pps={pps} "
+            f"bf16 ({arch}'s heads; seq_lens mixed 0-1024, all 256, all 1024): "
+            f"max_abs_err={arch_err:.3e} (atol=rtol={TOL_BF16})")
+        err = max(err, arch_err)
+    q, kp, vp = inputs[SERVED[0]]
+    H, KV, hd = heads[SERVED[0]]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     T = pps * page
     timed = {}
     for n in (256, 1024):
-        sl_t = torch.full((B,), n, dtype=torch.int32, device=dev)
-        err = max(err, check_close(f"paged_attention seq_len {n}",
-                                   pa.paged_attention(q, kp, vp, bt, sl_t),
-                                   pa.plain(q, kp, vp, bt, sl_t)))
+        sl_t = lens[n]
         rot = [0]
 
         def kernel():
@@ -349,7 +434,6 @@ def check_paged(pa, gen) -> dict:
             f"(graph) sdpa_eager_ms={lib_eager:.5f} bound_ms={b_ms:.7f} ({b_by}); "
             f"{pa.launches_per_call(pps, page)} launches a call")
         timed[n] = (ms, plain_ms, b_ms, b_by, lib_ms)
-    log(f"[kernels] paged_attention: max_abs_err={err:.3e} (atol=rtol={TOL_BF16})")
     ms, plain_ms, b_ms, b_by, lib_ms = timed[1024]
     return dict(name="paged_attention",
                 source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -359,29 +443,45 @@ def check_paged(pa, gen) -> dict:
 
 
 def check_flash(fa, gen) -> dict:
-    """The flash kernel (bf16: wgmma tiles) against its plain version at
-    Yi-6B's heads, B=1; times at S=T=512 (the yardstick of earlier runs) and
-    128 (a prefill length of the main path): device time from a CUDA graph,
-    SDPA the same way, and the eager wrapper loop of earlier runs."""
-    B, H, KV, hd = 1, 32, 4, 128
+    """The flash kernel (bf16: wgmma tiles) against its plain version, B=1:
+    at Yi-6B's heads, then at granite-moe's (hd 64, 3 query heads a KV head)
+    in the model layout the prefill passes ([B, S, H, hd] viewed as
+    [B, H, S, hd]) at prompt lengths of the main path (64-512). Times at
+    Yi-6B's heads, S=T=512 (the yardstick of earlier runs) and 128 (a
+    prefill length of the main path): device time from a CUDA graph, SDPA
+    the same way, and the eager wrapper loop of earlier runs."""
     dev, dt = "cuda", torch.bfloat16
+    heads = served_heads()
     errs = []
-    cases = [(512, True, 0), (300, True, 0), (512, True, 128), (300, False, 0),
-             (128, True, 0)]
+    cases = {SERVED[0]: [(512, True, 0), (300, True, 0), (512, True, 128), (300, False, 0),
+                         (128, True, 0)],
+             SERVED[1]: [(512, True, 0), (300, True, 0), (77, True, 0), (64, True, 0)]}
     inputs = {}
-    for S, causal, window in cases:
-        q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(dt)
-        k = torch.randn(B, KV, S, hd, generator=gen, device=dev).to(dt)
-        v = torch.randn(B, KV, S, hd, generator=gen, device=dev).to(dt)
-        inputs[(S, causal, window)] = (q, k, v)
-        err = check_close(f"flash_attention S={S} causal={causal} window={window}",
-                          fa.flash_attention(q, k, v, causal=causal,
-                                             sliding_window=window),
-                          fa.plain(q, k, v, causal=causal, sliding_window=window))
-        errs.append(err)
-        log(f"[kernels] flash_attention B={B} H={H} KV={KV} hd={hd} S=T={S} "
-            f"causal={causal} window={window} bf16: max_abs_err={err:.3e} "
-            f"(atol=rtol={TOL_BF16})")
+    for arch, arch_cases in cases.items():
+        H, KV, hd = heads[arch]
+        model_layout = arch != SERVED[0]
+
+        def rand(n_heads, S):
+            if model_layout:
+                x = torch.randn(1, S, n_heads, hd, generator=gen, device=dev)
+                return x.to(dt).transpose(1, 2)
+            return torch.randn(1, n_heads, S, hd, generator=gen, device=dev).to(dt)
+
+        for S, causal, window in arch_cases:
+            q, k, v = rand(H, S), rand(KV, S), rand(KV, S)
+            if arch == SERVED[0]:
+                inputs[(S, causal, window)] = (q, k, v)
+            err = check_close(f"flash_attention {arch} heads S={S} causal={causal} "
+                              f"window={window}",
+                              fa.flash_attention(q, k, v, causal=causal,
+                                                 sliding_window=window),
+                              fa.plain(q, k, v, causal=causal, sliding_window=window))
+            errs.append(err)
+            log(f"[kernels] flash_attention B=1 H={H} KV={KV} hd={hd} S=T={S} "
+                f"causal={causal} window={window} bf16 ({arch}'s heads"
+                f"{', model layout' if model_layout else ''}): max_abs_err={err:.3e} "
+                f"(atol=rtol={TOL_BF16})")
+    B, (H, KV, hd) = 1, heads[SERVED[0]]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timed = {}
     for S in (128, 512):
@@ -438,12 +538,12 @@ class TimedForward:
         return [s.elapsed_time(e) for s, e in self.events[kind]]
 
 
-def small_reference(seed: int) -> None:
+def small_reference(seed: int, arch: str) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.serving.engine import Engine
 
-    cfg = get_config("yi_6b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     params_cpu = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
     params_gpu = _to_device(params_cpu, "cuda")
     rng = np.random.default_rng(seed)
@@ -459,7 +559,7 @@ def small_reference(seed: int) -> None:
     if outs["cpu"] != outs["cuda"]:
         raise AssertionError(f"small-input engine: card {outs['cuda']} != "
                              f"CPU plain path {outs['cpu']}")
-    log(f"[reference] yi-6b smoke f32 engine, 6 requests x 8 tokens: card "
+    log(f"[reference] {cfg.name} f32 engine, 6 requests x 8 tokens: card "
         f"(kernels) token-identical to CPU (plain versions)")
 
 
@@ -469,19 +569,23 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-def main_path(seed: int, kernels: dict) -> dict:
+def main_path(seed: int, kernels: dict, arch: str) -> dict:
+    """Serve 16 requests on ``arch`` at full width and depth; return the
+    kernels' launch counts of this run alone."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, param_count
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.paged_model import paged_forward
 
-    cfg = get_config("yi_6b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
     torch.cuda.synchronize()
+    moe = (f" experts={cfg.num_experts}x{cfg.expert_d_ff} top-{cfg.num_experts_per_tok}"
+           if "moe" in cfg.block_pattern else "")
     log(f"[serve] {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model} "
         f"H={cfg.num_heads} KV={cfg.num_kv_heads} hd={cfg.resolved_head_dim} "
-        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} {cfg.dtype}; "
+        f"d_ff={cfg.d_ff}{moe} vocab={cfg.vocab_size} {cfg.dtype}; "
         f"{param_count(params) / 1e9:.3f}B params made in "
         f"{time.perf_counter() - t0:.1f}s")
     fwd = TimedForward(cfg, paged_forward)
@@ -535,7 +639,18 @@ def main_path(seed: int, kernels: dict) -> dict:
         f"{eng.step_count} engine steps; ring calls "
         f"{eng._dev_admit.stats['kernel_calls']}")
     log(f"[serve] peak device memory {peak_gb:.3f} GB; launches {launches}")
-    profile_decode(eng, cfg, rng)
+    steps = 4
+    avgs = profile_decode(eng, cfg, rng, steps)
+    per_step = sum(e.count for e in avgs if e.key == "cudaLaunchKernel") / steps
+    log(f"[profile] cudaLaunchKernel per decode step: {per_step:.1f}")
+    if moe:
+        # the expert products are the block's torch.bmm calls (nothing else
+        # on the serving path runs bmm); a decode step reads every expert
+        bmm_ms = sum(_device_us(e) for e in avgs if e.key == "aten::bmm") / 1e3 / steps
+        weights = 3 * cfg.num_experts * cfg.d_model * cfg.expert_d_ff * 2 * cfg.num_layers
+        log(f"[profile] expert products (aten::bmm) {bmm_ms:.4f} ms a decode step; "
+            f"expert weights {weights / 1e9:.3f} GB a step, bound "
+            f"{weights / HBM_BYTES_PER_S * 1e3:.4f} ms")
     return launches
 
 
@@ -628,7 +743,12 @@ def _self_device_us(evt) -> float:
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def profile_steps(step, steps: int, what: str) -> None:
+def _device_us(evt) -> float:
+    """Device time of the kernels an op launched (its children's included)."""
+    return getattr(evt, "device_time_total", getattr(evt, "cuda_time_total", 0.0))
+
+
+def profile_steps(step, steps: int, what: str):
     """Run ``step`` ``steps`` times under ``torch.profiler``; print the
     device's busy share of the window and the largest device kernels and
     host ops, per step."""
@@ -660,7 +780,7 @@ def profile_steps(step, steps: int, what: str) -> None:
     return avgs
 
 
-def profile_decode(eng, cfg, rng, steps: int = 4) -> None:
+def profile_decode(eng, cfg, rng, steps: int = 4):
     """Where a decode step's time goes: a full batch of 8 lanes (64-token
     prompts) decodes ``steps`` steps under ``torch.profiler``. Runs after
     the launch counts were read."""
@@ -668,8 +788,9 @@ def profile_decode(eng, cfg, rng, steps: int = 4) -> None:
                for _ in range(eng.max_batch)]
     eng.submit_many(prompts, max_new_tokens=steps + 2)
     eng.step()  # admit (prefill) every lane, decode once
-    profile_steps(eng.step, steps, f"{steps} decode steps x {eng.max_batch} lanes")
+    avgs = profile_steps(eng.step, steps, f"{steps} decode steps x {eng.max_batch} lanes")
     eng.run_until_idle()
+    return avgs
 
 
 def main() -> int:
@@ -715,12 +836,19 @@ def main() -> int:
             check_flash(flash_attention, gen), check_claim(cmp_claim, rng)]
 
     # phase 4: small-input reference
-    small_reference(args.seed)
+    for arch in SERVED:
+        small_reference(args.seed, arch)
 
-    # phase 5: the main path
+    # phase 5: the main path, one model after the other (each one's weights
+    # are freed before the next is made)
     kernels = {"cmp_ring": cmp_ring, "paged_attention": paged_attention,
                "flash_attention": flash_attention, "cmp_claim": cmp_claim}
-    launches = main_path(args.seed, kernels)
+    launches = dict.fromkeys(kernels, 0)
+    for arch in SERVED:
+        for name, n in main_path(args.seed, kernels, arch).items():
+            launches[name] += n
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # phase 6: the device CMP queue
     launches["cmp_claim"] = device_queue(args.seed, kernels)["cmp_claim"]

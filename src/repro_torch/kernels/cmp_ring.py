@@ -6,7 +6,11 @@ One call runs window reclaim, the batched contiguous-prefix enqueue, the
 k-way earliest-cycle claim and the monotone frontier publish over an int32
 ring ``state``/``cycle`` [N] and ``meta`` [2] = [enq_cycle, deque_cycle].
 ``push_n`` and ``want`` are host ints, passed to the kernel as arguments,
-so a call needs no host read before it launches.
+so a call needs no host read before it launches. The kernel is one CTA
+for rings of up to ``rt_cmp_ring_max_n()`` = 16,384 slots (the engine's
+ring at ``max_batch`` 1,024); it claims by ring position when the slots
+hold the cycles an enqueue gives them, and by a sort of the keys otherwise,
+exact either way.
 
 On a CPU tensor the wrapper runs the plain version, ``plain`` (=
 ``ref.ref_ring_step``); on a CUDA tensor it launches the kernel or raises.
@@ -38,7 +42,8 @@ def cmp_ring_step(state: torch.Tensor, cycle: torch.Tensor, meta: torch.Tensor,
     global launches
     n = state.shape[0]
     push_n, want = min(int(req[0]), n), int(req[1])
-    _build.require(0 <= k <= n, f"cmp_ring_step: k={k} must be in [0, N={n}]")
+    _build.require(n >= 1 and 0 <= k <= n,
+                   f"cmp_ring_step: need N >= 1 and k in [0, N], got N={n}, k={k}")
     if state.device.type == "cpu":
         return plain(state, cycle, meta, (push_n, want), k=k, window=window)
     _build.require(state.is_cuda, f"cmp_ring_step: unsupported device {state.device}")
@@ -50,7 +55,8 @@ def cmp_ring_step(state: torch.Tensor, cycle: torch.Tensor, meta: torch.Tensor,
                        f"{shape} tensor on {state.device}")
     lib = _build.lib()
     _build.require(n <= lib.rt_cmp_ring_max_n(),
-                   f"cmp_ring_step: N={n} exceeds {lib.rt_cmp_ring_max_n()}")
+                   f"cmp_ring_step: a ring of N={n} slots exceeds the kernel's "
+                   f"{lib.rt_cmp_ring_max_n()} (one CTA of 1,024 threads x 16 slots)")
     new_state = torch.empty_like(state)
     new_cycle = torch.empty_like(cycle)
     new_meta = torch.empty_like(meta)

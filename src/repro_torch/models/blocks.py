@@ -1,5 +1,5 @@
-"""Parameter initialisation of the dense decoder block, with the JAX
-package's distributions (normal * 0.02, output projections scaled by
+"""Parameter initialisation of the dense and MoE decoder blocks, with the
+JAX package's distributions (normal * 0.02, output projections scaled by
 1/sqrt(2*num_layers), unit norm scales) drawn from a ``torch.Generator``.
 
 The numbers differ from the JAX package's for the same seed (another
@@ -65,4 +65,22 @@ def init_dense(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     }
 
 
-INIT = {"dense": init_dense}
+def init_moe(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+    """Parameters of ONE MoE layer: attention, then the experts. The router
+    stays float32 whatever the model's dtype, as in the reference."""
+    D, E, F = cfg.d_model, cfg.num_experts, cfg.expert_d_ff or cfg.d_ff
+    dt = _dt(cfg)
+    return {
+        "ln1": _norm_params(cfg, D, device),
+        "attn": _init_attn(cfg, gen, device),
+        "ln2": _norm_params(cfg, D, device),
+        "moe": {
+            "router": _dense_init(gen, (D, E), torch.float32, device),
+            "wg": _dense_init(gen, (E, D, F), dt, device),
+            "wu": _dense_init(gen, (E, D, F), dt, device),
+            "wd": _dense_init(gen, (E, F, D), dt, device, _out_scale(cfg)),
+        },
+    }
+
+
+INIT = {"dense": init_dense, "moe": init_moe}

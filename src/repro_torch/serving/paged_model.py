@@ -18,7 +18,9 @@ attention goes through the kernels (:mod:`repro_torch.kernels.ops`):
   neither kernel has): the plain gathered path on the CPU; on the card it
   raises ``NotImplementedError``.
 
-Like the reference, the paged path ignores ``cfg.sliding_window``.
+A block is ``dense`` (SwiGLU MLP) or ``moe`` (:func:`repro_torch.models.moe.moe_block`
+after the attention, as the reference's ``_paged_block``). Like the
+reference, the paged path ignores ``cfg.sliding_window``.
 The page tensors are updated in place; ``paged_forward`` returns them as
 the reference does.
 """
@@ -33,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models import moe as MOE
 
 
 def _proj_qkv(x, p, cfg: ModelConfig, positions):
@@ -98,8 +101,8 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _paged_block(x, p, cfg: ModelConfig, k_pages, v_pages, block_tables,
-                 positions, seq_lens, prefill: bool):
+def _paged_block(x, p, cfg: ModelConfig, kind: str, k_pages, v_pages,
+                 block_tables, positions, seq_lens, prefill: bool):
     h_in = L.norm(x, p["ln1"], cfg.norm)
     q, k_new, v_new = _proj_qkv(h_in, p["attn"], cfg, positions)
     _scatter_pages(k_pages, v_pages, k_new, v_new, block_tables, positions)
@@ -108,6 +111,12 @@ def _paged_block(x, p, cfg: ModelConfig, k_pages, v_pages, block_tables,
     B, S = x.shape[0], x.shape[1]
     attn = attn.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim) @ p["attn"]["wo"]
     x = x + attn
+    if kind == "moe":
+        y, _ = MOE.moe_block(L.norm(x, p["ln2"], cfg.norm), p["moe"],
+                             num_experts=cfg.num_experts,
+                             top_k=cfg.num_experts_per_tok,
+                             capacity_factor=cfg.capacity_factor, act=cfg.act)
+        return x + y
     return x + L.swiglu(L.norm(x, p["ln2"], cfg.norm), p["mlp"], cfg.act)
 
 
@@ -119,10 +128,8 @@ def paged_forward(params, tokens, cfg: ModelConfig, k_pages, v_pages,
     k/v_pages: [L_attn, P, KV, pg, hd] stacked over attention layers,
     updated in place. Returns (last-token logits [B, V] f32, k_pages,
     v_pages)."""
-    for kind in cfg.block_pattern:
-        if kind == "moe":
-            raise NotImplementedError("MoE blocks are not ported yet")
-        assert kind == "dense", "paged serving supports attention-based families only"
+    assert all(kind in ("dense", "moe") for kind in cfg.block_pattern), (
+        "paged serving supports attention-based families only")
     x = params["embed"][tokens.long()]
     B, S = tokens.shape
     steps = torch.arange(S, dtype=torch.int32, device=tokens.device)
@@ -134,7 +141,7 @@ def paged_forward(params, tokens, cfg: ModelConfig, k_pages, v_pages,
         for j in range(n_pat):
             layer = i * n_pat + j
             x = _paged_block(x, _layer(params["blocks"][str(j)], i), cfg,
-                             k_pages[layer], v_pages[layer], block_tables,
+                             cfg.block_pattern[j], k_pages[layer], v_pages[layer], block_tables,
                              positions, seq_lens + S, prefill)
     x = L.norm(x, params["final_norm"], cfg.norm)
     logits = M._logits(x[:, -1:], params, cfg)[:, 0]

@@ -5,9 +5,10 @@ skip; on a machine with one, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: 2e-5 in float32 (sums in another order), 3e-2 (flash) and
-4e-2 (paged) in bfloat16, the reference tests' tolerances; the CMP kernels
-(ring, claim, the fused slot-pool claim) and the slot pool bit-exact."""
+Tolerances: 2e-5 in float32 (sums in another order), 3e-2 (flash, the MoE
+block) and 4e-2 (paged) in bfloat16, the reference tests' tolerances; the
+CMP kernels (ring, claim, the fused slot-pool claim), the slot pool and
+the admission ring bit-exact."""
 
 import numpy as np
 import pytest
@@ -47,6 +48,149 @@ def test_ring_kernel_is_bit_exact(dev, n, k):
             assert torch.equal(a, b)
         state, cycle, meta = got[:3]
     assert cmp_ring.launches == before + 60
+
+
+def _ring_pair(state, cycle, meta, req, k, window):
+    """One ring step by the kernel and by the plain version: bit-exact, one
+    launch. Returns the kernel's outputs."""
+    before = cmp_ring.launches
+    got = cmp_ring.cmp_ring_step(state, cycle, meta, req, k=k, window=window)
+    assert cmp_ring.launches == before + 1
+    want = cmp_ring.plain(state, cycle, meta, req, k=k, window=window)
+    for name, a, b in zip(("state", "cycle", "meta", "claimed"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), (name, req, k)
+    return got
+
+
+@pytest.mark.parametrize("n", [128, 4096, 8192, 16384])
+def test_ring_kernel_engine_sizes_bit_exact(dev, n):
+    """The engine's ring at max_batch n/16 (capacity 16 x, claim_block 8 x,
+    window capacity/4): a trajectory of pushes and claims, bit-exact at
+    every step. N = 16,384 is max_batch 1,024, past the old 4,096 cap."""
+    k, window = n // 2, n // 4
+    rng = np.random.default_rng(n)
+    state = torch.zeros(n, dtype=torch.int32, device=dev)
+    cycle, meta = torch.zeros_like(state), torch.zeros(2, dtype=torch.int32, device=dev)
+    claims = 0
+    for _ in range(40):
+        req = (int(rng.integers(0, n // 2 + 1)), int(rng.choice([k, int(rng.integers(0, k + 1))])))
+        state, cycle, meta, claimed = _ring_pair(state, cycle, meta, req, k, window)
+        claims += int((claimed >= 0).sum())
+    assert claims > 0
+
+
+def _broken_ring(n, case, rng):
+    """Ring states that break the enqueue invariant (a cycle c away from slot
+    (c-1) mod N, or outside the last N cycles): random states (3 is no
+    domain state), permuted and duplicate cycles, cycles near INT32_MAX with
+    the frontier wrapped past it."""
+    imax, imin = np.iinfo(np.int32).max, np.iinfo(np.int32).min
+    state = rng.integers(0, 4, size=n)
+    enq = int(rng.integers(0, 1000))
+    if case == "permuted":
+        cycle = rng.permutation(n) + enq - n // 2
+    elif case == "duplicate":
+        cycle = rng.integers(enq - 3, enq + 1, size=n)
+    elif case == "near_max":
+        cycle = imax - rng.integers(0, 2 * n, size=n)
+        enq = imax - n // 3
+    elif case == "wrapped":
+        cycle = imax - rng.integers(0, n, size=n)
+        enq = imin + n // 3
+    else:
+        cycle = rng.integers(imin, imax, size=n)
+        enq = int(rng.integers(imin, imax))
+    dc = int(rng.integers(imin, imax)) if case == "random" else enq - n // 2
+    to = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64).astype(np.int32))
+    return to(state), to(cycle), to([enq, dc])
+
+
+@pytest.mark.parametrize("n", [1, 37, 128, 4096, 16384])
+@pytest.mark.parametrize("case", ["random", "permuted", "duplicate", "near_max", "wrapped"])
+def test_ring_kernel_general_inputs_bit_exact(dev, n, case):
+    """Inputs that break the invariant take the kernel's general path (a
+    sort of the keys): bit-exact with ties, k > the claimable count,
+    want = 0 and < 0, push_n = N and past it, window 0."""
+    rng = np.random.default_rng(n * 10 + len(case))
+    state, cycle, meta = (t.to(dev) for t in _broken_ring(n, case, rng))
+    half = max(1, n // 2)
+    for k, req, window in ((half, (int(rng.integers(0, n + 1)), half), n // 4),
+                           (n, (0, n), 0), (half, (n // 3, 0), n // 4),
+                           (1, (n, 1), n), (half, (n + 7, -1), 3),
+                           (n, (n // 2, n // 2 + 1), n // 4)):
+        got = _ring_pair(state, cycle, meta, req, k, window)
+        state, cycle, meta = got[:3]
+
+
+def test_admission_ring_at_max_batch_512_matches_cpu(dev):
+    """Engine(max_batch=512, device_admission=True)'s ring (k=512,
+    claim_block=4,096, capacity 8,192), which the card refused before the
+    cap rose: the same claims, rejections and ring tensors as on the CPU."""
+    from repro_torch.serving.admission import DeviceAdmissionRing
+
+    rings = {d: DeviceAdmissionRing(k=512, claim_block=4096, device=d)
+             for d in (dev, "cpu")}
+    rng = np.random.default_rng(5)
+    nxt, served = 0, 0
+    for _ in range(30):
+        push = list(range(nxt, nxt + int(rng.integers(0, 3000))))
+        nxt += len(push)
+        want = int(rng.integers(0, 513))
+        outs = [ring.step(list(push), want) for ring in rings.values()]
+        assert outs[0] == outs[1]
+        served += len(outs[0][0])
+        a, b = rings.values()
+        for x, y in ((a.state, b.state), (a.cycle, b.cycle), (a.meta, b.meta)):
+            assert torch.equal(x.cpu(), y)
+    assert served > 0 and rings[dev].stats == rings["cpu"].stats
+    assert rings[dev].capacity == 8192 and rings[dev].stats["kernel_calls"] > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S", [(8, 1), (2, 64)])
+def test_moe_block_on_card_matches_cpu(dev, dtype, B, S):
+    """granite-moe-3b-a800m's MoE block (d_model 1536, 40 experts of 512,
+    top-8, the router float32) on the card against its CPU run, at a decode
+    batch and a short prefill (capacity 8 and 128: the prefill drops)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks, moe
+
+    cfg = dataclasses.replace(get_config("granite_moe"), dtype=dtype)
+    p = blocks.init_moe(cfg, torch.Generator().manual_seed(0), "cpu")["moe"]
+    assert p["router"].dtype == torch.float32
+    x = torch.randn(B, S, cfg.d_model, generator=torch.Generator().manual_seed(1)).to(DT[dtype])
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+              capacity_factor=cfg.capacity_factor, act=cfg.act)
+    want, want_aux = moe.moe_block(x, p, **kw)
+    got, aux = moe.moe_block(x.to(dev), {n: t.to(dev) for n, t in p.items()}, **kw)
+    _close(got.cpu(), want, 2e-5 if dtype == "float32" else 3e-2)
+    assert abs(float(aux) - float(want_aux)) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernels_at_granite_heads(dev, dtype):
+    """granite-moe's heads (24 query heads over 8 KV heads, head_dim 64):
+    flash prefill and paged decode against their plain versions."""
+    H, KV, hd, page, pps = 24, 8, 64, 16, 64
+    g = torch.Generator(device=dev).manual_seed(24)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    for S in (64, 300, 512):
+        q = torch.randn(1, H, S, hd, generator=g, device=dev).to(DT[dtype])
+        k = torch.randn(1, KV, S, hd, generator=g, device=dev).to(DT[dtype])
+        v = torch.randn(1, KV, S, hd, generator=g, device=dev).to(DT[dtype])
+        _close(flash_attention.flash_attention(q, k, v, causal=True).contiguous(),
+               flash_attention.plain(q, k, v, causal=True), tol)
+    B, P = 8, 8 * pps + 1
+    q = torch.randn(B, H, hd, generator=g, device=dev).to(DT[dtype])
+    kp = torch.randn(P, KV, page, hd, generator=g, device=dev).to(DT[dtype])
+    vp = torch.randn(P, KV, page, hd, generator=g, device=dev).to(DT[dtype])
+    bt = (torch.randperm(P - 1, generator=g, device=dev)[:B * pps] + 1).view(B, pps)
+    bt = bt.to(torch.int32).contiguous()
+    sl = torch.tensor([1, 17, 64, 65, 300, 511, 777, 1024], dtype=torch.int32, device=dev)
+    _close(paged_attention.paged_attention(q, kp, vp, bt, sl),
+           paged_attention.plain(q, kp, vp, bt, sl), 2e-5 if dtype == "float32" else 4e-2)
 
 
 def _claim_inputs(n, seed, dev):

@@ -18,6 +18,7 @@ from repro.serving.engine import Engine as JaxEngine
 from repro.serving.paged_model import paged_forward as jax_paged_forward
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
+from repro_torch.models import init_params
 from repro_torch.sched import TenantQuotaLedger
 from repro_torch.serving.admission import DeviceAdmissionRing
 from repro_torch.serving.engine import Engine
@@ -98,13 +99,22 @@ def test_paged_forward_matches_jax(model):
 
 
 def test_paged_forward_refuses_moe_blocks(model):
+    """paged_forward serves MoE blocks (tests/test_torch_moe.py holds them
+    to the JAX package) and refuses a block without attention. The name is
+    older than MoE serving: a failure here is either of those two checks."""
     _, _, cfg, tparams, _ = model
-    moe = dataclasses.replace(cfg, block_pattern=("moe",))
     z = torch.zeros((2, 4, 2, 4, 16))
-    with pytest.raises(NotImplementedError):
-        paged_forward(tparams, torch.zeros((1, 2), dtype=torch.int32), moe, z, z,
-                      torch.zeros((1, 2), dtype=torch.int32),
-                      torch.zeros((1,), dtype=torch.int32))
+    args = (torch.zeros((1, 2), dtype=torch.int32), z, z,
+            torch.zeros((1, 2), dtype=torch.int32), torch.zeros((1,), dtype=torch.int32))
+    moe_cfg = get_config("granite_moe", smoke=True)
+    moe_params = init_params(moe_cfg, torch.Generator().manual_seed(0), "cpu")
+    zm = torch.zeros((moe_cfg.num_layers, 4, moe_cfg.num_kv_heads, 4,
+                      moe_cfg.resolved_head_dim))
+    logits, _, _ = paged_forward(moe_params, args[0], moe_cfg, zm, zm.clone(), *args[3:])
+    assert logits.shape == (1, moe_cfg.vocab_size) and bool(torch.isfinite(logits).all())
+    with pytest.raises(AssertionError):
+        paged_forward(tparams, args[0], dataclasses.replace(cfg, block_pattern=("mlstm",)),
+                      *args[1:])
 
 
 ENGINE_CASES = {
