@@ -9,9 +9,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    compiled with ``nvcc`` into ``build/`` (seconds printed);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's full-width shapes (the attention kernels at the heads
-   of both served models: Yi-6B's and granite-moe's), the admission ring
-   at the engine's rings of max_batch 8, 256 and 1,024 (N = 128, 4,096,
-   16,384) and on states that break its enqueue invariant, and the claim
+   of every attention config: Yi-6B's, granite-moe's, glm4-9b's, phi3's,
+   command-r's, llama4's, llava's and musicgen's; the paged kernel at page
+   sizes 8-256, on its scalar path (bf16 head_dim 8 and 72, 32 query heads
+   a KV head), over a chunked prefill's B*S rows; both kernels with a
+   softcap of 30), the admission ring at the engine's rings of max_batch 8,
+   256, 1,024, 2,048 and 4,096 (N = 128 to 65,536; above 16,384 its grid
+   path) and on states that break its enqueue invariant, and the claim
    kernel and its fused slot-pool entry at pool sizes up to 2**20 slots,
    with times of the kernel, the plain version and, where there is one, a
    PyTorch library call: each kernel and library call timed as device time
@@ -26,16 +30,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``submit_many`` and ``run_until_idle``; the launch counts of the three
    serving kernels are read from each model's run alone, and a decode step
    of each is profiled;
-6. device CMP queue: a seeded FIFO churn through ``repro_torch.core.slotpool``
-   (produce, claim, advance, reclaim) on a 65,536-slot pool, the page pool
-   of a card that holds Yi-6B, on the card and on the CPU, compared every
+6. device CMP queue: seeded FIFO churns through ``repro_torch.core.slotpool``
+   (produce, claim, advance, reclaim) on a 2,048-slot pool (the JAX
+   package's claim tile) and on a 65,536-slot pool (the page pool of a
+   card that holds Yi-6B), on the card and on the CPU, compared every
    round; strict FIFO and the pool invariants are checked, and the claim
-   kernel's launch count (one a claim) is read from this run alone; then
+   kernel's launch count (one a claim) is read from each churn alone; then
    the claims/s of ``slotpool.claim`` on the card and a profile of 50
-   claims (at most 2 ``cudaLaunchKernel`` a claim).
+   claims (at most 2 ``cudaLaunchKernel`` a claim);
+7. the serve driver: ``repro_torch.launch.serve`` at glm4-9b's full width
+   and depth in bfloat16 (random weights from the config's seed) with 2
+   replicas over 2 simulated hosts, device admission, 3 classes under wfq
+   and ``--verify-single-host`` (each layout's fabric closed and its
+   weights freed before the next is made); a crash and resume through the
+   port's ``Fabric`` (a cadence checkpoint every 4 steps, the session
+   dropped after step 10, ``Fabric.restore`` with the same weights):
+   every admitted request completes once, token-identical to an
+   uninterrupted run; one driver run at ``--page-size 128``. The serving
+   kernels' launches are read from each of the three runs alone and held
+   to that run's forward calls.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the ``kernels`` JSON line, and the card's name and power limit come earlier.
+the ``kernels`` JSON line (five rows: the five ``pallas_call`` sites, the
+claim kernel serving two), and the card's name and power limit come
+before that.
 """
 
 from __future__ import annotations
@@ -56,6 +74,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense
 TOL_BF16 = 2e-2                # atol = rtol: f32 sums in another order + bf16 rounding
 SERVED = ("yi_6b", "granite_moe")  # phase 5's models, dense then MoE
+# the attention configs the serve driver reaches, besides those of phase 5
+DRIVER_ARCHS = ("glm4_9b", "phi3_mini", "command_r_35b", "llama4_maverick", "llava_next",
+                "musicgen_large")
 
 
 def log(msg: str) -> None:
@@ -138,7 +159,8 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 # ---------------------------------------------------------------------------
 
 
-RING_SIZES = (128, 4096, 16384)  # the engine's ring at max_batch 8, 256 and 1,024
+# the engine's ring at max_batch 8, 256, 1,024 (one CTA), 2,048 and 4,096 (grid path)
+RING_SIZES = (128, 4096, 16384, 32768, 65536)
 
 
 def time_ring(ring, n: int = 128) -> tuple:
@@ -171,15 +193,16 @@ def check_ring(ring, rng) -> dict:
     """The ring kernel against its plain version, bit-exact: a trajectory
     of the engine's ring at each of RING_SIZES, then states that break the
     enqueue invariant (random states; permuted, duplicate and wrapped
-    cycles). Times by graph at each size, of the general path at the
-    largest, and of a launch floor (a one-element fill_)."""
+    cycles). Times by graph at each size, of the general path at 16,384
+    (one CTA) and 65,536 (grid), and of a launch floor (a one-element
+    fill_)."""
     dev = "cuda"
     for n in RING_SIZES:
         k, window = n // 2, n // 4
         state = torch.zeros(n, dtype=torch.int32, device=dev)
         cycle = torch.zeros(n, dtype=torch.int32, device=dev)
         meta = torch.zeros(2, dtype=torch.int32, device=dev)
-        steps, claimed_total = (240 if n <= 128 else 60), 0
+        steps, claimed_total = (240 if n <= 128 else 60 if n <= 16384 else 30), 0
         for step in range(steps):
             req = (int(rng.integers(0, n // 2 + 1)), int(rng.integers(0, k + 1)))
             got = ring.cmp_ring_step(state, cycle, meta, req, k=k, window=window)
@@ -228,16 +251,18 @@ def check_ring(ring, rng) -> dict:
                                               window=n // 4), 50)
         moved = 4 * (4 * n + 2 + 2 + k)  # state, cycle in+out; meta in+out; claimed
         b_ms, b_by = bound(moved, 0)
-        log(f"[kernels] cmp_ring N={n} k={k}: kernel_ms={ms:.5f} (graph) "
+        path = "one CTA" if n <= 16384 else "grid path, 4 launches"
+        log(f"[kernels] cmp_ring N={n} k={k} ({path}): kernel_ms={ms:.5f} (graph) "
             f"eager_ms={eager_ms:.5f} plain_ms={plain_ms:.5f} bound_ms={b_ms:.7f} "
             f"({b_by}) launch_floor_ms={floor_ms:.5f} (graph of fill_)")
         rows[n] = (ms, plain_ms, b_ms, b_by)
-    n = RING_SIZES[-1]
-    state, cycle, meta = _broken_ring(rng, n)
-    general_ms = graph_ms(lambda: ring.cmp_ring_step(state, cycle, meta, (n // 4, n // 2),
-                                                     k=n // 2, window=n // 4), 20)
-    log(f"[kernels] cmp_ring N={n} k={n // 2} general path (random states, permuted "
-        f"cycles): kernel_ms={general_ms:.5f} (graph)")
+    for n in (16384, 65536):  # the one-CTA kernel's sort; the grid path's claim kernel
+        state, cycle, meta = _broken_ring(rng, n)
+        general_ms = graph_ms(lambda: ring.cmp_ring_step(state, cycle, meta, (n // 4, n // 2),
+                                                         k=n // 2, window=n // 4),
+                              20 if n <= 16384 else 1)
+        log(f"[kernels] cmp_ring N={n} k={n // 2} general path (random states, permuted "
+            f"cycles): kernel_ms={general_ms:.5f} (graph)")
     ms, plain_ms, b_ms, b_by = rows[128]
     return dict(name="cmp_ring", source="src/repro_torch/kernels/csrc/cmp_ring.cu",
                 replaces="src/repro/kernels/cmp_ring.py:111", max_abs_err=0.0,
@@ -253,7 +278,8 @@ def _claim_cycles(rng, n: int) -> dict:
     return {"permuted": rng.permutation(n), "tied": np.full(n, 7), "mixed": mixed}
 
 
-CLAIM_TIMED = (2048, 4096, 65536)  # the JAX tile; the JAX dev bench's pool; the page pool
+JAX_TILE = 2048  # the JAX package's claim tile: one block up to it, tiled above
+CLAIM_TIMED = (JAX_TILE, 4096, 65536)  # the JAX tile; the JAX dev bench's pool; the page pool
 
 
 def time_claim(claim, rng, n: int, k: int = 64) -> tuple:
@@ -274,13 +300,15 @@ def time_claim(claim, rng, n: int, k: int = 64) -> tuple:
             cuda_ms(library, 200))
 
 
-def check_claim(claim, rng) -> dict:
+def check_claim(claim, rng) -> list:
     """The claim kernel against its plain version, bit-exact (``torch.equal``
     on new_state and ids), over pool sizes, k (k > N included), ``block_n``
     (which does not change the result) and cycle patterns; the fused
     slot-pool entry ``claim_pool`` on all five outputs. Times at N = 2,048,
     4,096 and 65,536, k = 64: device time from a CUDA graph, and the eager
-    wrapper loop of earlier runs."""
+    wrapper loop of earlier runs. Two rows: the JAX package's single-block
+    kernel's pools (N = 2,048) and its tiled kernel's (N = 65,536), both
+    served by the one claim kernel."""
     dev = "cuda"
     cases = pool_cases = 0
     for n in (1, 7, 2047, 2048, 2049, 4096, 65536, 1 << 20):
@@ -336,11 +364,14 @@ def check_claim(claim, rng) -> dict:
     b_ms, b_by = bound(4 * (5 * n + k) + k + 8, 0)  # + retire in/out, valid, deque
     log(f"[kernels] claim_pool N={n} k={k}: kernel_ms={pool_ms:.5f} (graph) "
         f"eager_ms={pool_eager:.5f} plain_ms={pool_plain:.5f} bound_ms={b_ms:.7f} ({b_by})")
-    ms, plain_ms, lib_ms, b_ms, b_by = timed[65536]
-    return dict(name="cmp_claim", source="src/repro_torch/kernels/csrc/cmp_claim.cu",
-                replaces="src/repro/kernels/cmp_claim.py:95,137", max_abs_err=0.0,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+    out = []
+    for name, n, line in (("cmp_claim", JAX_TILE, 137), ("cmp_claim_tiled", 65536, 95)):
+        ms, plain_ms, lib_ms, b_ms, b_by = timed[n]
+        out.append(dict(name=name, source="src/repro_torch/kernels/csrc/cmp_claim.cu",
+                        replaces=f"src/repro/kernels/cmp_claim.py:{line}", max_abs_err=0.0,
+                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lib_ms))
+    return out
 
 
 def _sdpa_heads(q, k, v, H, KV):
@@ -352,19 +383,20 @@ def _sdpa_heads(q, k, v, H, KV):
 
 
 def served_heads() -> dict:
-    """(H, KV, hd) of each model that phase 5 serves, from its config."""
+    """(H, KV, hd) of each model that phase 5 serves, then of each
+    attention config the serve driver reaches, from its config."""
     from repro_torch.configs import get_config
 
-    cfgs = {arch: get_config(arch) for arch in SERVED}
+    cfgs = {arch: get_config(arch) for arch in SERVED + DRIVER_ARCHS}
     return {arch: (c.num_heads, c.num_kv_heads, c.resolved_head_dim)
             for arch, c in cfgs.items()}
 
 
 def check_paged(pa, gen) -> dict:
     """The split-K paged kernel against its plain version at the decode
-    shape of each served model (B=8, pps=64; Yi-6B's heads, then
-    granite-moe's): mixed seq_lens, then every lane at 256 (the main path's
-    contexts) and at 1024 (max_seq). Times at Yi-6B's heads: the kernel's
+    shape of each attention config (B=8, pps=64; the heads of Yi-6B,
+    granite-moe and the serve driver's configs): mixed seq_lens, then every
+    lane at 256 (the main path's contexts) and at 1024 (max_seq). Times at Yi-6B's heads: the kernel's
     device time from a CUDA graph of back-to-back calls that rotate over 4
     disjoint page sets (67 MB, more than the 50 MB L2), SDPA the same way on
     dense copies, and the eager wrapper loop of earlier runs (warm L2)."""
@@ -384,7 +416,8 @@ def check_paged(pa, gen) -> dict:
         q = torch.randn(B, H, hd, generator=gen, device=dev).to(dt)
         kp = torch.randn(P, KV, page, hd, generator=gen, device=dev).to(dt)
         vp = torch.randn(P, KV, page, hd, generator=gen, device=dev).to(dt)
-        inputs[arch] = (q, kp, vp)
+        if arch == SERVED[0]:
+            inputs[arch] = (q, kp, vp)
         arch_err = max(check_close(f"paged_attention {arch} heads seq_lens {name}",
                                    pa.paged_attention(q, kp, vp, bt, sl),
                                    pa.plain(q, kp, vp, bt, sl))
@@ -445,8 +478,9 @@ def check_paged(pa, gen) -> dict:
 def check_flash(fa, gen) -> dict:
     """The flash kernel (bf16: wgmma tiles) against its plain version, B=1:
     at Yi-6B's heads, then at granite-moe's (hd 64, 3 query heads a KV head)
-    in the model layout the prefill passes ([B, S, H, hd] viewed as
-    [B, H, S, hd]) at prompt lengths of the main path (64-512). Times at
+    and each serve-driver config's in the model layout the prefill passes
+    ([B, S, H, hd] viewed as [B, H, S, hd]) at prompt lengths of the main
+    paths (64-512, and 3-7 at the serve driver's configs). Times at
     Yi-6B's heads, S=T=512 (the yardstick of earlier runs) and 128 (a
     prefill length of the main path): device time from a CUDA graph, SDPA
     the same way, and the eager wrapper loop of earlier runs."""
@@ -456,6 +490,9 @@ def check_flash(fa, gen) -> dict:
     cases = {SERVED[0]: [(512, True, 0), (300, True, 0), (512, True, 128), (300, False, 0),
                          (128, True, 0)],
              SERVED[1]: [(512, True, 0), (300, True, 0), (77, True, 0), (64, True, 0)]}
+    # the serve driver's prefills too: one tile with 3-7 live rows (phase 7's prompts)
+    cases.update({arch: [(512, True, 0), (300, True, 0)] + [(S, True, 0) for S in range(3, 8)]
+                  for arch in DRIVER_ARCHS})
     inputs = {}
     for arch, arch_cases in cases.items():
         H, KV, hd = heads[arch]
@@ -506,6 +543,127 @@ def check_flash(fa, gen) -> dict:
                 replaces="src/repro/kernels/flash_attention.py:112",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
+
+
+def check_attention_repairs(pa, fa, gen) -> dict:
+    """The shapes the attention kernels took on in this slice, each against
+    its plain version in bf16 (atol = rtol = 2e-2): the paged kernel's
+    64-token splits at page sizes 8-256 (Yi-6B's heads, 1,024 tokens), its
+    scalar path (bf16 head_dim 8 and 72, 32 query heads a KV head at hd
+    128), a chunked prefill's B*S query rows (glm4-9b's heads, 256 rows past
+    position 256), a softcap of 30 in both kernels (scores scaled so the
+    cap bites), and the serve driver's decode shapes (glm4-9b's heads, 2
+    and 4 lanes, pages of 16 and 128, contexts of 3-15). Times by graph (warm L2) of the page-128 split and of
+    the scalar path beside their bounds. Returns the largest error of each
+    kernel."""
+    dev, dt = "cuda", torch.bfloat16
+    heads = served_heads()
+    B, tokens = 8, 1024
+    errs = {"paged": 0.0, "flash": 0.0}
+
+    def paged_case(H, KV, hd, page, n_tok=tokens):
+        pps = -(-n_tok // page)
+        P = B * pps + 1
+        q = torch.randn(B, H, hd, generator=gen, device=dev).to(dt)
+        kp = torch.randn(P, KV, page, hd, generator=gen, device=dev).to(dt)
+        vp = torch.randn(P, KV, page, hd, generator=gen, device=dev).to(dt)
+        bt = (torch.randperm(P - 1, generator=gen, device=dev)[:B * pps] + 1).view(B, pps)
+        sl = torch.tensor([1, page, 64, 65, 300, n_tok - page - 1, n_tok - 1, n_tok],
+                          dtype=torch.int32, device=dev)
+        return q, kp, vp, bt.to(torch.int32).contiguous(), sl
+
+    def timed(name, H, KV, hd, page, args):
+        q, kp, vp, bt, _ = args
+        sl = torch.full((B,), tokens, dtype=torch.int32, device=dev)
+        ms = graph_ms(lambda: pa.paged_attention(q, kp, vp, bt, sl), 50)
+        plain_ms = cuda_ms(lambda: pa.plain(q, kp, vp, bt, sl), 10)
+        moved = 2 * (2 * B * H * hd + 2 * B * tokens * KV * hd) + 4 * (bt.numel() + B)
+        b_ms, b_by = bound(moved, 4 * B * tokens * H * hd)
+        log(f"[kernels] paged_attention {name} B={B} H={H} KV={KV} hd={hd} page={page} "
+            f"bf16 seq_len {tokens}: kernel_ms={ms:.5f} (graph, warm L2) "
+            f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.7f} ({b_by}); "
+            f"{pa.launches_per_call(bt.shape[1], page)} launches a call")
+
+    H, KV, hd = heads[SERVED[0]]
+    for page in (8, 24, 32, 48, 128, 256):
+        args = paged_case(H, KV, hd, page)
+        err = check_close(f"paged_attention page={page}", pa.paged_attention(*args),
+                          pa.plain(*args))
+        errs["paged"] = max(errs["paged"], err)
+        log(f"[kernels] paged_attention page={page} ({pa.num_splits(args[3].shape[1], page)} "
+            f"splits of {pa.SPLIT_TOKENS} tokens) B={B} H={H} KV={KV} hd={hd} bf16: "
+            f"max_abs_err={err:.3e}")
+        if page == 128:
+            timed("64-token splits of a 128-token page", H, KV, hd, page, args)
+    for sH, sKV, shd in ((32, 4, 8), (32, 4, 72), (32, 1, 128)):
+        args = paged_case(sH, sKV, shd, 16)
+        err = check_close(f"paged_attention scalar path H={sH} KV={sKV} hd={shd}",
+                          pa.paged_attention(*args), pa.plain(*args))
+        errs["paged"] = max(errs["paged"], err)
+        log(f"[kernels] paged_attention scalar path (bf16 heads past the mma tiles) B={B} "
+            f"H={sH} KV={sKV} hd={shd} page=16: max_abs_err={err:.3e}")
+    timed("scalar path", 32, 1, 128, 16, args)
+    for sH, sKV, shd in (heads[SERVED[0]], (32, 1, 128)):
+        q, kp, vp, bt, sl = paged_case(sH, sKV, shd, 16)
+        q = (q.float() * 20).to(dt)
+        err = check_close(f"paged_attention softcap 30 H={sH} KV={sKV} hd={shd}",
+                          pa.paged_attention(q, kp, vp, bt, sl, softcap=30.0),
+                          pa.plain(q, kp, vp, bt, sl, softcap=30.0))
+        errs["paged"] = max(errs["paged"], err)
+        log(f"[kernels] paged_attention softcap=30 H={sH} KV={sKV} hd={shd}: "
+            f"max_abs_err={err:.3e}")
+    for arch in (SERVED[0], SERVED[1]):
+        fH, fKV, fhd = heads[arch]
+        for S in (512, 77):
+            q = (torch.randn(1, fH, S, fhd, generator=gen, device=dev) * 20).to(dt)
+            k = torch.randn(1, fKV, S, fhd, generator=gen, device=dev).to(dt)
+            v = torch.randn(1, fKV, S, fhd, generator=gen, device=dev).to(dt)
+            err = check_close(f"flash_attention softcap 30 {arch} S={S}",
+                              fa.flash_attention(q, k, v, causal=True, softcap=30.0),
+                              fa.plain(q, k, v, causal=True, softcap=30.0))
+            errs["flash"] = max(errs["flash"], err)
+            log(f"[kernels] flash_attention softcap=30 H={fH} KV={fKV} hd={fhd} S=T={S} "
+                f"causal: max_abs_err={err:.3e}")
+    # a chunked prefill: 256 query rows of one lane at positions 256..511,
+    # row s with the lane's block table and seq_len 257 + s
+    cH, cKV, chd = heads["glm4_9b"]
+    S, page, pps = 256, 16, 64
+    P = pps + 1
+    q = torch.randn(S, cH, chd, generator=gen, device=dev).to(dt)
+    kp = torch.randn(P, cKV, page, chd, generator=gen, device=dev).to(dt)
+    vp = torch.randn(P, cKV, page, chd, generator=gen, device=dev).to(dt)
+    bt = (torch.randperm(P - 1, generator=gen, device=dev) + 1).view(1, pps).to(torch.int32)
+    rows_bt = bt.repeat_interleave(S, dim=0).contiguous()
+    rows_sl = torch.arange(257, 257 + S, dtype=torch.int32, device=dev)
+    err = check_close("paged_attention chunked-prefill rows",
+                      pa.paged_attention(q, kp, vp, rows_bt, rows_sl),
+                      pa.plain(q, kp, vp, rows_bt, rows_sl))
+    errs["paged"] = max(errs["paged"], err)
+    log(f"[kernels] paged_attention chunked prefill: {S} rows (positions 256-511) "
+        f"H={cH} KV={cKV} hd={chd} bf16: max_abs_err={err:.3e} (atol=rtol={TOL_BF16})")
+    # the serve driver's decode (phase 7): 2 lanes a replica (4 in one), max_seq
+    # 256 as 16 pages of 16 or 2 of 128, contexts of 3-15 tokens
+    for dB in (2, 4):
+        for page, pps in ((16, 16), (128, 2)):
+            P = dB * pps + 1
+            q = torch.randn(dB, cH, chd, generator=gen, device=dev).to(dt)
+            kp = torch.randn(P, cKV, page, chd, generator=gen, device=dev).to(dt)
+            vp = torch.randn(P, cKV, page, chd, generator=gen, device=dev).to(dt)
+            bt = (torch.randperm(P - 1, generator=gen, device=dev) + 1).view(dB, pps)
+            bt = bt.to(torch.int32).contiguous()
+            err = 0.0
+            for n in range(13):  # lane b at 3 + (n + 3b) % 13: every lane sees 3..15
+                sl = torch.tensor([3 + (n + 3 * b) % 13 for b in range(dB)],
+                                  dtype=torch.int32, device=dev)
+                err = max(err, check_close(f"paged_attention driver decode B={dB} "
+                                           f"page={page} seq_lens {sl.tolist()}",
+                                           pa.paged_attention(q, kp, vp, bt, sl),
+                                           pa.plain(q, kp, vp, bt, sl)))
+            errs["paged"] = max(errs["paged"], err)
+            log(f"[kernels] paged_attention serve-driver decode B={dB} H={cH} KV={cKV} "
+                f"hd={chd} page={page} pps={pps} bf16, seq_lens 3-15: max_abs_err={err:.3e} "
+                f"(atol=rtol={TOL_BF16})")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -659,13 +817,13 @@ def main_path(seed: int, kernels: dict, arch: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def device_queue(seed: int, kernels: dict) -> dict:
-    """FIFO churn on a 65,536-slot pool, card against CPU every round; then
-    the rate of ``slotpool.claim`` on the card."""
+def fifo_churn(seed: int, kernels: dict, n: int, rounds: int):
+    """FIFO churn on an n-slot pool, card against CPU every round; strict
+    FIFO and the pool invariants checked. Returns the card's pool and the
+    kernels' launches of this churn alone (one claim launch a round)."""
     from repro_torch.core import slotpool
-    from repro_torch.kernels import cmp_claim
 
-    n, window, rounds = 65536, 128, 500
+    window = 128
     rng = np.random.default_rng(seed)
     pools = {"cuda": slotpool.make(n, "cuda"), "cpu": slotpool.make(n, "cpu")}
     for dev in pools:  # a backlog of half the pool
@@ -688,7 +846,7 @@ def device_queue(seed: int, kernels: dict) -> dict:
             outs[dev] = (cycle, pids, pvalid, ids, valid, nrec, *pool)
         for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
             if not torch.equal(a.cpu(), b):
-                raise AssertionError(f"device queue round {r}: output {i} differs "
+                raise AssertionError(f"device queue N={n} round {r}: output {i} differs "
                                      f"between card and CPU")
         cycle, ids, valid = (outs["cpu"][i] for i in (0, 3, 4))
         claimed += cycle[ids[valid].long()].tolist()
@@ -696,14 +854,31 @@ def device_queue(seed: int, kernels: dict) -> dict:
     launches = {name: mod.launches for name, mod in kernels.items()}
     if launches["cmp_claim"] != rounds:  # one launch a claim
         raise AssertionError(f"cmp_claim launches {launches['cmp_claim']} != "
-                             f"{rounds} claims")
+                             f"{rounds} claims at N={n}")
     if len(claimed) < rounds or any(b <= a for a, b in zip(claimed, claimed[1:])):
-        raise AssertionError("claimed cycles are not strictly ascending (FIFO)")
+        raise AssertionError(f"N={n}: claimed cycles are not strictly ascending (FIFO)")
     pool = pools["cuda"]
     slotpool.check_invariants(pool, window)
     log(f"[queue] N={n} window={window}: {rounds} rounds of produce/claim/advance/"
         f"reclaim (k in [1, 64]), card == CPU every round; {len(claimed)} claims in "
-        f"strictly ascending cycle order; invariants hold; {slotpool.counts(pool)}")
+        f"strictly ascending cycle order; invariants hold; {slotpool.counts(pool)}; "
+        f"launches {launches}")
+    return pool, launches
+
+
+def device_queue(seed: int, kernels: dict) -> dict:
+    """FIFO churns at the JAX package's claim tile (2,048 slots: its
+    single-block kernel) and on a 65,536-slot pool (its tiled kernel and
+    merge), card against CPU every round; then the rate of
+    ``slotpool.claim`` on the card at 65,536. Returns the claim kernel's
+    launches of each churn, by the JAX call site its pool size reaches."""
+    from repro_torch.core import slotpool
+    from repro_torch.kernels import cmp_claim
+
+    _, small = fifo_churn(seed, kernels, JAX_TILE, 200)
+    n = 65536
+    pool, large = fifo_churn(seed, kernels, n, 500)
+    launches = {"cmp_claim": small["cmp_claim"], "cmp_claim_tiled": large["cmp_claim"]}
     calls, k = 200, 64
     got = torch.zeros((), dtype=torch.int64, device="cuda")
     torch.cuda.synchronize()
@@ -723,7 +898,7 @@ def device_queue(seed: int, kernels: dict) -> dict:
     kernel_ms, eager_ms = graph_ms(pool_claim, 200), cuda_ms(pool_claim, 200)
     log(f"[queue] slotpool.claim k={k} on the card: {n_claims / wall:.1f} claims/s "
         f"({wall / calls * 1e3:.5f} ms a call, host clock); its kernel (claim_pool) "
-        f"{kernel_ms:.5f} ms a call (graph), {eager_ms:.5f} eager; launches {launches}")
+        f"{kernel_ms:.5f} ms a call (graph), {eager_ms:.5f} eager")
     held = [pool]
 
     def one_claim():
@@ -736,6 +911,212 @@ def device_queue(seed: int, kernels: dict) -> dict:
     if per_call > 2:
         raise AssertionError(f"slotpool.claim issues {per_call} kernel launches a call")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the serve driver at glm4-9b's full width
+# ---------------------------------------------------------------------------
+
+DRIVER_FLAGS = ["--arch", "glm4-9b", "--multitenant", "--policy", "wfq", "--replicas", "2",
+                "--device-admission", "--requests", "9", "--max-new", "8"]
+
+
+class ForwardCounts:
+    """Counts the forward calls of the engines that phase 7 makes, by the
+    kernel each one runs: a prompt from position 0 runs flash, a decode or
+    a prefill past position 0 runs the paged kernel. The driver's and
+    ``Fabric``'s engines take no ``forward_fn``, so their default forward
+    calls ``repro_torch.serving.engine.paged_forward``; while in use, that
+    name is a counting wrapper of it."""
+
+    def __init__(self, kernels: dict):
+        from repro_torch.serving import engine
+
+        self.engine, self.real, self.kernels = engine, engine.paged_forward, kernels
+        self.calls = []  # (kind, pps, page, attention layers) a forward call
+
+    def __enter__(self):
+        def counted(p, t, cfg, kp, vp, bt, sl):
+            flash = t.shape[1] > 1 and not bool(sl.any())
+            self.calls.append(("flash" if flash else "paged", bt.shape[1], kp.shape[3],
+                               kp.shape[0]))
+            return self.real(p, t, cfg, kp, vp, bt, sl)
+
+        self.engine.paged_forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.paged_forward = self.real
+
+    def check(self, what: str, launches: dict) -> None:
+        """The paged and flash launches of this run against its forward
+        calls: launches_per_call(pps, page) x layers a paged call, one
+        flash launch a layer a prompt."""
+        per_call = self.kernels["paged_attention"].launches_per_call
+        want_paged = sum(per_call(pps, page) * layers
+                         for kind, pps, page, layers in self.calls if kind == "paged")
+        want_flash = sum(layers for kind, _, _, layers in self.calls if kind == "flash")
+        n_paged = sum(kind == "paged" for kind, *_ in self.calls)
+        if (launches["paged_attention"], launches["flash_attention"]) != (want_paged,
+                                                                          want_flash):
+            raise AssertionError(f"{what}: paged/flash launches "
+                                 f"{launches['paged_attention']}/"
+                                 f"{launches['flash_attention']} != {want_paged}/"
+                                 f"{want_flash} from {n_paged} paged and "
+                                 f"{len(self.calls) - n_paged} flash forward calls")
+        if launches["cmp_ring"] < 1:
+            raise AssertionError(f"{what}: the admission ring kernel never ran")
+        log(f"[driver] {what}: launches {launches} = {n_paged} paged forward calls x "
+            f"launches_per_call x layers and {len(self.calls) - n_paged} flash prompts "
+            f"x layers")
+
+
+def counted_run(what: str, kernels: dict, run):
+    """``run()`` with the kernels' counts set to 0 just before it and read
+    just after, held to its forward calls; returns (its result, launches)."""
+    torch.cuda.synchronize()
+    for mod in kernels.values():
+        mod.launches = 0
+    with ForwardCounts(kernels) as counts:
+        out = run()
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    counts.check(what, launches)
+    return out, launches
+
+
+def _driver_run(serve, argv: list, card: str, vocab: int) -> dict:
+    """One call of the port's serve driver on the card: wall seconds,
+    generated tokens and peak device memory around it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    runs = out["layouts"] if "layouts" in out else {"run": out["run"]}
+    steps = out["steps"] if "layouts" in out else {"run": out["steps"]}
+    completed = gen_tokens = 0
+    for uids, _, done, _ in runs.values():
+        if any(u not in done for u in uids) or len(uids) != 9:
+            raise AssertionError(f"driver {' '.join(argv)}: a request was not admitted "
+                                 f"or not completed")
+        for u in uids:
+            toks = done[u].output
+            if len(toks) != 8 or not all(0 <= t < vocab for t in toks):
+                raise AssertionError(f"driver: request {u} has a bad output {toks}")
+        completed += len(uids)
+        gen_tokens += sum(len(done[u].output) for u in uids)
+    log(f"[driver] {' '.join(argv)}: {completed} requests completed, group steps "
+        f"{steps}; wall {wall:.3f}s, {gen_tokens / wall:.2f} generated tokens/s; peak "
+        f"device memory {peak_gb:.3f} GB ({card})")
+    return dict(out=out, peak_gb=peak_gb)
+
+
+def serve_driver(seed: int, kernels: dict, card: str) -> dict:
+    """Phase 7: the port's serve driver and Fabric at glm4-9b's full width
+    and depth; returns the serving kernels' launches of this phase, the sum
+    of its three runs, each held to its own forward calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config("glm4-9b")
+    params_gb = 2 * 9.4  # glm4-9b in bf16: 9.40B parameters, 18.8 GB
+    total = dict.fromkeys(kernels, 0)
+    # the layout check: 2 replicas over 2 simulated hosts against one host
+    argv = DRIVER_FLAGS + ["--hosts", "2", "--verify-single-host"]
+    run, launches = counted_run("--verify-single-host", kernels,
+                                lambda: _driver_run(serve, argv, card, cfg.vocab_size))
+    if run["peak_gb"] > 1.5 * params_gb:
+        raise AssertionError(f"peak {run['peak_gb']:.1f} GB: the replicas or the two "
+                             f"layouts held more than one copy of the weights")
+    for name, n in launches.items():
+        total[name] += n
+    argv = DRIVER_FLAGS + ["--page-size", "128"]
+    _, launches = counted_run("--page-size 128", kernels,
+                              lambda: _driver_run(serve, argv, card, cfg.vocab_size))
+    for name, n in launches.items():
+        total[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, launches = counted_run("crash/resume", kernels, lambda: crash_resume(seed, cfg, serve))
+    for name, n in launches.items():
+        total[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(f"[driver] serving kernels' launches in phase 7: {total} ({card})")
+    return total
+
+
+def crash_resume(seed: int, cfg, serve) -> None:
+    """Crash and resume through the Fabric API at glm4-9b's full width: an
+    uninterrupted run, then a run with a cadence checkpoint every 4 steps
+    dropped after step 10 and restored with the same weights; every
+    admitted request completes once, token-identical to the first run."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.fabric import Fabric
+    from repro_torch.models import init_params, param_count
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    torch.cuda.synchronize()
+    log(f"[driver] {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model} "
+        f"H={cfg.num_heads} KV={cfg.num_kv_heads} hd={cfg.resolved_head_dim} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} {cfg.dtype}; "
+        f"{param_count(params) / 1e9:.3f}B params made in {time.perf_counter() - t0:.1f}s")
+    args = serve.build_parser().parse_args(DRIVER_FLAGS)
+    config = serve.config_from_args(args)
+    ck = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase7_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+
+    def submit_wave(fab):
+        uids = []
+        for i in range(9):
+            prompt = [(7 * i + j) % (cfg.vocab_size - 1) + 1 for j in range(3 + i % 5)]
+            uids.append(fab.submit(prompt, max_new_tokens=8, qclass=serve.TENANTS[i % 3]))
+        if None in uids:
+            raise AssertionError("a request of the wave was not admitted")
+        return uids
+
+    fab = Fabric.open(config, params=params)
+    uids = submit_wave(fab)
+    ref = {u: r.output for u, r in fab.drain(max_steps=500).items()}
+    fab.close()
+    fab = Fabric.open(dataclasses.replace(config, checkpoint_dir=ck,
+                                          checkpoint_every_n_steps=4), params=params)
+    if submit_wave(fab) != uids:
+        raise AssertionError("the two runs gave the wave different uids")
+    at_ckpt = {}  # step of each cadence checkpoint -> requests completed by then
+    for _ in range(10):
+        fab.step()
+        if fab.step_count % 4 == 0:
+            at_ckpt[fab.step_count] = {u: r.output for u, r in fab.completed.items()}
+    fab.flush_checkpoints()
+    del fab  # the crash: the session is dropped without close()
+    gc.collect()
+    fab = Fabric.restore(ck, params=params)
+    step = fab.step_count
+    if step not in at_ckpt:
+        raise AssertionError(f"restored at step {step}, not at a cadence checkpoint")
+    before = at_ckpt[step]
+    after = {u: r.output for u, r in fab.drain(max_steps=500).items()}
+    fab.close()
+    if set(before) & set(after) or set(before) | set(after) != set(uids):
+        raise AssertionError(f"crash/resume: completed {sorted(before)} by the checkpoint, "
+                             f"{sorted(after)} after restore, of {uids}")
+    for u in uids:
+        got = before.get(u, after.get(u))
+        if got != ref[u]:
+            raise AssertionError(f"crash/resume: request {u} gave {got}, uninterrupted "
+                                 f"{ref[u]}")
+    log(f"[driver] crash/resume (cadence 4, dropped after step 10, restored at step "
+        f"{step}): {len(before)} requests completed by the checkpoint, {len(after)} after "
+        f"restore, each once; all {len(uids)} token-identical to an uninterrupted run")
+    shutil.rmtree(ck, ignore_errors=True)
 
 
 def _self_device_us(evt) -> float:
@@ -811,6 +1192,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     log(smi)
+    card = ", ".join(x.strip() for x in smi.split(","))
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
@@ -833,7 +1215,10 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = [check_ring(cmp_ring, rng), check_paged(paged_attention, gen),
-            check_flash(flash_attention, gen), check_claim(cmp_claim, rng)]
+            check_flash(flash_attention, gen), *check_claim(cmp_claim, rng)]
+    repaired = check_attention_repairs(paged_attention, flash_attention, gen)
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], repaired["paged"])
+    rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], repaired["flash"])
 
     # phase 4: small-input reference
     for arch in SERVED:
@@ -843,20 +1228,31 @@ def main() -> int:
     # are freed before the next is made)
     kernels = {"cmp_ring": cmp_ring, "paged_attention": paged_attention,
                "flash_attention": flash_attention, "cmp_claim": cmp_claim}
-    launches = dict.fromkeys(kernels, 0)
+    phase5 = dict.fromkeys(kernels, 0)
     for arch in SERVED:
         for name, n in main_path(args.seed, kernels, arch).items():
-            launches[name] += n
+            phase5[name] += n
         gc.collect()
         torch.cuda.empty_cache()
 
     # phase 6: the device CMP queue
-    launches["cmp_claim"] = device_queue(args.seed, kernels)["cmp_claim"]
+    phase6 = device_queue(args.seed, kernels)
+
+    # phase 7: the serve driver at glm4-9b's full width
+    phase7 = serve_driver(args.seed, kernels, card)
+
+    # each row's launches: the serving kernels' from phases 5 and 7, the
+    # claim kernel's from phase 6 (by the JAX call site of its pool size)
+    serving = ("cmp_ring", "paged_attention", "flash_attention")
+    launches = {name: phase5[name] + phase7[name] for name in serving} | phase6
+    log(f"[launches] phase 5 (Engine): { {k: phase5[k] for k in serving} }; phase 6 "
+        f"(slotpool): {phase6}; phase 7 (serve driver): { {k: phase7[k] for k in serving} }")
     for row in rows:
         row["route"] = "cuda"
         row["launches"] = launches[row["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
+    log(f"{smi} (the card of every number above)")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,12 +32,13 @@ LIB_NAME = "librepro_torch_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (all return int, a cudaError_t).
 SIGNATURES = {
     "rt_cmp_ring_step": [_P] * 7 + [_I] * 5 + [_P],
-    "rt_paged_attention": [_P] * 8 + [_I] * 8 + [_P],
-    "rt_flash_attention": [_P] * 5 + [_I] * 9 + [_P],
+    "rt_cmp_ring_step_grid": [_P] * 12 + [_I] * 7 + [_P],
+    "rt_paged_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "rt_flash_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
     "rt_cmp_claim": [_P] * 11 + [_I] * 3 + [_P],
     "rt_cmp_ring_max_n": [],
     "rt_paged_attention_max_rep_hd": [],

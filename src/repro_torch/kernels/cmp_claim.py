@@ -73,7 +73,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _counter(dev, stream) -> torch.Tensor:
+def arrival_counter(dev, stream) -> torch.Tensor:
     """The arrival counter of calls on ``stream``. A device's counters are
     made and zeroed together at its first call, which must not be under
     CUDA-graph capture: a fill captured into a graph would not run until the
@@ -114,7 +114,7 @@ def _run(state, cycle, k, retire=None, deque=None):
     nb = -(-n // TILE)
     if nb > 1:
         cand = torch.empty((nb * min(k, TILE),), dtype=torch.int64, device=dev)
-        counter = _counter(dev, stream)
+        counter = arrival_counter(dev, stream)
     vec = all(t.data_ptr() % 16 == 0 for t in slots)
     err = _build.lib().rt_cmp_claim(state.data_ptr(), cycle.data_ptr(), new_state.data_ptr(),
                   ids.data_ptr(), _ptr(retire), _ptr(new_retire), _ptr(deque),

@@ -347,7 +347,9 @@ __global__ void __launch_bounds__(kThreads)
 claim_kernel(const int* __restrict__ state, const int* __restrict__ cycle,
              int* __restrict__ new_state, int* __restrict__ ids, Pool pool,
              long long* __restrict__ cand, unsigned* __restrict__ counter, int n, int k,
-             int m, bool vec) {
+             int m, bool vec, const int* __restrict__ gate) {
+  // a gated launch with *gate == 0 does nothing (no CTA counts itself)
+  if (gate != nullptr && *gate == 0) return;
   extern __shared__ __align__(16) long long s_keys[];  // the warps' runs; then the merge's
   __shared__ Shared sh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -474,10 +476,12 @@ claim_kernel(const int* __restrict__ state, const int* __restrict__ cycle,
 // null, slotpool.claim's epilogue. cand (int64, cdiv(n, 512) * min(k, 512))
 // and counter (an int32 at 0, left at 0) are needed when n > 512. vec: every
 // slot array is 16-byte aligned.
-extern "C" int rt_cmp_claim(const void* state, const void* cycle, void* new_state,
-                            void* ids, const void* retire, void* new_retire,
-                            const void* deque, void* new_deque, void* valid, void* cand,
-                            void* counter, int n, int k, int vec, void* stream) {
+namespace {
+
+int launch_claim(const void* state, const void* cycle, void* new_state, void* ids,
+                 const void* retire, void* new_retire, const void* deque, void* new_deque,
+                 void* valid, void* cand, void* counter, int n, int k, int vec,
+                 const void* gate, void* stream) {
   const int nb = n > 0 ? (n + kTile - 1) / kTile : 0;
   const bool pool = retire != nullptr;
   if (n <= 0 || n > kMaxN || k <= 0 ||
@@ -510,6 +514,27 @@ extern "C" int rt_cmp_claim(const void* state, const void* cycle, void* new_stat
   claim_kernel<<<nb, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(state), static_cast<const int*>(cycle),
       static_cast<int*>(new_state), static_cast<int*>(ids), p,
-      static_cast<long long*>(cand), static_cast<unsigned*>(counter), n, k, m, vec != 0);
+      static_cast<long long*>(cand), static_cast<unsigned*>(counter), n, k, m, vec != 0,
+      static_cast<const int*>(gate));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int rt_cmp_claim(const void* state, const void* cycle, void* new_state,
+                            void* ids, const void* retire, void* new_retire,
+                            const void* deque, void* new_deque, void* valid, void* cand,
+                            void* counter, int n, int k, int vec, void* stream) {
+  return launch_claim(state, cycle, new_state, ids, retire, new_retire, deque, new_deque,
+                      valid, cand, counter, n, k, vec, nullptr, stream);
+}
+
+// The same claim (no pool epilogue) that runs only when *gate != 0, read on
+// the card: the admission ring's grid path launches it unconditionally and
+// lets its enqueue pass decide.
+extern "C" int rt_cmp_claim_gated(const void* state, const void* cycle, void* new_state,
+                                  void* ids, void* cand, void* counter, int n, int k, int vec,
+                                  const void* gate, void* stream) {
+  return launch_claim(state, cycle, new_state, ids, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, cand, counter, n, k, vec, gate, stream);
 }

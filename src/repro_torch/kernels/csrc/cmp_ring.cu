@@ -32,6 +32,27 @@
 // warps; there is no atomic. Each thread holds S slots in registers
 // (S = 1..16, 1,024 threads at most); shared memory holds the warps'
 // partials, and the general path's keys.
+//
+// Rings of more than 16,384 slots (max_batch above 1,024) take a grid path
+// of four launches, a thread a slot, exact for any input:
+//   scan     reclaim, and the first blocked offset of the push by atomicMin
+//            into a scratch word (set by a memset first);
+//   enqueue  the accepted prefix's writes (the new state to scratch, the
+//            cycles to the output, meta'[0] published); each CTA counts its
+//            claimable slots, and those before slot enq' mod N, and flags
+//            any claimable slot that breaks the enqueue invariant;
+//   claim    only when a slot broke it (the launch is gated on the flag, on
+//            the card): the claim kernel of cmp_claim.cu takes the
+//            min(k, want) claimable slots of smallest (cycle, id), whose
+//            cycles in ascending order are the oracle's sorted keys;
+//   publish  with the invariant intact, a claim by ring position as in the
+//            one-CTA kernel: a slot's rank is the CTA counts before it plus
+//            its place in its CTA (ballots), rotated to start at enq' mod
+//            N. Otherwise threshold = the take-th smallest claimable cycle
+//            and every claimable slot at or below it goes CLAIMED, ties
+//            included, as the oracle's select does (a state with duplicate
+//            cycles claims more slots than take; the claim kernel alone
+//            claims exactly take).
 #include <climits>
 
 #include "common.cuh"
@@ -276,7 +297,222 @@ int launch(const int* state_in, const int* cycle_in, const int* meta_in,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// grid path: N > kMaxN
+// ---------------------------------------------------------------------------
+
+constexpr int kGridThreads = 256;
+
+struct RingArgs {
+  int n, enq, dc, window, push_n;
+};
+
+__device__ __forceinline__ int grid_offset(const RingArgs& a, int j) {
+  return floor_mod(wrap_sub(j, a.enq), a.n);
+}
+
+__device__ __forceinline__ int reclaimed_state(const RingArgs& a, int st, int cy) {
+  return (st == kClaimed && cy < wrap_sub(a.dc, a.window)) ? kFree : st;
+}
+
+__global__ void __launch_bounds__(kGridThreads)
+ring_scan_kernel(const int* __restrict__ state_in, const int* __restrict__ cycle_in,
+                 const int* __restrict__ meta_in, int n, int window, int push_n,
+                 int* __restrict__ blocked) {
+  const RingArgs a{n, meta_in[0], meta_in[1], window, push_n};
+  const int j = blockIdx.x * kGridThreads + threadIdx.x;
+  int first = INT_MAX;
+  if (j < n) {
+    const int off = grid_offset(a, j);
+    if (off < push_n && reclaimed_state(a, state_in[j], cycle_in[j]) != kFree) first = off;
+  }
+  first = __reduce_min_sync(kFull, first);
+  if ((threadIdx.x & 31) == 0 && first != INT_MAX) atomicMin(blocked, first);
+}
+
+// Block sum of v (every thread of the CTA calls it).
+__device__ __forceinline__ int block_sum(int v, int* s_warp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = __reduce_add_sync(kFull, v);
+  if (lane == 0) s_warp[warp] = v;
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kGridThreads / 32; ++w) total += s_warp[w];
+  return total;
+}
+
+// Grid scratch (int32): [0] blocked offset, [1] broken flag, then the CTAs'
+// claimable counts [nb] and their counts before slot enq' mod N [nb].
+constexpr int kBlocked = 0, kBroken = 1, kCounts = 2;
+
+__global__ void __launch_bounds__(kGridThreads)
+ring_enqueue_kernel(const int* __restrict__ state_in, const int* __restrict__ cycle_in,
+                    const int* __restrict__ meta_in, int n, int window, int push_n,
+                    int* __restrict__ words, int* __restrict__ mid_state,
+                    int* __restrict__ cycle_out, int* __restrict__ meta_out) {
+  __shared__ int s_warp[2][kGridThreads / 32];
+  const RingArgs a{n, meta_in[0], meta_in[1], window, push_n};
+  const int accepted = min(push_n, words[kBlocked]);
+  const int enq_new = wrap_add(a.enq, accepted);
+  const int start = floor_mod(enq_new, n);  // slot of the oldest possible cycle
+  const int j = blockIdx.x * kGridThreads + threadIdx.x;
+  if (j == 0) meta_out[0] = enq_new;
+  bool claimable = false, broken = false;
+  if (j < n) {
+    const int off = grid_offset(a, j);
+    int cy = cycle_in[j];
+    int st = reclaimed_state(a, state_in[j], cy);
+    if (off < accepted) {
+      st = kAvailable;
+      cy = wrap_add(wrap_add(a.enq, 1), off);
+    }
+    mid_state[j] = st;
+    cycle_out[j] = cy;
+    // the invariant of a claimable slot: cycle c in (enq' - N, enq'] without
+    // wrapping, at slot (c - 1) mod N
+    claimable = st == kAvailable && cy != INT_MAX;
+    if (claimable) {
+      const unsigned d = static_cast<unsigned>(enq_new) - static_cast<unsigned>(cy);
+      bool ok = cy <= enq_new && d < static_cast<unsigned>(n);
+      if (ok) {
+        const int pos = start - 1 - static_cast<int>(d);
+        ok = (pos < 0 ? pos + n : pos) == j;
+      }
+      broken = !ok;
+    }
+  }
+  if (__syncthreads_or(broken) && threadIdx.x == 0) atomicOr(words + kBroken, 1);
+  const int count = block_sum(claimable, s_warp[0]);
+  const int before = block_sum(claimable && j < start, s_warp[1]);
+  if (threadIdx.x == 0) {
+    words[kCounts + blockIdx.x] = count;
+    words[kCounts + gridDim.x + blockIdx.x] = before;
+  }
+}
+
+// lanes of ids below n: the claim's valid lanes are a prefix
+__device__ __forceinline__ int valid_prefix(const int* ids, int lanes, int n) {
+  int lo = 0, hi = lanes;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (ids[mid] < n) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kGridThreads)
+ring_publish_kernel(const int* __restrict__ mid_state, const int* __restrict__ cycle_out,
+                    const int* __restrict__ meta_in, const int* __restrict__ words,
+                    const int* __restrict__ ids, int lanes, int n, int k, int want,
+                    int nb, int* __restrict__ state_out, int* __restrict__ meta_out,
+                    int* __restrict__ claimed_out) {
+  __shared__ int s_take, s_threshold, s_prefix, s_total, s_before;
+  __shared__ int s_warp[kGridThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j = blockIdx.x * kGridThreads + tid;
+  const int dc = meta_in[1];
+  const bool broken = words[kBroken] != 0;
+  const int st = j < n ? mid_state[j] : 0, cy = j < n ? cycle_out[j] : 0;
+  const bool claimable = j < n && st == kAvailable && cy != INT_MAX;
+  bool claim = false;
+  int take;
+  if (!broken) {
+    // claim by ring position: rank = (claimable slots before j - those before
+    // slot enq' mod N) mod total
+    if (tid == 0) {
+      int prefix = 0, total = 0, before = 0;
+      for (int c = 0; c < nb; ++c) {
+        const int cnt = words[kCounts + c];
+        if (c < blockIdx.x) prefix += cnt;
+        total += cnt;
+        before += words[kCounts + nb + c];
+      }
+      s_prefix = prefix;
+      s_total = total;
+      s_before = before;
+    }
+    const unsigned row = __ballot_sync(kFull, claimable);
+    if (lane == 0) s_warp[warp] = __popc(row);
+    __syncthreads();
+    int rank = s_prefix + __popc(row & ((1u << lane) - 1u)) - s_before;
+    for (int w = 0; w < warp; ++w) rank += s_warp[w];
+    rank = rank < 0 ? rank + s_total : rank;
+    take = min(want, min(k, s_total));
+    if (claimable && rank < take) {
+      claim = true;
+      claimed_out[rank] = cy;
+      if (rank == take - 1) meta_out[1] = max(dc, cy);
+    }
+  } else {
+    if (tid == 0) {
+      const int t = lanes > 0 ? valid_prefix(ids, lanes, n) : 0;
+      s_take = t;
+      s_threshold = t > 0 ? cycle_out[ids[t - 1]] : 0;
+    }
+    __syncthreads();
+    take = s_take;
+    claim = take > 0 && claimable && cy <= s_threshold;
+    if (j < take) claimed_out[j] = cycle_out[ids[j]];
+    if (j == 0 && take > 0) meta_out[1] = max(dc, s_threshold);
+  }
+  if (j == 0 && take <= 0) meta_out[1] = dc;
+  if (j >= max(take, 0) && j < k) claimed_out[j] = -1;
+  if (j < n) state_out[j] = claim ? kClaimed : st;
+}
+
 }  // namespace
+
+extern "C" int rt_cmp_claim_gated(const void* state, const void* cycle, void* new_state,
+                                  void* ids, void* cand, void* counter, int n, int k, int vec,
+                                  const void* gate, void* stream);
+
+// Rings of more than rt_cmp_ring_max_n() slots. Scratch from the wrapper:
+// mid_state int32 [n]; ids int32 [max(lanes, 1)]; cand int64 [cdiv(n, 512)
+// * min(max(lanes, 1), 512)] and counter (a claim counter at 0) as
+// rt_cmp_claim takes them; words int32 [2 + 2 * cdiv(n, 256)]. lanes =
+// min(k, want) when both are >= 1, else 0 and the claim is not launched
+// (three kernels a call, else four). Returns a cudaError_t.
+extern "C" int rt_cmp_ring_step_grid(const void* state_in, const void* cycle_in,
+                                     const void* meta_in, void* state_out, void* cycle_out,
+                                     void* meta_out, void* claimed_out, void* mid_state,
+                                     void* ids, void* cand, void* counter, void* words,
+                                     int n, int k, int window, int push_n, int want,
+                                     int lanes, int vec, void* stream) {
+  if (n <= kMaxN || k < 0 || k > n || lanes < 0 || lanes > k)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto si = static_cast<const int*>(state_in);
+  auto ci = static_cast<const int*>(cycle_in);
+  auto mi = static_cast<const int*>(meta_in);
+  auto mid = static_cast<int*>(mid_state);
+  auto co = static_cast<int*>(cycle_out);
+  auto mo = static_cast<int*>(meta_out);
+  auto w = static_cast<int*>(words);
+  // 0x7f7f7f7f: above every offset, so an unblocked push keeps push_n
+  cudaError_t err = cudaMemsetAsync(w + kBlocked, 0x7f, sizeof(int), st);
+  if (err == cudaSuccess) err = cudaMemsetAsync(w + kBroken, 0, sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (n + kGridThreads - 1) / kGridThreads;
+  ring_scan_kernel<<<grid, kGridThreads, 0, st>>>(si, ci, mi, n, window, push_n, w + kBlocked);
+  ring_enqueue_kernel<<<grid, kGridThreads, 0, st>>>(si, ci, mi, n, window, push_n, w, mid,
+                                                     co, mo);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (lanes > 0) {
+    // runs only if a slot broke the invariant; its new_state lands in
+    // state_out and is rewritten below
+    const int rc = rt_cmp_claim_gated(mid, co, state_out, ids, cand, counter, n, lanes, vec,
+                                      w + kBroken, stream);
+    if (rc != 0) return rc;
+  }
+  const int pgrid = (max(n, k) + kGridThreads - 1) / kGridThreads;
+  ring_publish_kernel<<<pgrid, kGridThreads, 0, st>>>(
+      mid, co, mi, w, static_cast<const int*>(ids), lanes, n, k, want, grid,
+      static_cast<int*>(state_out), mo, static_cast<int*>(claimed_out));
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int rt_cmp_ring_step(const void* state_in, const void* cycle_in,
                                 const void* meta_in, void* state_out,

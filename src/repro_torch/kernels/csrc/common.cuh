@@ -24,4 +24,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' mask value
 constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x * kLog2e)
 
+// Logit softcap, as the reference's _sdpa: c tanh(s / c) on the score s
+// already scaled by 1/sqrt(hd); c <= 0 is off.
+__device__ __forceinline__ float softcap(float s, float c) {
+  return c > 0.f ? c * tanhf(s / c) : s;
+}
+
+// A score in log2 units from its dot product: dot * scale_log2 (= log2(e) /
+// sqrt(hd)) without a cap, log2(e) c tanh(dot / sqrt(hd) / c) with one.
+__device__ __forceinline__ float score_log2(float dot, float scale_log2, float c) {
+  return c > 0.f ? softcap(dot * (scale_log2 / kLog2e), c) * kLog2e : dot * scale_log2;
+}
+
 }  // namespace rt

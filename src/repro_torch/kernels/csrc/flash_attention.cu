@@ -39,7 +39,9 @@
 // on an H100 put their issue at about 1,200 of a tile's 4,000 cycles. The
 // softmax stays in registers: a row lives on the 4 lanes of a quad, max by
 // two shuffles, exp2f with log2(e)/sqrt(hd) folded into the scale, and the
-// row sum kept per thread until the end. Only tiles that cross the
+// row sum kept per thread until the end. A softcap c > 0 turns each scaled
+// score s into c tanh(s / c) before the mask, as the reference's _sdpa
+// does. Only tiles that cross the
 // diagonal, the window edge or the end of T apply the per-element mask.
 // The GQA heads are not packed into one CTA: the 8 query heads of a KV
 // head read the same K/V from L2 (1 MB at S=512). Two heads a CTA (two
@@ -148,7 +150,7 @@ __global__ void __launch_bounds__(kWgThreads)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                   Strides os, int KV, int S, int Tn, int hd, bool causal, int window,
-                  float scale_log2) {
+                  float scale_log2, float softcap) {
   constexpr int kTile = kRows * HDP * 2;  // bytes of one tile
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align the tiles to it
@@ -229,7 +231,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     float mx0 = rt::kNegInf, mx1 = rt::kNegInf;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      float x = s[i] * scale_log2;
+      float x = rt::score_log2(s[i], scale_log2, softcap);
       if (masked && !visible(i % 4 < 2 ? r0 : r1, k0 + 8 * (i / 4) + c0 + i % 2, Tn, causal,
                              window))
         x = rt::kNegInf;
@@ -330,7 +332,7 @@ int make_map(CUtensorMap* map, const void* ptr, const Strides& st, int B, int he
 template <int HDP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, const Strides* st,
                 int B, int H, int KV, int S, int Tn, int hd, bool causal, int window,
-                cudaStream_t stream) {
+                float softcap, cudaStream_t stream) {
   const int smem = 5 * kRows * HDP * 2 + 16 + 1024;  // Q, K x2, V x2, barriers, alignment
   static bool attr_set = false;
   if (!attr_set) {
@@ -347,7 +349,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, const Stri
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   flash_bf16_kernel<HDP><<<grid, kWgThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], KV, S, Tn, hd, causal, window,
-      rt::kLog2e / sqrtf(static_cast<float>(hd)));
+      rt::kLog2e / sqrtf(static_cast<float>(hd)), softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -366,7 +368,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, Strides qs, Strides ks,
                  Strides vs, Strides os, int KV, int S, int Tn, int hd, bool causal,
-                 int window, float scale) {
+                 int window, float scale, float softcap) {
   extern __shared__ float smem[];
   const int hdp = hd + 1;
   float* q_s = smem;                 // [kBQ][hd+1]
@@ -435,7 +437,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int c = 0; c < 4; ++c) {
         const int i = ty + 16 * a, j = tx + 16 * c;
         s_s[i * (kBK + 1) + j] = (q0 + i < S && visible(q0 + i, k0 + j, Tn, causal, window))
-                                     ? sc[a][c] * scale : rt::kNegInf;
+                                     ? rt::softcap(sc[a][c] * scale, softcap) : rt::kNegInf;
       }
     __syncthreads();
     // online softmax, one thread per query row
@@ -497,7 +499,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 int launch_f32(const void* q, const void* k, const void* v, void* o, const Strides* st,
                int B, int H, int KV, int S, int Tn, int hd, bool causal, int window,
-               cudaStream_t stream) {
+               float softcap, cudaStream_t stream) {
   const int hdp = hd + 1;
   const size_t smem =
       sizeof(float) * (kBQ * hdp + kBK * hdp + kBK * hd + kBQ * (kBK + 1) + 3 * kBQ);
@@ -508,7 +510,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, const Strid
   flash_f32_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1], st[2], st[3], KV,
-      S, Tn, hd, causal, window, 1.0f / sqrtf(static_cast<float>(hd)));
+      S, Tn, hd, causal, window, 1.0f / sqrtf(static_cast<float>(hd)), softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -517,9 +519,11 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, const Strid
 // strides: 12 int64 (batch, head, seq) strides of q, k, v, out, in
 // elements; the head_dim stride is 1 for all four. bfloat16 needs hd % 8 == 0,
 // T > 0 and strides % 8 == 0: a tensor map takes 16-byte multiples.
+// softcap: 0 = off.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* out,
                                   const void* strides, int B, int H, int KV, int S, int T,
-                                  int hd, int causal, int window, int dtype, void* stream) {
+                                  int hd, int causal, int window, int dtype, float softcap,
+                                  void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || hd <= 0 || hd > kMaxHd)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* p = static_cast<const int64_t*>(strides);
@@ -527,13 +531,14 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
                          {p[6], p[7], p[8]}, {p[9], p[10], p[11]}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kF32)
-    return launch_f32(q, k, v, out, st, B, H, KV, S, T, hd, causal != 0, window, s);
+    return launch_f32(q, k, v, out, st, B, H, KV, S, T, hd, causal != 0, window, softcap, s);
   if (dtype == rt::kBF16) {
     if (hd % 8 != 0 || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
     for (int i = 0; i < 12; ++i)
       if (p[i] % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
     return (hd <= 64 ? launch_bf16<64> : launch_bf16<128>)(q, k, v, out, st, B, H, KV, S, T,
-                                                           hd, causal != 0, window, s);
+                                                           hd, causal != 0, window, softcap,
+                                                           s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

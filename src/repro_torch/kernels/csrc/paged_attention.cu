@@ -13,10 +13,13 @@
 // below the card's ~295 FLOP/byte balance point in bf16. At B=8, 1,024
 // tokens, that is 16.9 MB, 5.05 us at 3.35 TB/s: the card needs hundreds of
 // KB in flight, so the work has to be spread over every SM.
-// Design: the grid is (KV head, sequence, split). A split is a fixed chunk
-// of pages_per_split pages chosen on the host from the page size alone (64
-// tokens; 4 pages of 16), so the split count follows from pps and never
-// from seq_lens (the decode path reads nothing back to the host). A CTA
+// Design: the grid is (KV head, sequence, split). A split is 64 consecutive
+// token positions, whatever the page size: token t of a sequence lies in
+// page block_tables[t / page] at slot t % page, so a split may cover several
+// small pages (4 of 16), part of one (a page of 128 is two splits), or a
+// page boundary inside it (pages of 24 or 48). The split count is
+// cdiv(pps * page, 64), from the table's width and never from seq_lens (the
+// decode path reads nothing back to the host). A CTA
 // serves all H/KV query heads of its KV head, so each page is read once,
 // and issues 16-byte cp.async copies of all its live K and V rows at once
 // (K and V in two commit groups: scores start while V is in flight). Each
@@ -26,7 +29,9 @@
 // A split with no live token writes m = -1e30, l = 0, acc = 0, which weighs
 // 0 against any live split and gives zeros when all are empty. With one
 // split the first launch writes the output itself. Softmax in exp2 with
-// log2(e)/sqrt(hd) folded into the scale.
+// log2(e)/sqrt(hd) folded into the scale. With a softcap c > 0 a score s
+// (already scaled by 1/sqrt(hd)) becomes c tanh(s / c) before the mask and
+// the max, as the reference's _sdpa does.
 //
 // bfloat16 (paged_mma_kernel): both products on the tensor cores with
 // mma.sync m16n8k16, the H/KV query heads padded to the 16 rows of the A
@@ -39,11 +44,14 @@
 // (V by ldmatrix.trans). Rows past the live tokens are zeroed, since a 0
 // probability times stale bits would be NaN.
 //
-// float32 (paged_f32_kernel): the tensor cores would need TF32, which misses
-// the f32 tolerance (2e-5), so the CUDA cores: a thread scores one (token,
-// head) pair with 4 partial sums (a warp takes 32 tokens of one head, q
-// reads broadcast, K rows padded), a thread per head runs the softmax, and
-// a thread per output element sums P.V.
+// float32, and bfloat16 heads the mma tiles do not take (paged_scalar_kernel<T>:
+// head_dim not a multiple of 16 or above 256, more than 16 query heads a KV
+// head): the CUDA cores, with the K/V rows converted to f32 in shared memory
+// (f32 rows by cp.async, bf16 rows by 8-byte loads). For f32 the tensor
+// cores would need TF32, which misses the f32 tolerance (2e-5). A thread
+// scores one (token, head) pair with 4 partial sums (a warp takes 32 tokens
+// of one head, q reads broadcast, K rows padded), a thread per head runs the
+// softmax, and a thread per output element sums P.V.
 #include <cmath>
 
 #include "common.cuh"
@@ -89,28 +97,41 @@ __device__ __forceinline__ void write_empty_split(T* out, float* part_acc, float
     }
 }
 
+constexpr int kChunk = 64;  // token positions of a split
+
+// four elements of a K/V row into f32 shared memory: one 16-byte cp.async
+// for f32, an 8-byte load converted for bf16
+__device__ __forceinline__ void load4(float* dst, const float* src) { cp_async16(dst, src); }
+__device__ __forceinline__ void load4(float* dst, const __nv_bfloat16* src) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-paged_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
-                 const float* __restrict__ v_pages, const int* __restrict__ block_tables,
-                 const int* __restrict__ seq_lens, float* __restrict__ out,
-                 float* __restrict__ part_acc, float* __restrict__ part_ml, int H, int KV,
-                 int page, int hd, int pps, int ppc, float scale_log2) {
+paged_scalar_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                    const T* __restrict__ v_pages, const int* __restrict__ block_tables,
+                    const int* __restrict__ seq_lens, T* __restrict__ out,
+                    float* __restrict__ part_acc, float* __restrict__ part_ml, int H, int KV,
+                    int page, int hd, int pps, float scale_log2, float softcap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rep = H / KV;
-  const int chunk = ppc * page;  // tokens of a full split
   const int kp = hd + kVec;      // padded K row
-  float* k_s = reinterpret_cast<float*>(smem_raw);  // [chunk][hd + kVec]
-  float* v_s = k_s + chunk * kp;                    // [chunk][hd]
-  float* q_s = v_s + chunk * hd;                    // [rep][hd]
-  float* s_s = q_s + rep * hd;                      // [rep][chunk]
-  float* m_s = s_s + rep * chunk;                   // [rep]
+  float* k_s = reinterpret_cast<float*>(smem_raw);  // [kChunk][hd + kVec]
+  float* v_s = k_s + kChunk * kp;                   // [kChunk][hd]
+  float* q_s = v_s + kChunk * hd;                   // [rep][hd]
+  float* s_s = q_s + rep * hd;                      // [rep][kChunk]
+  float* m_s = s_s + rep * kChunk;                  // [rep]
   float* l_s = m_s + rep;                           // [rep]
 
   const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z, n_split = gridDim.z;
   const int tid = threadIdx.x, lane = tid % 32;
   const int live = min(seq_lens[b], pps * page);      // tokens that exist
-  const int t0 = split * chunk;
-  const int n_t = max(0, min(chunk, live - t0));      // live tokens of this split
+  const int t0 = split * kChunk;
+  const int n_t = max(0, min(kChunk, live - t0));     // live tokens of this split
   const int64_t part = (static_cast<int64_t>(b) * H) * n_split + split;  // + h*n_split
 
   if (n_t == 0) {  // weight 0 in the combine; zeros when it is the only split
@@ -118,25 +139,23 @@ paged_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
     return;
   }
 
-  // K, then V, of the live pages: 16-byte copies, two commit groups; K rows
-  // padded by 16 bytes
-  const int vec_per_row = hd / kVec, vec_per_page = page * vec_per_row;
-  const int n_vec = ((n_t + page - 1) / page) * vec_per_page;
-  const int* bt = block_tables + static_cast<int64_t>(b) * pps + split * ppc;
+  // K, then V, of the live tokens, four elements a copy (two commit groups
+  // on the f32 path); K rows padded by 16 bytes
+  const int vpr = hd / kVec;
+  const int* bt = block_tables + static_cast<int64_t>(b) * pps;
   for (int pass = 0; pass < 2; ++pass) {
-    const float* src = pass == 0 ? k_pages : v_pages;
+    const T* src = pass == 0 ? k_pages : v_pages;
     float* dst = pass == 0 ? k_s : v_s;
     const int ld = pass == 0 ? kp : hd;
-    for (int e = tid; e < n_vec; e += kThreads) {
-      const int p = e / vec_per_page, w = e % vec_per_page;
-      const int64_t pid = bt[p];
-      cp_async16(dst + (p * page + w / vec_per_row) * ld + (w % vec_per_row) * kVec,
-                 src + ((pid * KV + g) * page) * hd + w * kVec);
+    for (int e = tid; e < n_t * vpr; e += kThreads) {
+      const int t = e / vpr, c = e % vpr, tg = t0 + t;
+      const int64_t pid = bt[tg / page];
+      load4(dst + t * ld + c * kVec, src + ((pid * KV + g) * page + tg % page) * hd + c * kVec);
     }
     cp_async_commit();
   }
   for (int e = tid; e < rep * hd; e += kThreads)
-    q_s[e] = q[(static_cast<int64_t>(b) * H + (e / hd) * KV + g) * hd + e % hd];
+    q_s[e] = rt::to_f(q[(static_cast<int64_t>(b) * H + (e / hd) * KV + g) * hd + e % hd]);
   cp_async_wait<1>();  // this thread's K copies landed
   __syncthreads();     // everyone's K copies and q_s visible
 
@@ -159,13 +178,13 @@ paged_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
       acc.z += q4.z * k4.z;
       acc.w += q4.w * k4.w;
     }
-    s_s[r * chunk + t] = (acc.x + acc.y + acc.z + acc.w) * scale_log2;
+    s_s[r * kChunk + t] = rt::score_log2(acc.x + acc.y + acc.z + acc.w, scale_log2, softcap);
   }
   __syncthreads();
 
-  // the chunk's softmax, a thread per query head (every token here is live)
+  // the split's softmax, a thread per query head (every token here is live)
   for (int r = tid; r < rep; r += kThreads) {
-    float* row = s_s + r * chunk;
+    float* row = s_s + r * kChunk;
     float mx = rt::kNegInf;
 #pragma unroll 8
     for (int t = 0; t < n_t; ++t) mx = fmaxf(mx, row[t]);
@@ -185,12 +204,12 @@ paged_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
   // acc[r][d] = sum_t p[r][t] v[t][d], a thread per output
   for (int e = tid; e < rep * hd; e += kThreads) {
     const int r = e / hd, d = e % hd, h = r * KV + g;
-    const float* pr = s_s + r * chunk;
+    const float* pr = s_s + r * kChunk;
     float a = 0.f;
 #pragma unroll 4
     for (int t = 0; t < n_t; ++t) a += pr[t] * v_s[t * hd + d];
     if (n_split == 1)
-      out[(static_cast<int64_t>(b) * H + h) * hd + d] = a / fmaxf(l_s[r], 1e-30f);
+      out[(static_cast<int64_t>(b) * H + h) * hd + d] = rt::from_f<T>(a / fmaxf(l_s[r], 1e-30f));
     else
       part_acc[(part + static_cast<int64_t>(h) * n_split) * hd + d] = a;
   }
@@ -206,7 +225,6 @@ paged_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
 // bfloat16: tensor-core tiles (mma.sync m16n8k16), one 64-token split a CTA
 // ---------------------------------------------------------------------------
 
-constexpr int kChunk = 64;    // tokens of a split on the tensor-core path
 constexpr int kMmaRows = 16;  // query heads of a KV head, padded to the tile
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -244,7 +262,7 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
                  const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
                  float* __restrict__ part_ml, int H, int KV, int page, int hd, int pps,
-                 int ppc, float scale_log2) {
+                 float scale_log2, float softcap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rep = H / KV, ld = hd + 8;  // rows padded by 16 bytes: ldmatrix hits 8 banks
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][hd + 8]
@@ -256,7 +274,8 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z, n_split = gridDim.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g4 = lane / 4, q4 = lane % 4;
   const int live = min(seq_lens[b], pps * page);
-  const int n_t = max(0, min(kChunk, live - split * kChunk));
+  const int t0 = split * kChunk;
+  const int n_t = max(0, min(kChunk, live - t0));
   const int64_t part = (static_cast<int64_t>(b) * H) * n_split + split;  // + h*n_split
 
   if (n_t == 0) {  // weight 0 in the combine; zeros when it is the only split
@@ -267,15 +286,15 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   // live K, then V, rows: 16-byte cp.async copies, two commit groups; rows
   // past the live ones are zeroed (a 0 probability times stale bits is NaN)
   const int vpr = hd / 8;
-  const int* bt = block_tables + static_cast<int64_t>(b) * pps + split * ppc;
+  const int* bt = block_tables + static_cast<int64_t>(b) * pps;
   for (int pass = 0; pass < 2; ++pass) {
     const __nv_bfloat16* src = pass == 0 ? k_pages : v_pages;
     __nv_bfloat16* dst = pass == 0 ? k_s : v_s;
     for (int e = tid; e < kChunk * vpr; e += kThreads) {
-      const int t = e / vpr, c = e % vpr;
+      const int t = e / vpr, c = e % vpr, tg = t0 + t;
       if (t < n_t) {
-        const int64_t pid = bt[t / page];
-        cp_async16(dst + t * ld + c * 8, src + ((pid * KV + g) * page + t % page) * hd + c * 8);
+        const int64_t pid = bt[tg / page];
+        cp_async16(dst + t * ld + c * 8, src + ((pid * KV + g) * page + tg % page) * hd + c * 8);
       } else {
         *reinterpret_cast<uint4*>(dst + t * ld + c * 8) = make_uint4(0, 0, 0, 0);
       }
@@ -310,10 +329,11 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     }
   }
   // softmax over the split for each head: quad shuffles, then across warps
-  const int t0 = tok + 2 * q4;
+  const int tq = tok + 2 * q4;
   float p[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) p[i] = t0 + i % 2 < n_t ? sc[i] * scale_log2 : rt::kNegInf;
+  for (int i = 0; i < 4; ++i)
+    p[i] = tq + i % 2 < n_t ? rt::score_log2(sc[i], scale_log2, softcap) : rt::kNegInf;
   float ma = fmaxf(p[0], p[1]), mb = fmaxf(p[2], p[3]);
 #pragma unroll
   for (int off = 1; off < 4; off *= 2) {
@@ -343,9 +363,9 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     sm_s[warp * kMmaRows + g4] = la;
     sm_s[warp * kMmaRows + g4 + 8] = lb;
   }
-  *reinterpret_cast<__nv_bfloat162*>(p_s + g4 * (kChunk + 8) + t0) =
+  *reinterpret_cast<__nv_bfloat162*>(p_s + g4 * (kChunk + 8) + tq) =
       __floats2bfloat162_rn(p[0], p[1]);
-  *reinterpret_cast<__nv_bfloat162*>(p_s + (g4 + 8) * (kChunk + 8) + t0) =
+  *reinterpret_cast<__nv_bfloat162*>(p_s + (g4 + 8) * (kChunk + 8) + tq) =
       __floats2bfloat162_rn(p[2], p[3]);
   cp_async_wait<0>();
   __syncthreads();  // V, P and the per-warp sums in place
@@ -438,34 +458,36 @@ int combine(void* part_acc, void* part_ml, void* out, int BH, int n_split, int h
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_f32(const void* q, const void* kp, const void* vp, const void* bt, const void* sl,
-               void* out, void* part_acc, void* part_ml, int B, int H, int KV, int page,
-               int hd, int pps, int ppc, cudaStream_t stream) {
-  if (hd % kVec != 0 || ppc <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int rep = H / KV, chunk = ppc * page;
-  const int n_split = (pps + ppc - 1) / ppc;
+template <typename T>
+int launch_scalar(const void* q, const void* kp, const void* vp, const void* bt, const void* sl,
+                  void* out, void* part_acc, void* part_ml, int B, int H, int KV, int page,
+                  int hd, int pps, float softcap, cudaStream_t stream) {
+  if (hd % kVec != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int rep = H / KV;
+  const int n_split = (pps * page + kChunk - 1) / kChunk;
   const size_t smem =
-      sizeof(float) * (chunk * (2 * hd + kVec) + rep * hd + rep * chunk + 2 * rep);
+      sizeof(float) * (kChunk * (2 * hd + kVec) + rep * hd + rep * kChunk + 2 * rep);
   static size_t smem_set = 48 * 1024;  // the attribute only grows
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        paged_scalar_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = smem;
   }
-  paged_f32_kernel<<<dim3(KV, B, n_split), kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(kp), static_cast<const float*>(vp),
-      static_cast<const int*>(bt), static_cast<const int*>(sl), static_cast<float*>(out),
-      static_cast<float*>(part_acc), static_cast<float*>(part_ml), H, KV, page, hd, pps, ppc,
-      rt::kLog2e / sqrtf(static_cast<float>(hd)));
-  return combine<float>(part_acc, part_ml, out, B * H, n_split, hd, stream);
+  paged_scalar_kernel<T><<<dim3(KV, B, n_split), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
+      static_cast<const int*>(bt), static_cast<const int*>(sl), static_cast<T*>(out),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), H, KV, page, hd, pps,
+      rt::kLog2e / sqrtf(static_cast<float>(hd)), softcap);
+  return combine<T>(part_acc, part_ml, out, B * H, n_split, hd, stream);
 }
 
 template <int kMaxKs>
 int launch_mma(const void* q, const void* kp, const void* vp, const void* bt, const void* sl,
                void* out, void* part_acc, void* part_ml, int B, int H, int KV, int page,
-               int hd, int pps, int ppc, cudaStream_t stream) {
-  const int n_split = (pps + ppc - 1) / ppc;
+               int hd, int pps, float softcap, cudaStream_t stream) {
+  const int n_split = (pps * page + kChunk - 1) / kChunk;
   const int smem = 2 * kChunk * (hd + 8) * 2 + kMmaRows * (kChunk + 8) * 2 +
                    2 * 8 * kMmaRows * 4;
   static int smem_set = 48 * 1024;  // the attribute only grows
@@ -479,35 +501,35 @@ int launch_mma(const void* q, const void* kp, const void* vp, const void* bt, co
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
       static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(bt),
       static_cast<const int*>(sl), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(part_acc), static_cast<float*>(part_ml), H, KV, page, hd, pps, ppc,
-      rt::kLog2e / sqrtf(static_cast<float>(hd)));
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), H, KV, page, hd, pps,
+      rt::kLog2e / sqrtf(static_cast<float>(hd)), softcap);
   return combine<__nv_bfloat16>(part_acc, part_ml, out, B * H, n_split, hd, stream);
 }
 
 }  // namespace
 
-// ppc: pages per split (the host's choice); with (pps + ppc - 1) / ppc > 1
-// splits, part_acc holds [B, H, splits, hd] and part_ml [B, H, splits, 2]
-// floats, and a combine launch follows.
+// With cdiv(pps * page, kChunk) > 1 splits, part_acc holds [B, H, splits,
+// hd] and part_ml [B, H, splits, 2] floats, and a combine launch follows.
+// softcap: 0 = off.
 extern "C" int rt_paged_attention(const void* q, const void* k_pages,
                                   const void* v_pages, const void* block_tables,
                                   const void* seq_lens, void* out, void* part_acc,
                                   void* part_ml, int B, int H, int KV, int page, int hd,
-                                  int pps, int ppc, int dtype, void* stream) {
-  if (B <= 0 || KV <= 0 || pps <= 0 || H % KV != 0 || (H / KV) * hd > kMaxRepHd)
+                                  int pps, int dtype, float softcap, void* stream) {
+  if (B <= 0 || KV <= 0 || pps <= 0 || page <= 0 || H % KV != 0 ||
+      (H / KV) * hd > kMaxRepHd)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kF32)
-    return launch_f32(q, k_pages, v_pages, block_tables, seq_lens, out, part_acc, part_ml, B,
-                      H, KV, page, hd, pps, ppc, s);
-  if (dtype == rt::kBF16) {
-    if (ppc * page != kChunk || hd % 16 != 0 || hd > 256 || H / KV > kMmaRows)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return (hd <= 128 ? launch_mma<8> : launch_mma<16>)(
-        q, k_pages, v_pages, block_tables, seq_lens, out, part_acc, part_ml, B, H, KV, page,
-        hd, pps, ppc, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_scalar<float>(q, k_pages, v_pages, block_tables, seq_lens, out, part_acc,
+                                part_ml, B, H, KV, page, hd, pps, softcap, s);
+  if (dtype != rt::kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd % 16 != 0 || hd > 256 || H / KV > kMmaRows)  // shapes the mma tiles do not take
+    return launch_scalar<__nv_bfloat16>(q, k_pages, v_pages, block_tables, seq_lens, out,
+                                        part_acc, part_ml, B, H, KV, page, hd, pps, softcap, s);
+  return (hd <= 128 ? launch_mma<8> : launch_mma<16>)(
+      q, k_pages, v_pages, block_tables, seq_lens, out, part_acc, part_ml, B, H, KV, page,
+      hd, pps, softcap, s);
 }
 
 extern "C" int rt_paged_attention_max_rep_hd() { return kMaxRepHd; }

@@ -11,7 +11,9 @@ the model-layout wrapper in ``ops`` moves no data either way.
 
 bfloat16 runs on the tensor cores (wgmma tiles fed by TMA copies over
 tensor maps built per call from the strides); float32 stays on the CUDA
-cores, as TF32 would miss the f32 tolerance.
+cores, as TF32 would miss the f32 tolerance. ``softcap`` > 0 applies
+``c * tanh(s / c)`` to the scaled scores before the mask, as the
+reference's attention does.
 
 On a CPU tensor the wrapper runs the plain version, ``plain`` (=
 ``ref.ref_flash_attention``); on a CUDA tensor it launches the kernel or
@@ -31,10 +33,12 @@ launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, sliding_window: int = 0) -> torch.Tensor:
+                    causal: bool = True, sliding_window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
     global launches
     if q.device.type == "cpu":
-        return plain(q, k, v, causal=causal, sliding_window=sliding_window)
+        return plain(q, k, v, causal=causal, sliding_window=sliding_window,
+                     softcap=softcap)
     _build.require(q.is_cuda, f"flash_attention: unsupported device {q.device}")
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
@@ -63,7 +67,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     err = lib.rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
         B, H, KV, S, T, hd, int(causal), int(sliding_window),
-        _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
+        _build.DTYPE_CODES[q.dtype], float(softcap), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
     launches += 1
     return out

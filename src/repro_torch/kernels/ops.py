@@ -10,17 +10,18 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 
 
-def flash_attention(q, k, v, *, causal=True, sliding_window=0):
+def flash_attention(q, k, v, *, causal=True, sliding_window=0, softcap=0.0):
     """Model layout: q [B, S, H, hd]; k/v [B, T, KV, hd] -> [B, S, H, hd]."""
     out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
-                              sliding_window=sliding_window)
+                              sliding_window=sliding_window, softcap=softcap)
     return out.transpose(1, 2)
 
 
-def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
+def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *, softcap=0.0):
     """q [B, H, hd]; pages [P, KV, page, hd] -> [B, H, hd]."""
-    return _pa.paged_attention(q, k_pages, v_pages, block_tables, seq_lens)
+    return _pa.paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
+                               softcap=softcap)
 
 
 def ring_step(state, cycle, meta, req, *, k, window):

@@ -6,15 +6,19 @@ Replaces the Pallas kernel ``repro/kernels/paged_attention.py``
 layouts are the JAX package's: q [B, H, hd], k/v pages [P, KV, page, hd],
 block_tables [B, pages_per_seq] int32, seq_lens [B] int32 -> [B, H, hd].
 
-The kernel splits each sequence's pages into chunks of ``pages_per_split``
-pages (64 tokens), one CTA per (KV head, sequence, chunk), and a second
-launch combines the chunks' partial softmax sums. The split count comes
+The kernel splits each sequence into 64-token splits (``SPLIT_TOKENS``), at
+any page size: token t reads page ``block_tables[t // page]``, slot
+``t % page``. One CTA takes a (KV head, sequence, split), and a second
+launch combines the splits' partial softmax sums. The split count comes
 from the page size and ``pages_per_seq`` alone, never from ``seq_lens``, so
 a call reads nothing back to the host. bfloat16 runs both products on the
-tensor cores (mma.sync); float32 stays on the CUDA cores, as TF32 would
-miss the f32 tolerance. ``ref.ref_paged_attention_split`` is the same
-partition and combine in plain PyTorch (the tests hold it to the JAX
-package).
+tensor cores (mma.sync) when head_dim is a multiple of 16 up to 256 and
+H/KV <= 16; other bfloat16 heads, and float32, run on the CUDA cores (a
+scalar kernel templated on the element type; TF32 would miss the f32
+tolerance). ``softcap`` > 0 applies ``c * tanh(s / c)`` to the scaled
+scores before the mask, as the reference's attention does.
+``ref.ref_paged_attention_split`` is the same partition and combine in
+plain PyTorch (the tests hold it to the JAX package).
 
 On a CPU tensor the wrapper runs the plain version, ``plain`` (=
 ``ref.ref_paged_attention``); on a CUDA tensor it launches the kernel or
@@ -30,15 +34,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_paged_attention as plain
 
 launches = 0
-SPLIT_TOKENS = 64  # tokens a CTA takes: 4 pages of 16 -> 16 splits at 1,024 tokens
-
-
-def pages_per_split(page: int) -> int:
-    return max(1, SPLIT_TOKENS // page)
+SPLIT_TOKENS = 64  # tokens a CTA takes, kChunk in csrc/paged_attention.cu
 
 
 def num_splits(pps: int, page: int) -> int:
-    return -(-pps // pages_per_split(page))
+    return -(-(pps * page) // SPLIT_TOKENS)
 
 
 def launches_per_call(pps: int, page: int) -> int:
@@ -48,10 +48,11 @@ def launches_per_call(pps: int, page: int) -> int:
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                    block_tables: torch.Tensor, seq_lens: torch.Tensor) -> torch.Tensor:
+                    block_tables: torch.Tensor, seq_lens: torch.Tensor, *,
+                    softcap: float = 0.0) -> torch.Tensor:
     global launches
     if q.device.type == "cpu":
-        return plain(q, k_pages, v_pages, block_tables, seq_lens)
+        return plain(q, k_pages, v_pages, block_tables, seq_lens, softcap=softcap)
     _build.require(q.is_cuda, f"paged_attention: unsupported device {q.device}")
     B, H, hd = q.shape
     P, KV, page, hd_k = k_pages.shape
@@ -74,17 +75,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     _build.require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0
                    and hd % 4 == 0, "paged_attention: K/V rows are copied 16 bytes at a "
                    "time: pages 16-byte aligned, head_dim % 4 == 0")
-    if q.dtype == torch.bfloat16:  # tensor-core tiles: 16 x 8 x 16, 64-token splits
-        _build.require(SPLIT_TOKENS % page == 0 and hd % 16 == 0 and hd <= 256
-                       and H // KV <= 16, "paged_attention: bfloat16 needs a page size "
-                       "dividing 64, head_dim % 16 == 0 and <= 256, H/KV <= 16")
     lib = _build.lib()
     _build.require((H // KV) * hd <= lib.rt_paged_attention_max_rep_hd(),
                    "paged_attention: (H/KV)*head_dim too large for one block")
     out = torch.empty_like(q)
     if B == 0:
         return out
-    ppc = pages_per_split(page)
     n_split = num_splits(pps, page)
     part_acc = part_ml = None
     if n_split > 1:
@@ -94,8 +90,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
         seq_lens.data_ptr(), out.data_ptr(),
         None if part_acc is None else part_acc.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(), B, H, KV, page, hd, pps, ppc,
-        _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
+        None if part_ml is None else part_ml.data_ptr(), B, H, KV, page, hd, pps,
+        _build.DTYPE_CODES[q.dtype], float(softcap),
+        _build.stream_ptr(q.device))
     _build.check(err, "paged_attention")
     launches += launches_per_call(pps, page)
     return out

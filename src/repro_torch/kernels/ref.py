@@ -18,7 +18,13 @@ NEG_INF = -1e30
 _INT_MAX = torch.iinfo(torch.int32).max
 
 
-def ref_flash_attention(q, k, v, *, causal=True, sliding_window=0):
+def _softcap(s, softcap: float):
+    """``c * tanh(s / c)`` on the scaled scores (0 = off), as the
+    reference's ``_sdpa``."""
+    return torch.tanh(s / softcap) * softcap if softcap > 0.0 else s
+
+
+def ref_flash_attention(q, k, v, *, causal=True, sliding_window=0, softcap=0.0):
     """q [B,H,S,hd]; k,v [B,KV,T,hd] -> [B,H,S,hd]. r-major GQA: query head
     h reads KV head h % KV. Computed in f32, cast back to q's dtype."""
     B, H, S, hd = q.shape
@@ -26,7 +32,7 @@ def ref_flash_attention(q, k, v, *, causal=True, sliding_window=0):
     rep = H // KV
     kx = k.repeat(1, rep, 1, 1).float()
     vx = v.repeat(1, rep, 1, 1).float()
-    s = torch.einsum("bhsd,bhtd->bhst", q.float(), kx) / math.sqrt(hd)
+    s = _softcap(torch.einsum("bhsd,bhtd->bhst", q.float(), kx) / math.sqrt(hd), softcap)
     q_pos = torch.arange(S, device=q.device)[:, None]
     k_pos = torch.arange(T, device=q.device)[None, :]
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
@@ -39,7 +45,7 @@ def ref_flash_attention(q, k, v, *, causal=True, sliding_window=0):
     return torch.einsum("bhst,bhtd->bhsd", w, vx).to(q.dtype)
 
 
-def ref_paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
+def ref_paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *, softcap=0.0):
     """Decode attention over paged KV.
 
     q [B, H, hd]; k/v_pages [P, KV, page, hd]; block_tables [B, pps]
@@ -54,7 +60,7 @@ def ref_paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
     vg = v_pages[bt].movedim(2, 1).reshape(B, KV, pps * page, hd)
     kg = kg.repeat(1, rep, 1, 1).float()
     vg = vg.repeat(1, rep, 1, 1).float()
-    s = torch.einsum("bhd,bhtd->bht", q.float(), kg) / math.sqrt(hd)
+    s = _softcap(torch.einsum("bhd,bhtd->bht", q.float(), kg) / math.sqrt(hd), softcap)
     valid = (torch.arange(pps * page, device=q.device)[None, :]
              < seq_lens[:, None])
     s = torch.where(valid[:, None], s, NEG_INF)
@@ -65,18 +71,19 @@ def ref_paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
 
 
 def ref_paged_attention_split(q, k_pages, v_pages, block_tables, seq_lens,
-                              pages_per_split):
+                              split_tokens, *, softcap=0.0):
     """The paged kernel's algorithm in plain PyTorch (for the tests): the
-    pages cut into splits of ``pages_per_split``, each split's partial
-    softmax (m, l, acc) in f32, masked past seq_len, an empty split giving
-    (-1e30, 0, 0), then the combine
-    out = sum_i e^(m_i - M) acc_i / max(sum_i e^(m_i - M) l_i, 1e-30)."""
+    token positions cut into splits of ``split_tokens`` (token t in page
+    ``block_tables[t // page]``, so a split may hold several pages, part of
+    one, or a page boundary), each split's partial softmax (m, l, acc) in
+    f32, masked past seq_len, an empty split giving (-1e30, 0, 0), then the
+    combine out = sum_i e^(m_i - M) acc_i / max(sum_i e^(m_i - M) l_i, 1e-30)."""
     B, H, hd = q.shape
     P, KV, page, _ = k_pages.shape
     pps = block_tables.shape[1]
     rep = H // KV
-    chunk = pages_per_split * page
-    n_split = -(-pps // pages_per_split)
+    chunk = split_tokens
+    n_split = -(-(pps * page) // chunk)
     T = n_split * chunk  # the last split may reach past pps: masked
     bt = block_tables.long()
     kg = k_pages[bt].movedim(2, 1).reshape(B, KV, pps * page, hd)
@@ -84,7 +91,7 @@ def ref_paged_attention_split(q, k_pages, v_pages, block_tables, seq_lens,
     pad = (0, 0, 0, T - pps * page)
     kg = torch.nn.functional.pad(kg.repeat(1, rep, 1, 1).float(), pad)
     vg = torch.nn.functional.pad(vg.repeat(1, rep, 1, 1).float(), pad)
-    s = torch.einsum("bhd,bhtd->bht", q.float(), kg) / math.sqrt(hd)
+    s = _softcap(torch.einsum("bhd,bhtd->bht", q.float(), kg) / math.sqrt(hd), softcap)
     valid = (torch.arange(T, device=q.device)[None, :]
              < torch.clamp(seq_lens, max=pps * page)[:, None])[:, None]
     s = torch.where(valid, s, NEG_INF).view(B, H, n_split, chunk)

@@ -18,6 +18,12 @@ The lane tables ``block_tables``/``seq_lens``/``last_tok`` live on the
 engine's device across steps and are updated in place; prefill and decode
 share one forward callable. The engine runs on the card unless built with
 ``device="cpu"``.
+
+Scale-out is :class:`EngineReplicaGroup`: N of these engines over one
+fabric, each fed by a :class:`~repro_torch.sched.SchedulerReplica` that owns
+a seat subset of every class, rebalanced purely by seat-claim steals, with
+exact-seat frontier checkpointing via :meth:`EngineReplicaGroup.sched_state`.
+The replicas share one forward callable and one set of parameter tensors.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sched import Envelope, QueueClass, Scheduler
+from repro_torch.sched import Envelope, QueueClass, ReplicaSet, Scheduler
 from repro_torch.serving.admission import DeviceAdmissionRing, resolve_device_admission
 from repro_torch.serving.kv_cache import PagedKVPool
 from repro_torch.serving.paged_model import paged_forward
@@ -63,11 +69,13 @@ def request_from_state(state: dict) -> "Request":
     return req
 
 
-def _device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
+    """The serving device, checked before anything is made on it: the card
+    unless the caller asks for the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("Engine(device='cuda') needs a CUDA device; pass "
-                           "device='cpu' to run on the CPU")
+        raise RuntimeError(f"device={device!r} needs a CUDA device; pass "
+                           "device='cpu' to serve on the CPU")
     return dev
 
 
@@ -84,7 +92,7 @@ class Engine:
                  device="cuda"):
         assert all(k in ("dense", "moe") for k in cfg.block_pattern), \
             "paged engine serves attention-based families"
-        self.device = _device(device)
+        self.device = resolve_device(device)
         self.cfg, self.params = cfg, params
         self.max_batch, self.page_size, self.max_seq = max_batch, page_size, max_seq
         self.pps = max_seq // page_size
@@ -392,3 +400,267 @@ class Engine:
         """Per-class fabric snapshot (occupancy, admission latency, rejects)
         — reads existing domain counters only."""
         return self.sched.snapshot()
+
+
+def _split_budget(total: int, parts: int) -> List[int]:
+    """Partition an integer budget as evenly as possible, every part >= 1."""
+    assert total >= parts, f"budget {total} cannot cover {parts} replicas"
+    base, rem = divmod(total, parts)
+    return [base + (1 if i < rem else 0) for i in range(parts)]
+
+
+def _split_budget_hosted(total: int, hosts: List[int],
+                         min_per: int = 1) -> List[int]:
+    """Host-aware budget partition: every replica is granted ``min_per``
+    first (an engine needs 1 lane, and 2 pages — the reserved scratch page
+    plus one live page — to serve at all), then the *remainder* splits
+    evenly across the hosts (a host's lanes and pages are physically its
+    own) and each host divides its share among its own replicas. With one
+    host this degenerates to :func:`_split_budget` exactly; with replicas
+    spread unevenly (e.g. 3 replicas on 2 hosts) each host still gets an
+    equal share of the surplus without ever pushing a lone replica below
+    the serving minimum."""
+    n = len(hosts)
+    assert total >= min_per * n, (
+        f"budget {total} cannot give {n} replicas {min_per} each")
+    out = [min_per] * n
+    rem = total - min_per * n
+    uniq = sorted(set(hosts))
+    base, extra = divmod(rem, len(uniq))
+    for j, h in enumerate(uniq):
+        share = base + (1 if j < extra else 0)
+        rids = [i for i, hh in enumerate(hosts) if hh == h]
+        b, e = divmod(share, len(rids))
+        for k, i in enumerate(rids):
+            out[i] += b + (1 if k < e else 0)
+    return out
+
+
+class EngineReplicaGroup:
+    """N engine replicas over one class fabric.
+
+    Each replica is a full :class:`Engine` — its own lanes, its own page
+    pool (the lane and page budgets are partitioned, not shared), its own
+    policy drain — fed by a :class:`~repro_torch.sched.SchedulerReplica`
+    that owns a seat subset of every class. Replicas share the model's
+    parameter tensors (one copy on the device, however many replicas) and
+    one forward callable. Rebalancing is pure stealing: a starved replica
+    claims a whole cycle-run seat with one CAS; no replica ever blocks on
+    another.
+
+    The group is also the checkpoint boundary: :meth:`sched_state` is an
+    exact-seat frontier snapshot taken between steps (active lanes are
+    recorded at their original seats, like preemption victims), and
+    :meth:`from_sched_state` restores a group in which every tenant resumes
+    at its exact FIFO seat.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, num_replicas: int = 2,
+                 max_batch: int = 4, page_size: int = 16, num_pages: int = 64,
+                 window: int = 4, max_seq: int = 128,
+                 classes: Optional[Sequence[QueueClass]] = None,
+                 policy="strict", min_steal: int = 1,
+                 replica_set: Optional[ReplicaSet] = None,
+                 forward_fn=None, uid_start: int = 0, transport=None,
+                 device_admission=False, device="cuda"):
+        self.device = resolve_device(device)
+        if replica_set is None:
+            if classes is None:
+                classes = [QueueClass("default", num_shards=num_replicas,
+                                      window=max(64, window),
+                                      reclaim_period=32)]
+            replica_set = ReplicaSet(Scheduler(classes, policy=policy),
+                                     num_replicas, policy=policy,
+                                     min_steal=min_steal,
+                                     transport=transport)
+        self.replica_set = replica_set
+        self.sched = replica_set.scheduler
+        self.num_replicas = replica_set.num_replicas
+        self._fwd = forward_fn or (
+            lambda p, t, kp, vp, bt, sl: paged_forward(p, t, cfg, kp, vp, bt, sl))
+        # the fabric-wide budgets + geometry, retained so resize() can
+        # re-partition them across a different replica count
+        self.cfg, self.params = cfg, params
+        self._budget = dict(max_batch=max_batch, page_size=page_size,
+                            num_pages=num_pages, window=window,
+                            max_seq=max_seq)
+        self._device_admission = device_admission
+        self._completed: Dict[int, Request] = {}  # survivors of resizes
+        self.engines = self._build_engines()
+        self._next_uid = int(uid_start)
+        self.step_count = 0
+
+    def _build_engines(self) -> List[Engine]:
+        """One engine per *live* scheduler replica, the fabric-wide lane
+        and page budgets partitioned host-first across them (each live
+        transport host gets an equal hardware share, split among its
+        replicas — a dead host's replicas get no engine and no budget),
+        all sharing one forward callable and one set of parameters."""
+        live = self.replica_set.live_replicas()
+        assert live, "engine group with every host dead"
+        hosts = [r.addr.host for r in live]
+        lanes = _split_budget_hosted(self._budget["max_batch"], hosts,
+                                     min_per=1)
+        pages = _split_budget_hosted(self._budget["num_pages"], hosts,
+                                     min_per=2)
+        return [
+            Engine(self.cfg, self.params, max_batch=lanes[i],
+                   page_size=self._budget["page_size"], num_pages=pages[i],
+                   window=self._budget["window"],
+                   max_seq=self._budget["max_seq"],
+                   sched=r, forward_fn=self._fwd,
+                   device_admission=self._device_admission,
+                   device=self.device)
+            for i, r in enumerate(live)]
+
+    # ---------------------------------------------------------------- client
+    def submit(self, prompt: List[int], max_new_tokens: int = 16,
+               qclass: Optional[str] = None) -> Optional[int]:
+        name = qclass or self.sched.default_class
+        req = Request(self._next_uid, list(prompt), max_new_tokens,
+                      qclass=name)
+        if self.sched.submit(name, req) is None:
+            return None
+        self._next_uid += 1
+        return req.uid
+
+    def submit_many(self, prompts: List[List[int]], max_new_tokens: int = 16,
+                    qclass: Optional[str] = None) -> List[Optional[int]]:
+        name = qclass or self.sched.default_class
+        reqs = []
+        for p in prompts:
+            reqs.append(Request(self._next_uid + len(reqs), list(p),
+                                max_new_tokens, qclass=name))
+        envs = self.sched.submit_many(name, reqs)
+        self._next_uid += len(reqs)
+        return [r.uid if e is not None else None for r, e in zip(reqs, envs)]
+
+    # ---------------------------------------------------------------- step
+    def step(self) -> List[Request]:
+        """One group iteration: every live replica runs its own
+        admit/decode step, then one steal pass rebalances starved
+        replicas (dead hosts' engines are skipped — their lanes were
+        evicted to exact seats by :meth:`fail_host`)."""
+        self.step_count += 1
+        done: List[Request] = []
+        for eng in self.engines:
+            if eng.sched.alive:
+                done.extend(eng.step())
+        self.replica_set.rebalance()
+        return done
+
+    def idle(self) -> bool:
+        return (self.replica_set.pending() == 0
+                and all(eng.ring_pending == 0 for eng in self.engines)
+                and all(r is None for eng in self.engines
+                        for r in eng.active))
+
+    def run_until_idle(self, max_steps: int = 1000) -> Dict[int, Request]:
+        for _ in range(max_steps):
+            self.step()
+            if self.idle():
+                break
+        return self.completed
+
+    @property
+    def completed(self) -> Dict[int, Request]:
+        out: Dict[int, Request] = dict(self._completed)
+        for eng in self.engines:
+            out.update(eng.completed)
+        return out
+
+    # ------------------------------------------------------------- elasticity
+    def resize(self, num_replicas: int) -> "EngineReplicaGroup":
+        """Live replica elasticity: grow/shrink the running group to
+        ``num_replicas`` engines with no drain pause. Every active lane is
+        preempted to its exact class-cycle seat (it re-prefills on its next
+        admission), the scheduler fabric reseats by a batch of seat claims,
+        and the fabric-wide lane/page budgets are re-split over the new
+        engine count. Per-class FIFO delivery order is preserved exactly."""
+        n = int(num_replicas)
+        assert n >= 1
+        if n == self.num_replicas:
+            return self
+        for eng in self.engines:
+            eng.flush_admission()  # ring entries back to exact seats
+            for lane, req in enumerate(eng.active):
+                if req is not None:
+                    eng._evict_lane(lane)  # exact-seat requeue
+            self._completed.update(eng.completed)
+        self.replica_set.resize(n)
+        self.num_replicas = n
+        self.engines = self._build_engines()
+        return self
+
+    def fail_host(self, host: int) -> int:
+        """Kill one transport host mid-run: every lane on the dead host's
+        engines is preempted to its exact class-cycle seat (KV pages die
+        with the host, the request re-prefills on its next admission),
+        completed requests are carried, and the scheduler fabric replays
+        the host's frontier state into the survivors. Returns the number
+        of seats reassigned."""
+        for eng in self.engines:
+            if eng.sched.addr.host != host or not eng.sched.alive:
+                continue
+            eng.flush_admission()  # ring entries back to exact seats
+            for lane, req in enumerate(eng.active):
+                if req is not None:
+                    eng._evict_lane(lane)  # exact-seat requeue
+            self._completed.update(eng.completed)
+        moved = self.replica_set.fail_host(host)
+        # drop the dead engines: their KV pools die with the host and
+        # step()/idle()/completed stop scanning them
+        self.engines = [e for e in self.engines if e.sched.alive]
+        return moved
+
+    # ------------------------------------------------------------ checkpoint
+    def sched_state(self) -> dict:
+        """Exact-seat frontier snapshot of the serving fabric, taken
+        between steps. Undrained seats are captured in place; requests
+        currently *on a lane* are recorded at their original seats as
+        requeue entries (their KV pages are not checkpointed — on restore
+        they re-prefill, the preemption contract). The dict is plain JSON
+        data: hand it to the async checkpointer's aux channel."""
+        for eng in self.engines:
+            eng.flush_admission()  # ring entries back to exact seats
+        st = self.replica_set.state(encode=request_state)
+        for eng in self.engines:
+            for lane_env in eng._lane_env:
+                if lane_env is None:
+                    continue
+                qc, env = lane_env
+                st["classes"][qc.name]["requeue"].append(
+                    [env.seq, env.stamp, request_state(env.payload)])
+        for cs in st["classes"].values():
+            cs["requeue"].sort(key=lambda rec: rec[0])
+        st["next_uid"] = self._next_uid
+        return st
+
+    @classmethod
+    def from_sched_state(cls, cfg: ModelConfig, params, state: dict, *,
+                         policy="strict", min_steal: int = 1,
+                         forward_fn=None, window: int = 4, transport=None,
+                         **engine_kw) -> "EngineReplicaGroup":
+        """Restore a replica group from :meth:`sched_state`: every tenant
+        resumes at its exact FIFO seat (in-flight requests re-prefill),
+        under whatever transport/host layout the restoring caller runs.
+        Each class's shard CMPQueue configuration is restored from the
+        snapshot itself; ``window`` here is only the KV pools' protection
+        window. ``engine_kw`` takes the budgets and ``device``."""
+        rs = ReplicaSet.from_state(
+            state, decode=request_from_state, policy=policy,
+            min_steal=min_steal, transport=transport)
+        return cls(cfg, params, replica_set=rs, forward_fn=forward_fn,
+                   window=window, uid_start=state.get("next_uid", 0),
+                   **engine_kw)
+
+    # ------------------------------------------------------------ telemetry
+    def class_stats(self) -> dict:
+        """Fabric-wide per-class roll-up, same ``{name: snap}`` shape as
+        :meth:`Engine.class_stats`. Per-replica detail lives in
+        :meth:`replica_stats`."""
+        return self.replica_set.snapshot()["classes"]
+
+    def replica_stats(self) -> dict:
+        """Per-replica steal/idle/pending detail (domain counters only)."""
+        return self.replica_set.snapshot()["replicas"]

@@ -14,9 +14,12 @@ attention goes through the kernels (:mod:`repro_torch.kernels.ops`):
 * S > 1 with every ``seq_lens == 0`` (prefill): the flash kernel, causal,
   on the freshly projected K/V cast to the page dtype (exactly what the
   scatter stores);
-* anything else (chunked prefill, or a config with ``attn_softcap``, which
-  neither kernel has): the plain gathered path on the CPU; on the card it
-  raises ``NotImplementedError``.
+* S > 1 past position 0 (a chunked prefill): the paged kernel over B*S
+  query rows, row (b, s) with lane b's block table and ``position + 1``
+  positions. It runs after the scatter has written the chunk, so each
+  row's length is its causal mask.
+
+A config's ``attn_softcap`` goes to whichever kernel runs.
 
 A block is ``dense`` (SwiGLU MLP) or ``moe`` (:func:`repro_torch.models.moe.moe_block`
 after the attention, as the reference's ``_paged_block``). Like the
@@ -63,36 +66,20 @@ def _scatter_pages(k_pages, v_pages, k_new, v_new, block_tables, positions):
     return k_pages, v_pages
 
 
-def _gathered_attention(q, k_pages, v_pages, block_tables, positions, seq_lens,
-                        softcap: float = 0.0):
-    """Gather each request's pages and run masked attention (the reference's
-    formulation). q [B,S,H,hd]; returns [B,S,H,hd]."""
-    B = q.shape[0]
-    P, KV, pg, hd = k_pages.shape
-    pps = block_tables.shape[1]
-    bt = block_tables.long()
-    kg = k_pages[bt].movedim(2, 3).reshape(B, pps * pg, KV, hd)
-    vg = v_pages[bt].movedim(2, 3).reshape(B, pps * pg, KV, hd)
-    k_pos = torch.arange(pps * pg, dtype=torch.int32, device=q.device)[None, :]
-    k_pos = torch.where(k_pos < seq_lens[:, None], k_pos, -1)
-    return L.cache_attention(q, kg, vg, positions, k_pos, softcap=softcap)
-
-
 def _attention(q, k_new, v_new, k_pages, v_pages, block_tables, positions,
                seq_lens, cfg: ModelConfig, prefill: bool):
-    S = q.shape[1]
-    if cfg.attn_softcap > 0.0 or not (S == 1 or prefill):
-        if q.is_cuda:
-            raise NotImplementedError(
-                "paged attention on the card covers decode (S=1) and prefill "
-                "from position 0 without softcap")
-        return _gathered_attention(q, k_pages, v_pages, block_tables, positions,
-                                   seq_lens, cfg.attn_softcap)
+    B, S, H, hd = q.shape
+    cap = cfg.attn_softcap
     if S == 1:
         return ops.paged_attention(q[:, 0], k_pages, v_pages, block_tables,
-                                   seq_lens)[:, None]
-    return ops.flash_attention(q, k_new.to(k_pages.dtype), v_new.to(v_pages.dtype),
-                               causal=True)
+                                   seq_lens, softcap=cap)[:, None]
+    if prefill:
+        return ops.flash_attention(q, k_new.to(k_pages.dtype), v_new.to(v_pages.dtype),
+                                   causal=True, softcap=cap)
+    rows = ops.paged_attention(q.reshape(B * S, H, hd), k_pages, v_pages,
+                               block_tables.repeat_interleave(S, dim=0),
+                               (positions + 1).reshape(B * S).to(torch.int32), softcap=cap)
+    return rows.reshape(B, S, H, hd)
 
 
 def _layer(tree, i: int):

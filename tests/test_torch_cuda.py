@@ -469,13 +469,241 @@ def test_paged_launches_per_call(dev):
 
 
 def test_paged_bf16_refuses_what_its_tiles_do_not_take(dev):
-    """bf16 runs on 16 x 8 x 16 tensor-core tiles over 64-token splits: a page
-    that does not divide 64, or a head_dim that is not a multiple of 16, is
-    refused rather than run."""
+    """bf16 heads the 16 x 8 x 16 tensor-core tiles do not take (a head_dim
+    that is not a multiple of 16) run on the scalar kernel, pages that do
+    not divide 64 on 64-token splits; what no path takes, a head_dim that
+    is not a multiple of 4 (16-byte row copies) or (H/KV) * head_dim above
+    4,096 (one CTA's query rows), is refused rather than run."""
     for page, hd in ((48, 64), (16, 40)):
-        q = torch.zeros(1, 4, hd, device=dev, dtype=torch.bfloat16)
-        kp = torch.zeros(4, 2, page, hd, device=dev, dtype=torch.bfloat16)
+        q = torch.randn(1, 4, hd, device=dev).to(torch.bfloat16)
+        kp = torch.randn(4, 2, page, hd, device=dev).to(torch.bfloat16)
+        bt = torch.tensor([[1, 3]], device=dev, dtype=torch.int32)
+        sl = torch.tensor([page + 5], device=dev, dtype=torch.int32)
+        _close(paged_attention.paged_attention(q, kp, kp, bt, sl),
+               paged_attention.plain(q, kp, kp, bt, sl), 4e-2)
+    for H, KV, hd in ((4, 2, 6), (64, 1, 128)):
+        q = torch.zeros(1, H, hd, device=dev, dtype=torch.bfloat16)
+        kp = torch.zeros(4, KV, 16, hd, device=dev, dtype=torch.bfloat16)
         bt = torch.zeros(1, 2, device=dev, dtype=torch.int32)
         sl = torch.ones(1, device=dev, dtype=torch.int32)
         with pytest.raises(ValueError):
             paged_attention.paged_attention(q, kp, kp, bt, sl)
+
+
+def _paged_case(dev, B, H, KV, hd, page, pps, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    P = B * pps + 1
+    q = torch.randn(B, H, hd, generator=g, device=dev).to(DT[dtype])
+    kp = torch.randn(P, KV, page, hd, generator=g, device=dev).to(DT[dtype])
+    vp = torch.randn(P, KV, page, hd, generator=g, device=dev).to(DT[dtype])
+    bt = (torch.randperm(P - 1, generator=g, device=dev)[:B * pps] + 1).view(B, pps)
+    T = pps * page
+    sl = torch.tensor([1, page, min(64, T), min(65, T), T - 1, T][:B], dtype=torch.int32,
+                      device=dev)
+    return q, kp, vp, bt.to(torch.int32).contiguous(), sl
+
+
+@pytest.mark.parametrize("page", [8, 24, 32, 48, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_every_page_size(dev, page, dtype):
+    """64-token splits at any page size: pages that divide 64, that do not
+    (24, 48: a page straddles two splits) and that exceed it (128, 256: a
+    page is several splits), at Yi-6B's heads (bf16 on the mma tiles)."""
+    pps = max(1, 1024 // page)
+    q, kp, vp, bt, sl = _paged_case(dev, 6, 32, 4, 128, page, pps, dtype, page)
+    before = paged_attention.launches
+    got = paged_attention.paged_attention(q, kp, vp, bt, sl)
+    assert paged_attention.launches - before == paged_attention.launches_per_call(pps, page)
+    _close(got, paged_attention.plain(q, kp, vp, bt, sl),
+           2e-5 if dtype == "float32" else 4e-2)
+
+
+@pytest.mark.parametrize("H,KV,hd", [(4, 2, 8), (8, 2, 72), (32, 32, 96), (32, 1, 128),
+                                     (32, 2, 128), (64, 2, 64)])
+def test_paged_bf16_heads_past_the_mma_tiles(dev, H, KV, hd):
+    """bf16 head shapes the mma tiles do not take (head_dim 8 and 72, H/KV
+    32 and 32 at hd 64) on the scalar kernel, beside phi3's hd 96 and glm4's
+    H/KV 16 on the tiles, against the plain version at 2e-2."""
+    q, kp, vp, bt, sl = _paged_case(dev, 6, H, KV, hd, 16, 40, "bfloat16", H + hd)
+    got = paged_attention.paged_attention(q, kp, vp, bt, sl)
+    _close(got, paged_attention.plain(q, kp, vp, bt, sl), 2e-2)
+
+
+@pytest.mark.parametrize("B", [2, 4])
+@pytest.mark.parametrize("page,pps", [(16, 16), (128, 2)])
+def test_paged_bf16_at_the_serve_drivers_decode(dev, B, page, pps):
+    """The serve driver's decode: glm4-9b's heads (32 over 2, hd 128), 2
+    lanes a replica (4 on one), max_seq 256 as 16 pages of 16 or 2 of 128,
+    contexts of 3-15 tokens (3-7-token prompts and 8 new tokens)."""
+    q, kp, vp, bt, _ = _paged_case(dev, B, 32, 2, 128, page, pps, "bfloat16", B + page)
+    for n in range(13):  # lane b at 3 + (n + 3b) % 13: every lane sees 3..15
+        sl = torch.tensor([3 + (n + 3 * b) % 13 for b in range(B)], dtype=torch.int32,
+                          device=dev)
+        _close(paged_attention.paged_attention(q, kp, vp, bt, sl),
+               paged_attention.plain(q, kp, vp, bt, sl), 2e-2)
+
+
+@pytest.mark.parametrize("H,KV,hd", [(32, 2, 128), (32, 32, 96), (32, 32, 64), (64, 8, 128)])
+@pytest.mark.parametrize("S", [2, 3, 5, 7])
+def test_flash_bf16_short_prompts_in_one_tile(dev, H, KV, hd, S):
+    """A prompt of a few tokens in bf16 (the serve driver's prefills): one
+    wgmma tile with S live rows, the rest zero-filled by the TMA boxes, in
+    the model layout, at the heads of glm4-9b, phi3, musicgen and
+    command-r."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(S * 1000 + H + KV + hd)
+    q = torch.randn(1, S, H, hd, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, S, KV, hd, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(1, S, KV, hd, generator=g, device=dev).to(torch.bfloat16)
+    before = flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before + 1
+    want = flash_attention.plain(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True).transpose(1, 2)
+    _close(got, want.contiguous(), 2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cap", [5.0, 30.0])
+def test_attention_kernels_softcap(dev, dtype, cap):
+    """A logit softcap in both attention kernels (paged on the mma tiles and
+    the scalar path; flash on wgmma tiles and the f32 kernel) against their
+    plain versions; inputs scaled so the cap bites."""
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    g = torch.Generator(device=dev).manual_seed(int(cap))
+    for H, KV, hd in ((32, 4, 128), (8, 2, 72)):
+        q, kp, vp, bt, sl = _paged_case(dev, 6, H, KV, hd, 16, 40, dtype, hd)
+        q = (q.float() * 8).to(q.dtype)
+        _close(paged_attention.paged_attention(q, kp, vp, bt, sl, softcap=cap),
+               paged_attention.plain(q, kp, vp, bt, sl, softcap=cap), tol)
+    for S, hd in ((200, 128), (77, 64)):
+        q = (torch.randn(1, 8, S, hd, generator=g, device=dev) * 8).to(DT[dtype])
+        k = torch.randn(1, 2, S, hd, generator=g, device=dev).to(DT[dtype])
+        v = torch.randn(1, 2, S, hd, generator=g, device=dev).to(DT[dtype])
+        got = flash_attention.flash_attention(q, k, v, causal=True, softcap=cap)
+        _close(got.contiguous(), flash_attention.plain(q, k, v, causal=True, softcap=cap),
+               tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_prefill_on_card_matches_plain(dev, dtype):
+    """A prefill past position 0 (two chunks) and a softcapped config
+    through paged_forward on the card (the paged kernel over B*S rows)
+    against the same calls on the CPU (the plain versions): logits within
+    the dtype's tolerance."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.paged_model import paged_forward
+
+    for cap in (0.0, 30.0):
+        cfg = dataclasses.replace(get_config("glm4-9b", smoke=True), dtype=dtype,
+                                  attn_softcap=cap)
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        L, KV, hd, page, pps = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim, 8, 4
+        shape = (L, 9, KV, page, hd)
+        bt = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32)
+        toks = torch.randint(1, cfg.vocab_size, (2, 20), generator=torch.Generator().manual_seed(1))
+        outs = {}
+        for d in ("cpu", dev):
+            p = _tree_to(params, d)
+            kp, vp = torch.zeros(shape, dtype=DT[dtype], device=d), torch.zeros(
+                shape, dtype=DT[dtype], device=d)
+            sl = torch.zeros(2, dtype=torch.int32, device=d)
+            logits = []
+            for lo, hi in ((0, 11), (11, 20)):
+                out, kp, vp = paged_forward(p, toks[:, lo:hi].to(d), cfg, kp, vp, bt.to(d), sl)
+                logits.append(out.cpu())
+                sl = sl + (hi - lo)
+            outs[str(d)] = logits
+        for a, b in zip(outs[str(dev)], outs["cpu"]):
+            torch.testing.assert_close(a, b, atol=1e-4 if dtype == "float32" else 5e-2,
+                                       rtol=1e-4 if dtype == "float32" else 5e-2)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("n", [17600, 32768, 65536])
+def test_ring_grid_path_engine_sizes_bit_exact(dev, n):
+    """Rings past the one-CTA limit (max_batch 1,100, 2,048 and 4,096 give
+    N = 17,600, 32,768, 65,536) take the grid path: the engine's trajectory
+    bit-exact at every step, four launches a call that can claim."""
+    k, window = n // 2, n // 4
+    rng = np.random.default_rng(n)
+    state = torch.zeros(n, dtype=torch.int32, device=dev)
+    cycle, meta = torch.zeros_like(state), torch.zeros(2, dtype=torch.int32, device=dev)
+    claims = 0
+    for _ in range(25):
+        req = (int(rng.integers(0, n // 2 + 1)), int(rng.choice([k, int(rng.integers(0, k + 1))])))
+        before = cmp_ring.launches
+        got = cmp_ring.cmp_ring_step(state, cycle, meta, req, k=k, window=window)
+        assert cmp_ring.launches - before == cmp_ring.grid_launches(k, req[1])
+        want = cmp_ring.plain(state, cycle, meta, req, k=k, window=window)
+        for name, a, b in zip(("state", "cycle", "meta", "claimed"), got, want):
+            assert torch.equal(a, b), (name, req)
+        state, cycle, meta = got[:3]
+        claims += int((got[3] >= 0).sum())
+    assert claims > 0
+
+
+@pytest.mark.parametrize("n", [16385, 32768])
+@pytest.mark.parametrize("case", ["random", "permuted", "duplicate", "near_max", "wrapped"])
+def test_ring_grid_path_general_inputs_bit_exact(dev, n, case):
+    """The grid path on states that break the enqueue invariant: duplicate
+    cycles make the oracle's threshold select claim more slots than take,
+    which the grid path's publish repeats; k > claimable, want 0 and < 0,
+    push_n = N and past it, window 0."""
+    rng = np.random.default_rng(n * 10 + len(case))
+    state, cycle, meta = (t.to(dev) for t in _broken_ring(n, case, rng))
+    half = n // 2
+    for k, req, window in ((half, (int(rng.integers(0, n + 1)), half), n // 4),
+                           (n, (0, n), 0), (half, (n // 3, 0), n // 4),
+                           (1, (n, 1), n), (half, (n + 7, -1), 3),
+                           (n, (n // 2, n // 2 + 1), n // 4)):
+        got = cmp_ring.cmp_ring_step(state, cycle, meta, req, k=k, window=window)
+        want = cmp_ring.plain(state, cycle, meta, req, k=k, window=window)
+        for name, a, b in zip(("state", "cycle", "meta", "claimed"), got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, req, k)
+        state, cycle, meta = got[:3]
+
+
+def _smoke_engine_run(dev, dtype, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import Engine
+
+    cfg = dataclasses.replace(get_config("glm4-9b", smoke=True), dtype=dtype)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    eng = Engine(cfg, params, device=dev, **kw)
+    prompts = [[(7 * i + j) % 500 + 1 for j in range(3 + i % 40)] for i in range(12)]
+    uids = eng.submit_many(prompts, max_new_tokens=6)
+    done = eng.run_until_idle(max_steps=200)
+    assert all(u is not None and len(done[u].output) == 6 for u in uids)
+    return eng
+
+
+def test_engine_serves_page_128_in_bf16(dev):
+    """Engine(page_size=128) on a bf16 model: the paged kernel's 64-token
+    splits take a page of 128 as two splits."""
+    before = paged_attention.launches
+    eng = _smoke_engine_run(dev, "bfloat16", max_batch=4, page_size=128, num_pages=16,
+                            max_seq=256)
+    assert paged_attention.launches > before and eng.page_size == 128
+
+
+def test_engine_serves_max_batch_1100_with_device_admission(dev):
+    """Engine(max_batch=1100, device_admission=True): its ring of 17,600
+    slots runs the grid path."""
+    before = cmp_ring.launches
+    eng = _smoke_engine_run(dev, "float32", max_batch=1100, page_size=8, num_pages=1200,
+                            max_seq=64, device_admission=True)
+    assert eng._dev_admit.capacity == 17600
+    assert cmp_ring.launches - before >= 4

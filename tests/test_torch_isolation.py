@@ -1,5 +1,6 @@
 """The torch port stands alone: it imports neither JAX nor the JAX package
-``repro``, at run time or in its sources."""
+``repro``, at run time or in its sources — the serving fabric's wire
+transport workers (``python -m repro_torch.net``) included."""
 
 import os
 import pathlib
@@ -17,7 +18,8 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 import torch
 import repro_torch
-mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
+        if not m.name.endswith(".__main__")]  # a -m entry point runs on import
 for name in mods:
     importlib.import_module(name)
 from repro_torch.configs import get_config
@@ -35,6 +37,38 @@ bad = sorted(m for m in sys.modules
 print(len(mods), bad)
 assert not bad, bad
 """
+
+
+_WIRE_PROBE = r"""
+from repro_torch.fabric import ClassSpec, Fabric, FabricConfig
+cfg = FabricConfig(classes=(ClassSpec("default"),), arch="yi_6b", smoke=True,
+                   replicas=2, hosts=2, transport="wire", max_batch=2, page_size=8,
+                   num_pages=16, max_seq=32, kv_window=2, device_admission=True)
+fab = Fabric.open(cfg, device="cpu")
+uids = fab.submit_many([[1, 2, 3], [4, 5], [6, 7, 8, 9]], max_new_tokens=3)
+done = fab.drain(max_steps=200)
+assert set(uids) <= set(done), (uids, list(done))
+assert fab.stats_view().transport["kind"] == "wire"
+fab.close()
+"""
+
+
+def test_wire_fabric_and_its_workers_load_no_jax():
+    """A port Fabric over the wire transport on the CPU: the parent and
+    both ``python -m repro_torch.net`` host workers (they inherit the
+    environment, so -X importtime lists every module each one imports on
+    the shared stderr) load neither jax, jaxlib nor repro."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               PYTHONPROFILEIMPORTTIME="1")
+    proc = subprocess.run([sys.executable, "-c", _WIRE_PROBE], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    mods = [line.rsplit("|", 1)[1].strip() for line in proc.stderr.splitlines()
+            if line.startswith("import time:") and "|" in line]
+    # the package is imported once a process: the parent and two workers
+    assert sum(m == "repro_torch.net" for m in mods) == 3, "workers not seen"
+    bad = sorted({m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")})
+    assert not bad, bad
 
 
 def test_port_runs_without_jax_or_reference_package():

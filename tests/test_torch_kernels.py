@@ -14,6 +14,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.cmp_ring import cmp_ring_step as pallas_ring_step
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.models import layers as JL
 from repro_torch.kernels import cmp_ring, flash_attention, ops, paged_attention, ref
 
 _jax_ring = jax.jit(jref.ref_ring_step, static_argnames=("k", "window"))
@@ -155,11 +156,12 @@ def test_paged_attention_matches_jax(B, H, KV, hd, page, P, pps, dtype):
 @pytest.mark.parametrize("pages_per_split", [1, 2, 3, 4, 7, 9])
 def test_paged_split_combine_matches_jax(pages_per_split):
     """The CUDA kernel's split-K partition and combine, mirrored in plain
-    PyTorch, against the JAX oracle: seq_lens at 1, inside a page, at a
-    page edge, at a split edge, one past it, and the full table, so some
-    splits lie wholly past seq_len and one split is cut short by pps. At
-    seq_len 0 (the JAX oracle's known fault) the port's plain version is the
-    yardstick: zeros."""
+    PyTorch, against the JAX oracle, with splits of ``pages_per_split``
+    pages of 4 tokens: seq_lens at 1, inside a page, at a page edge, at a
+    split edge, one past it, and the full table, so some splits lie wholly
+    past seq_len and one split is cut short by pps. At seq_len 0 (the JAX
+    oracle's known fault) the port's plain version is the yardstick:
+    zeros."""
     B, H, KV, hd, page, P, pps = 7, 8, 2, 32, 4, 40, 8
     rng = np.random.default_rng(pages_per_split)
     q = rng.standard_normal((B, H, hd), np.float32)
@@ -169,7 +171,7 @@ def test_paged_split_combine_matches_jax(pages_per_split):
     chunk = pages_per_split * page
     sl = np.array([0, 1, 3, page, chunk, chunk + 1, pps * page], np.int32)
     got = ref.ref_paged_attention_split(
-        *(torch.from_numpy(x) for x in (q, kp, vp, bt, sl)), pages_per_split)
+        *(torch.from_numpy(x) for x in (q, kp, vp, bt, sl)), chunk)
     live = sl > 0
     oracle = jref.ref_paged_attention(*(jnp.asarray(x) for x in (q, kp, vp, bt, sl)))
     _close(got[torch.from_numpy(live)], np.asarray(oracle, np.float32)[live], 2e-5)
@@ -179,16 +181,52 @@ def test_paged_split_combine_matches_jax(pages_per_split):
 
 
 def test_paged_split_count_comes_from_the_table_width():
-    """The host picks the split from the page size and pages_per_seq only:
-    the main path's 64 pages of 16 give 16 splits and two launches a call;
-    a table that fits one split is one launch."""
-    assert paged_attention.pages_per_split(16) == 4
+    """The host picks the split from the page size and pages_per_seq only,
+    64 token positions a split: the main path's 64 pages of 16 give 16
+    splits and two launches a call; a table that fits one split is one
+    launch; a page of 128 is two splits; pages of 24 straddle splits."""
+    assert paged_attention.SPLIT_TOKENS == 64
     assert paged_attention.num_splits(64, 16) == 16
     assert paged_attention.launches_per_call(64, 16) == 2
     assert paged_attention.num_splits(4, 16) == 1
     assert paged_attention.launches_per_call(4, 16) == 1
-    assert paged_attention.pages_per_split(128) == 1
-    assert paged_attention.num_splits(5, 4) == 1  # 16 pages of 4 tokens per split
+    assert paged_attention.num_splits(1, 128) == 2
+    assert paged_attention.num_splits(8, 256) == 32
+    assert paged_attention.num_splits(5, 4) == 1  # 20 tokens in one split
+    assert paged_attention.num_splits(3, 24) == 2  # 72 tokens: 64 + 8
+    assert paged_attention.num_splits(2, 48) == 2  # a page boundary inside split 0
+
+
+@pytest.mark.parametrize("page,pps", [(8, 9), (24, 5), (32, 4), (48, 3), (128, 2),
+                                      (256, 1)])
+def test_paged_token_splits_match_jax_at_any_page_size(page, pps):
+    """The 64-token split at page sizes that divide 64, that do not (24,
+    48: a page straddles two splits), and that exceed it (128, 256: a page
+    is several splits), mirrored in plain PyTorch with a softcap on and
+    off, against the JAX oracle (the reference's cache attention for the
+    capped case); seq_lens at 1, at page and split edges, and the full
+    table."""
+    B, H, KV, hd = 6, 4, 2, 16
+    P = B * pps + 1
+    rng = np.random.default_rng(page)
+    q = rng.standard_normal((B, H, hd), np.float32)
+    kp = rng.standard_normal((P, KV, page, hd), np.float32)
+    vp = rng.standard_normal((P, KV, page, hd), np.float32)
+    bt = (1 + rng.permutation(B * pps)).reshape(B, pps).astype(np.int32)
+    T = pps * page
+    sl = np.array([1, page, min(64, T), min(65, T), T - 1, T], np.int32)
+    args = [torch.from_numpy(x) for x in (q, kp, vp, bt, sl)]
+    oracle = jref.ref_paged_attention(*(jnp.asarray(x) for x in (q, kp, vp, bt, sl)))
+    _close(ref.ref_paged_attention_split(*args, paged_attention.SPLIT_TOKENS), oracle, 2e-5)
+    kg = kp[bt].transpose(0, 1, 3, 2, 4).reshape(B, T, KV, hd)
+    vg = vp[bt].transpose(0, 1, 3, 2, 4).reshape(B, T, KV, hd)
+    k_pos = np.where(np.arange(T)[None] < sl[:, None], np.arange(T)[None], -1)
+    capped = JL.cache_attention(jnp.asarray(q[:, None]), jnp.asarray(kg), jnp.asarray(vg),
+                                jnp.asarray(sl[:, None] - 1), jnp.asarray(k_pos),
+                                softcap=5.0)[:, 0]
+    got = ref.ref_paged_attention_split(*args, paged_attention.SPLIT_TOKENS, softcap=5.0)
+    _close(got, capped, 2e-5)
+    _close(paged_attention.plain(*args, softcap=5.0), capped, 2e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -243,3 +281,20 @@ def test_flash_attention_model_layout_matches_jax_ops():
     want = jops.flash_attention(*(jnp.asarray(x) for x in (q, k, v)), causal=True)
     assert tuple(got.shape) == (2, 40, 8, 16)
     _close(got, jax.device_get(want), 2e-5)
+
+
+@pytest.mark.parametrize("S,window", [(17, 0), (40, 8)])
+def test_flash_softcap_matches_jax(S, window):
+    """The flash kernel's plain version with a softcap against the
+    reference's self-attention with the same cap (f32, 2e-5), in the
+    model layout the prefill passes."""
+    B, H, KV, hd, cap = 2, 4, 2, 16, 3.0
+    rng = np.random.default_rng(S)
+    q = rng.standard_normal((B, S, H, hd), np.float32) * 3
+    k = rng.standard_normal((B, S, KV, hd), np.float32) * 3
+    v = rng.standard_normal((B, S, KV, hd), np.float32)
+    want = JL.self_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             sliding_window=window, softcap=cap)
+    got = ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=True,
+                              sliding_window=window, softcap=cap)
+    _close(got, want, 2e-5)

@@ -54,7 +54,7 @@ def _pages_equal_but_scratch(t, j):
 
 def test_paged_forward_matches_jax(model):
     """Prefill (the flash path), decode steps with an idle lane (the paged
-    path, scratch writes) and one chunked call (the CPU gathered path),
+    path, scratch writes) and one chunked call (the paged kernel over B*S rows),
     each against the reference's gathered attention: logits allclose at
     1e-4 (the two frameworks sum in different orders), the same page slots
     written with allclose values."""
@@ -117,6 +117,35 @@ def test_paged_forward_refuses_moe_blocks(model):
                       *args[1:])
 
 
+@pytest.mark.parametrize("softcap", [0.0, 30.0, 2.0])
+def test_chunked_prefill_and_softcap_match_jax(model, softcap):
+    """A prefill in two chunks (the second past position 0: the paged
+    kernel's plain version over B*S rows) and decode steps, with the
+    softcap off and on (the config's ``attn_softcap``; 2.0 bites on the
+    smoke weights), against the reference's paged_forward (its gathered
+    attention): logits allclose at 1e-4, the same pages written."""
+    jcfg, jparams, cfg, tparams, _ = model
+    jcfg = dataclasses.replace(jcfg, attn_softcap=softcap)
+    cfg = dataclasses.replace(cfg, attn_softcap=softcap)
+    L, KV, hd, P, page = cfg.num_layers, cfg.num_kv_heads, 16, 16, 4
+    jk = jv = jnp.zeros((L, P, KV, page, hd), jnp.float32)
+    tk, tv = torch.zeros((L, P, KV, page, hd)), torch.zeros((L, P, KV, page, hd))
+    bt = np.array([[1, 2, 3, 4, 5, 0], [6, 7, 8, 9, 10, 11]], np.int32)
+    toks = np.array([[5, 17, 200, 3, 9, 1, 8, 8, 2, 4, 77],
+                     [9, 9, 42, 7, 1, 3, 3, 5, 6, 50, 2]], np.int32)
+    seq = np.zeros((2,), np.int32)
+    for lo, hi in ((0, 6), (6, 11), (11, 12)):
+        chunk = toks[:, lo:hi] if hi <= toks.shape[1] else last[:, None]
+        jl, jk, jv = jax_paged_forward(jparams, jnp.asarray(chunk), jcfg, jk, jv,
+                                       jnp.asarray(bt), jnp.asarray(seq))
+        tl, tk, tv = paged_forward(tparams, torch.from_numpy(chunk), cfg, tk, tv,
+                                   torch.from_numpy(bt), torch.from_numpy(seq))
+        _close(tl, jl)
+        _pages_equal_but_scratch(tk, jk)
+        last = np.array(jnp.argmax(jl, axis=-1), np.int32)
+        seq = seq + chunk.shape[1]
+
+
 ENGINE_CASES = {
     # tests/test_serving.py::test_engine_matches_reference
     "reference": (dict(max_batch=2, page_size=8, num_pages=32, window=2, max_seq=64),
@@ -161,11 +190,26 @@ def test_engine_matches_jax_engine(model, case, device_admission):
 
 
 def test_engine_on_cuda_without_a_card_raises(model):
+    """The engine, the replica group and a serving Fabric run on the card
+    unless asked for the CPU: without one they raise (the Fabric before it
+    makes weights or transport workers); a scheduler-only Fabric needs no
+    device."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the engine runs there")
+    from repro_torch.fabric import ClassSpec, Fabric, FabricConfig
+    from repro_torch.serving.engine import EngineReplicaGroup
+
     _, _, cfg, tparams, _ = model
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(cfg, tparams)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EngineReplicaGroup(cfg, tparams, num_replicas=2)
+    fcfg = FabricConfig(classes=(ClassSpec("default"),), arch="yi_6b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Fabric.open(fcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Fabric.from_snapshot(Fabric.open(fcfg, device="cpu").snapshot())
+    Fabric.open(FabricConfig(classes=(ClassSpec("default"),))).close()
 
 
 def test_engine_rejects_non_attention_families(model):
