@@ -49,6 +49,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    uninterrupted run; one driver run at ``--page-size 128``. The serving
    kernels' launches are read from each of the three runs alone and held
    to that run's forward calls.
+8. training: the port's ``Trainer`` on the Yi-6B and granite-moe smoke
+   configs in float32, 6 steps on the card and on the CPU from the same
+   params (losses and params compared), and an exact resume on the card (a
+   checkpoint at step 4, a fresh trainer restores it and runs 2 more
+   steps: the uninterrupted run's params); a bf16 model with Yi-6B's heads
+   and vocabulary at d_model 1,024 and 4 layers, card against CPU; then
+   the port's train driver (``repro_torch.launch.train.main(argv)``
+   in-process) at Yi-6B's full width and depth in bfloat16, 8 steps of 2 x
+   512 tokens at lr 1e-5: finite losses that start near ln(vocab) and
+   fall, step ms, trained tokens/s, peak device memory, the optimizer's
+   time a step and the model FLOP utilisation. No serving kernel may
+   launch in this phase: the reference's training path calls no Pallas
+   kernel.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``kernels`` JSON line (five rows: the five ``pallas_call`` sites, the
@@ -1119,6 +1132,277 @@ def crash_resume(seed: int, cfg, serve) -> None:
     shutil.rmtree(ck, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+# lr 1e-5, not the driver's default 1e-3: with 5 warmup steps the first AdamW
+# steps move every weight by about lr, and at Yi-6B's width that outgrows its
+# scaled output projections (0.02 / 8); the loss rose over 8 steps at 1e-3,
+# 3e-4, 1e-4 and 3e-5 and fell at 1e-5 and 3e-6 (PERF.md). The same
+# arithmetic in bf16 falls at 1e-3 on the narrower model of train_reference_bf16.
+TRAIN_FLAGS = ["--arch", "yi-6b", "--steps", "8", "--batch", "2", "--seq", "512",
+               "--producers", "2", "--lr", "1e-5", "--device", "cuda"]
+MID = dict(d_model=1024, num_layers=4, num_heads=8, num_kv_heads=1, d_ff=2752)
+TRAIN_BF16_TOL = 2e-2   # atol on bf16 losses: a last-bit f32 difference can round
+                        # a bf16 param the other way (measured <= 3e-3 at 8 layers)
+TRAIN_LOSS_TOL = 1e-5   # atol = rtol, card against CPU in f32: sums in another order
+TRAIN_PARAM_TOL = 1e-4  # AdamW's per-element division carries a last-bit difference
+                        # to a few ulps of lr (1e-3) a step; a wrong update moves ~lr
+
+
+class TimedStep:
+    """CUDA events and host-clock stamps around the forward (``loss_fn``)
+    and the update (``apply_updates``) of each train step run while in use;
+    ``train_loop`` calls both through their modules, so the driver's
+    trainer calls these wrappers. The backward runs between the two."""
+
+    def __init__(self):
+        from repro_torch.models import model
+        from repro_torch.training import optimizer
+
+        self.targets = [(model, "loss_fn"), (optimizer, "apply_updates")]
+        self.real = [getattr(mod, name) for mod, name in self.targets]
+        self.stamps = [[], []]  # a step's (event, host s) at each call's start and end
+
+    def _stamp(self, i: int) -> None:
+        evt = torch.cuda.Event(enable_timing=True)
+        evt.record()
+        self.stamps[i].append((evt, time.perf_counter()))
+
+    def __enter__(self):
+        def stamped(i, fn):
+            def call(*args, **kwargs):
+                self._stamp(i)
+                out = fn(*args, **kwargs)
+                self._stamp(i)
+                return out
+            return call
+
+        for i, ((mod, name), fn) in enumerate(zip(self.targets, self.real)):
+            setattr(mod, name, stamped(i, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.targets, self.real):
+            setattr(mod, name, fn)
+
+    def split(self) -> dict:
+        """Per step after the first: the forward, backward and optimizer's
+        device ms (events) and the host's ms to enqueue each (clock)."""
+        fwd, opt = self.stamps
+        out = {k: [] for k in ("forward", "backward", "optimizer", "host forward",
+                               "host backward", "host optimizer")}
+        for i in range(1, len(fwd) // 2):
+            f0, f1, o0, o1 = fwd[2 * i], fwd[2 * i + 1], opt[2 * i], opt[2 * i + 1]
+            for name, (a, b) in (("forward", (f0, f1)), ("backward", (f1, o0)),
+                                 ("optimizer", (o0, o1))):
+                out[name].append(a[0].elapsed_time(b[0]))
+                out["host " + name].append((b[1] - a[1]) * 1e3)
+        return {k: sum(v) / len(v) for k, v in out.items()}
+
+
+def _trainer_from(cfg, opt, params, device, **kw):
+    """A Trainer on ``device`` that starts from a copy of ``params``."""
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_loop import Trainer
+
+    tr = Trainer(cfg, opt, device=device, **kw)
+    tr.params = O.tree_unflatten(params, iter([p.to(device, copy=True)
+                                               for p in O.tree_leaves(params)]))
+    tr.opt_state = O.init(tr.params, opt)
+    return tr
+
+
+def train_reference(seed: int, arch: str) -> None:
+    """Phase 8 (a): 6 steps of the smoke config in float32 on the card and
+    on the CPU from the same params; then 4 steps with a checkpoint at step
+    4, a fresh trainer (another seed) restored from it and 2 more steps on
+    the card, equal to the uninterrupted card run."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_loop import Trainer
+
+    cfg = get_config(arch, smoke=True)
+    opt = O.OptConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    batches = [synth_batch(seed, i, 2, 16, cfg.vocab_size) for i in range(6)]
+    init = Trainer(cfg, opt, seed=seed, device="cpu").params
+    cpu, gpu = (_trainer_from(cfg, opt, init, device) for device in ("cpu", "cuda"))
+    for tr in (cpu, gpu):
+        tr.fit(iter(batches), 6)
+    loss_err = max(abs(a - b) for a, b in zip(gpu.history, cpu.history))
+    param_err = max(max_err(a.cpu(), b) for a, b in zip(O.tree_leaves(gpu.params),
+                                                        O.tree_leaves(cpu.params)))
+    if not np.allclose(gpu.history, cpu.history, atol=TRAIN_LOSS_TOL, rtol=TRAIN_LOSS_TOL):
+        raise AssertionError(f"{cfg.name} training: card losses {gpu.history} != CPU "
+                             f"{cpu.history}")
+    for a, b in zip(O.tree_leaves(gpu.params), O.tree_leaves(cpu.params)):
+        if not torch.allclose(a.cpu(), b, atol=TRAIN_PARAM_TOL, rtol=TRAIN_PARAM_TOL):
+            raise AssertionError(f"{cfg.name} training: card params differ from the CPU's "
+                                 f"(max abs err {param_err})")
+    ck = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase8_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    part = _trainer_from(cfg, opt, init, "cuda", ckpt_dir=ck, ckpt_every=4)
+    part.fit(iter(batches[:4]), 4)
+    part.async_ckpt.close()
+    resumed = Trainer(cfg, opt, ckpt_dir=ck, ckpt_every=100, seed=seed + 999, device="cuda")
+    if not resumed.try_restore() or resumed.step != 4:
+        raise AssertionError(f"{cfg.name}: no checkpoint at step 4 to resume from")
+    resumed.fit(iter(batches[4:]), 2)
+    resumed.async_ckpt.close()
+    resume_err = max(max_err(a, b) for a, b in zip(O.tree_leaves(resumed.params),
+                                                   O.tree_leaves(gpu.params)))
+    if resume_err > 1e-6 or resumed.history != gpu.history[4:]:
+        raise AssertionError(f"{cfg.name}: resumed run differs from the uninterrupted one "
+                             f"(params max abs err {resume_err}, losses {resumed.history} "
+                             f"vs {gpu.history[4:]})")
+    shutil.rmtree(ck, ignore_errors=True)
+    log(f"[train] {cfg.name} f32, 6 steps: card losses {[round(x, 6) for x in gpu.history]} "
+        f"within {TRAIN_LOSS_TOL} of the CPU's (max abs err {loss_err:.3e}), params within "
+        f"{TRAIN_PARAM_TOL} (max abs err {param_err:.3e}); resumed at step 4 on the card: "
+        f"params max abs err {resume_err:.3e} to the uninterrupted run, losses equal")
+
+
+def train_reference_bf16(seed: int) -> None:
+    """Phase 8 (a), bf16: Yi-6B's heads (hd 128) and vocabulary at d_model
+    1,024 and 4 layers in bfloat16 with remat, 6 steps at the driver's lr
+    1e-3 on the card and on the CPU from the same params: the losses agree
+    within TRAIN_BF16_TOL and fall."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import Trainer
+
+    cfg = dataclasses.replace(get_config("yi-6b"), name="yi-6b-mid", **MID)
+    opt = OptConfig(lr=1e-3, warmup_steps=5, total_steps=6)
+    batches = [synth_batch(seed, i, 2, 128, cfg.vocab_size) for i in range(6)]
+    t0 = time.perf_counter()
+    cpu = Trainer(cfg, opt, seed=seed, device="cpu")
+    gpu = _trainer_from(cfg, opt, cpu.params, "cuda")
+    for tr in (gpu, cpu):
+        tr.fit(iter(batches), 6)
+    err = max(abs(a - b) for a, b in zip(gpu.history, cpu.history))
+    log(f"[train] {cfg.name} bf16 (d_model {cfg.d_model}, {cfg.num_layers} layers, vocab "
+        f"{cfg.vocab_size}), 6 steps at lr 1e-3: card {[round(x, 4) for x in gpu.history]}, "
+        f"CPU {[round(x, 4) for x in cpu.history]}, max abs err {err:.3e} "
+        f"(atol {TRAIN_BF16_TOL}); {time.perf_counter() - t0:.1f}s")
+    if err > TRAIN_BF16_TOL:
+        raise AssertionError(f"{cfg.name}: bf16 training on the card differs from the CPU")
+    if sum(gpu.history[-2:]) / 2 >= gpu.history[0]:
+        raise AssertionError(f"{cfg.name}: the bf16 loss did not fall ({gpu.history})")
+
+
+def train_driver(card: str, flags: list) -> list:
+    """Phase 8 (b): the port's train driver at Yi-6B's full width and depth
+    in bfloat16 (remat as its config has it), 8 steps of 2 x 512 tokens;
+    prints what the steps took and returns the losses."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = get_config("yi-6b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = torch.cuda.get_device_properties(0).total_memory
+    with TimedStep() as timed:
+        t0 = time.perf_counter()
+        out = train.main(flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses, secs = out["losses"], out["step_seconds"]
+    B, S, L = 2, 512, cfg.num_layers
+    tokens = B * S
+    # parameters that take part in products: all but the embedding table (a
+    # gather) and the norm scales
+    n_mm = out["params"] - cfg.vocab_size * cfg.d_model - (2 * L + 1) * cfg.d_model
+    attn = 12 * L * cfg.num_heads * cfg.resolved_head_dim * S * S * B  # fwd + bwd, S x T
+    flops = 6 * n_mm * tokens + attn
+    step_s = sum(secs[1:]) / len(secs[1:])
+    split = timed.split()
+    log(f"[train] {cfg.name}: {L} layers d_model={cfg.d_model} H={cfg.num_heads} "
+        f"KV={cfg.num_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} {cfg.dtype}, "
+        f"remat={cfg.remat}; {out['params']:,} params; {' '.join(flags)}; driver wall "
+        f"{wall:.3f}s")
+    log(f"[train] losses {[round(x, 4) for x in losses]} (ln V = {np.log(cfg.vocab_size):.4f})")
+    log(f"[train] steps 2-8: {step_s * 1e3:.3f} ms a step (min {min(secs[1:]) * 1e3:.3f}, "
+        f"max {max(secs[1:]) * 1e3:.3f}; step 1 {secs[0] * 1e3:.3f}), {tokens / step_s:.2f} "
+        f"trained tokens/s")
+    log("[train] a step's device ms (CUDA events) and the host's ms to enqueue it: " +
+        ", ".join(f"{k} {split[k]:.3f} (host {split['host ' + k]:.3f})"
+                  for k in ("forward", "backward", "optimizer")))
+    log(f"[train] model FLOPs a step {flops:.4e} (6 x {n_mm:,} x {tokens} + attention "
+        f"{attn:.4e}, no remat recompute): {flops / step_s / 1e12:.2f} TFLOP/s, "
+        f"{flops / step_s / BF16_FLOP_PER_S:.4f} of the {BF16_FLOP_PER_S / 1e12:.0f} "
+        f"TFLOP/s bf16 peak")
+    log(f"[train] peak device memory {peak / 1e9:.3f} GB of {total / 1e9:.3f} GB ({card})")
+    if len(losses) != 8 or not all(np.isfinite(losses)):
+        raise AssertionError(f"full-width training: losses {losses}")
+    return losses
+
+
+def check_falls(losses: list) -> None:
+    """The first loss near ln(vocab) (0.02-scaled heads on unit-RMS inputs
+    give logits of std ≈ 1.3), and the mean of the last two below it."""
+    from repro_torch.configs import get_config
+
+    vocab = get_config("yi-6b").vocab_size
+    if abs(losses[0] - np.log(vocab)) > 1.5:
+        raise AssertionError(f"full-width training: first loss {losses[0]:.4f} is not "
+                             f"within 1.5 of ln({vocab})")
+    if sum(losses[-2:]) / 2 >= losses[0]:
+        raise AssertionError(f"full-width training: the loss did not fall ({losses})")
+
+
+def profile_train_step(seed: int) -> None:
+    """Where a full-width step's time goes: a fresh Yi-6B trainer (weights
+    from ``seed``) takes one step, then one under ``torch.profiler``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import Trainer
+
+    cfg = get_config("yi-6b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = Trainer(cfg, OptConfig(lr=1e-5, warmup_steps=5, total_steps=8), seed=seed)
+    batches = iter([synth_batch(seed, i, 2, 512, cfg.vocab_size) for i in range(2)])
+    tr.fit(batches, 1)
+    avgs = profile_steps(lambda: tr.fit(batches, 1), 1, f"one {cfg.name} train step")
+    launches = sum(e.count for e in avgs if e.key == "cudaLaunchKernel")
+    log(f"[profile] cudaLaunchKernel a train step: {launches}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def training(seed: int, kernels: dict, card: str) -> None:
+    """Phase 8: the smoke references, then the full-width driver; the
+    serving kernels' launch counters may not move."""
+    before = {name: mod.launches for name, mod in kernels.items()}
+    for arch in SERVED:
+        train_reference(seed, arch)
+    train_reference_bf16(seed)
+    check_falls(train_driver(card, TRAIN_FLAGS))
+    default_lr = [f for f in TRAIN_FLAGS if f not in ("--lr", "1e-5")]
+    log("[train] the same at the driver's default lr 1e-3 (its loss is not checked to "
+        "fall; see TRAIN_FLAGS):")
+    train_driver(card, default_lr)
+    profile_train_step(seed)
+    after = {name: mod.launches for name, mod in kernels.items()}
+    log(f"[train] serving kernels' launch counters before phase 8 {before}, after {after}")
+    if after != before:
+        raise AssertionError("a serving kernel launched on the training path")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _self_device_us(evt) -> float:
     return getattr(evt, "self_device_time_total",
                    getattr(evt, "self_cuda_time_total", 0.0))
@@ -1240,6 +1524,9 @@ def main() -> int:
 
     # phase 7: the serve driver at glm4-9b's full width
     phase7 = serve_driver(args.seed, kernels, card)
+
+    # phase 8: training, smoke references and Yi-6B at full width
+    training(args.seed, kernels, card)
 
     # each row's launches: the serving kernels' from phases 5 and 7, the
     # claim kernel's from phase 6 (by the JAX call site of its pool size)

@@ -13,8 +13,9 @@ The on-disk format is the JAX package's (``repro.checkpoint.checkpointer``),
 so a checkpoint written by either package restores in the other:
 
 * leaves are numbered in ``jax.tree_util`` flatten order — dict keys
-  sorted, lists and tuples in order, ``None`` holding no leaf — with the
-  same ``/``-joined key paths;
+  sorted, lists, tuples and ``NamedTuple`` fields in order, ``None``
+  holding no leaf — with the same ``/``-joined key paths (a ``NamedTuple``
+  field as ``.name``, as jax names it);
 * a bfloat16 leaf is stored as raw 2-byte words under the ``.npy`` descr
   ``'<V2'``, with ``"bfloat16"`` in the manifest, as JAX writes it; it is
   read back as a uint16 view reinterpreted as ``torch.bfloat16`` (numpy has
@@ -42,12 +43,27 @@ import torch
 BF16 = "bfloat16"
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _items(tree) -> List[Tuple[str, Any]]:
-    """Children in jax.tree_util flatten order: sorted dict keys, sequence
-    indices in order."""
+    """Children in jax.tree_util flatten order: sorted dict keys, NamedTuple
+    fields in order (keyed ``.field``, as jax's ``GetAttrKey`` prints),
+    sequence indices in order."""
     if isinstance(tree, dict):
         return [(str(k), tree[k]) for k in sorted(tree)]
+    if _is_namedtuple(tree):
+        return [(f".{f}", v) for f, v in zip(tree._fields, tree)]
     return [(str(i), v) for i, v in enumerate(tree)]
+
+
+def _rebuild(template, children):
+    """A list, tuple or NamedTuple of ``template``'s type holding
+    ``children``; a NamedTuple takes its fields as positional arguments."""
+    if _is_namedtuple(template):
+        return type(template)(*children)
+    return type(template)(children)
 
 
 def _is_node(tree) -> bool:
@@ -74,7 +90,7 @@ def _unflatten(template, leaves):
         built = {k: _unflatten(template[k], leaves) for k in sorted(template)}
         return {k: built[k] for k in template}
     if isinstance(template, (list, tuple)):
-        return type(template)(_unflatten(v, leaves) for v in template)
+        return _rebuild(template, [_unflatten(v, leaves) for v in template])
     return next(leaves)
 
 
@@ -211,7 +227,7 @@ def _host_copy(tree):
     if isinstance(tree, dict):
         return {k: _host_copy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_host_copy(v) for v in tree)
+        return _rebuild(tree, [_host_copy(v) for v in tree])
     if isinstance(tree, torch.Tensor):
         return tree.detach().to("cpu", copy=True)
     return np.array(tree)

@@ -1,3 +1,3 @@
-from repro_torch.models.model import init_params, param_count
+from repro_torch.models.model import apply, init_params, loss_fn, param_count
 
-__all__ = ["init_params", "param_count"]
+__all__ = ["apply", "init_params", "loss_fn", "param_count"]

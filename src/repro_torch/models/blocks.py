@@ -1,6 +1,7 @@
-"""Parameter initialisation of the dense and MoE decoder blocks, with the
+"""The dense and MoE decoder blocks: parameter initialisation, with the
 JAX package's distributions (normal * 0.02, output projections scaled by
-1/sqrt(2*num_layers), unit norm scales) drawn from a ``torch.Generator``.
+1/sqrt(2*num_layers), unit norm scales) drawn from a ``torch.Generator``,
+and the full-sequence forward without a cache (``APPLY``, training).
 
 The numbers differ from the JAX package's for the same seed (another
 generator); the parity tests take the JAX package's weights through
@@ -12,6 +13,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -83,4 +86,30 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     }
 
 
+def _attention(x, p, cfg: ModelConfig) -> torch.Tensor:
+    return L.attention_block(
+        L.norm(x, p["ln1"], cfg.norm), p["attn"], num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+        rope_theta=cfg.rope_theta, sliding_window=cfg.sliding_window,
+        softcap=cfg.attn_softcap, impl=cfg.attention_impl)
+
+
+def apply_dense(x, p, cfg: ModelConfig):
+    """One dense layer over x [B,S,D]: (x', aux 0.0 f32)."""
+    x = x + _attention(x, p, cfg)
+    x = x + L.swiglu(L.norm(x, p["ln2"], cfg.norm), p["mlp"], cfg.act)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def apply_moe(x, p, cfg: ModelConfig):
+    """One MoE layer over x [B,S,D]: (x', the block's aux loss)."""
+    x = x + _attention(x, p, cfg)
+    y, aux = M.moe_block(L.norm(x, p["ln2"], cfg.norm), p["moe"],
+                         num_experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+                         capacity_factor=cfg.capacity_factor, act=cfg.act,
+                         groups=cfg.moe_groups)
+    return x + y, aux
+
+
 INIT = {"dense": init_dense, "moe": init_moe}
+APPLY = {"dense": apply_dense, "moe": apply_moe}

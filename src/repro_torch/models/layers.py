@@ -1,6 +1,7 @@
-"""Model building blocks in torch: norms, RoPE, GQA attention over a cache,
-SwiGLU MLP. Twins of the JAX package's ``models/layers.py`` functions of
-the same names, with its layouts ([B, S, H, hd] activations, r-major GQA).
+"""Model building blocks in torch: norms, RoPE, GQA attention (causal
+self-attention for training, attention over a cache), SwiGLU MLP. Twins of
+the JAX package's ``models/layers.py`` functions of the same names, with
+its layouts ([B, S, H, hd] activations, r-major GQA).
 """
 
 from __future__ import annotations
@@ -82,6 +83,51 @@ def _sdpa(q, k, v, mask, softcap: float = 0.0):
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("brgst,btgd->bsrgd", w.to(v.dtype), v)
     return out.reshape(B, S, H, hd)
+
+
+def self_attention(q, k, v, *, sliding_window: int = 0, softcap: float = 0.0,
+                   impl: str = "ref"):
+    """Causal self-attention over equal-length q/k/v (training), through
+    :func:`_sdpa` with the reference's mask. The reference's ``pallas``
+    branch (its forward-only flash kernel) is not ported: no config selects
+    it and the reference cannot differentiate it."""
+    if impl == "pallas":
+        raise NotImplementedError(
+            "attention_impl='pallas' is the reference's forward-only flash kernel, "
+            "which has no gradient; training attends through the plain path")
+    S, T = q.shape[1], k.shape[1]
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    mask = q_pos >= k_pos
+    if sliding_window > 0:
+        mask = mask & (q_pos - k_pos < sliding_window)
+    return _sdpa(q, k, v, mask[None, None, None], softcap=softcap)
+
+
+def project_qkv(x, p: dict, *, num_heads: int, num_kv_heads: int, head_dim: int,
+                positions: torch.Tensor, rope_theta: float):
+    """q [B,S,H,hd] and k, v [B,S,KV,hd] of x [B,S,D]; RoPE on q and k at
+    ``positions`` [B,S]."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, num_heads, head_dim)
+    k = (x @ p["wk"]).reshape(B, S, num_kv_heads, head_dim)
+    v = (x @ p["wv"]).reshape(B, S, num_kv_heads, head_dim)
+    return apply_rope(q, positions, rope_theta), apply_rope(k, positions, rope_theta), v
+
+
+def attention_block(x, p: dict, *, num_heads: int, num_kv_heads: int, head_dim: int,
+                    rope_theta: float, sliding_window: int = 0, softcap: float = 0.0,
+                    impl: str = "ref") -> torch.Tensor:
+    """The reference's ``attention_block`` without a cache (training): RoPE
+    at positions ``arange(S)``, causal self-attention, the output
+    projection. x [B,S,D] -> [B,S,D]."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    q, k, v = project_qkv(x, p, num_heads=num_heads, num_kv_heads=num_kv_heads,
+                          head_dim=head_dim, positions=positions, rope_theta=rope_theta)
+    out = self_attention(q, k, v, sliding_window=sliding_window, softcap=softcap,
+                         impl=impl)
+    return out.reshape(B, S, num_heads * head_dim) @ p["wo"]
 
 
 def cache_attention(q, k, v, q_pos, k_pos, *, sliding_window: int = 0,

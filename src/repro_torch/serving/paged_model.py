@@ -41,17 +41,6 @@ from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
 
 
-def _proj_qkv(x, p, cfg: ModelConfig, positions):
-    B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
-
-
 def _scatter_pages(k_pages, v_pages, k_new, v_new, block_tables, positions):
     """k_pages [P,KV,pg,hd]; k_new [B,S,KV,hd]; positions [B,S] absolute.
     Writes in place. ``k_pages[rows, :, slots]`` is [B,S,KV,hd]: the two
@@ -91,7 +80,10 @@ def _layer(tree, i: int):
 def _paged_block(x, p, cfg: ModelConfig, kind: str, k_pages, v_pages,
                  block_tables, positions, seq_lens, prefill: bool):
     h_in = L.norm(x, p["ln1"], cfg.norm)
-    q, k_new, v_new = _proj_qkv(h_in, p["attn"], cfg, positions)
+    q, k_new, v_new = L.project_qkv(h_in, p["attn"], num_heads=cfg.num_heads,
+                                    num_kv_heads=cfg.num_kv_heads,
+                                    head_dim=cfg.resolved_head_dim, positions=positions,
+                                    rope_theta=cfg.rope_theta)
     _scatter_pages(k_pages, v_pages, k_new, v_new, block_tables, positions)
     attn = _attention(q, k_new, v_new, k_pages, v_pages, block_tables,
                       positions, seq_lens, cfg, prefill)

@@ -7,6 +7,7 @@ lets more than ``window`` snapshots lag."""
 import json
 import os
 import threading
+from typing import Any, NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -153,3 +154,68 @@ def test_fabric_params_dir_from_a_jax_checkpoint(tmp_path):
         outs.append([done[u].output for u in uids])
         fab.close()
     assert outs[0] == outs[1]
+
+
+class _Pair(NamedTuple):
+    step: Any
+    mu: Any
+    nu: Any
+
+
+def test_namedtuple_round_trips(tmp_path):
+    """A NamedTuple node (the optimizer's ``OptState``) saves under jax's
+    ``.field`` key paths and restores as its own type, through ``save`` /
+    ``restore`` and through the async writer's host snapshot."""
+    st = {"opt_state": _Pair(torch.tensor(3, dtype=torch.int32),
+                             {"b": torch.ones(2), "a": torch.zeros(3, dtype=torch.bfloat16)},
+                             [torch.arange(4), None])}
+    TC.save(str(tmp_path / "s"), 1, st)
+    paths = [r["path"] for r in json.load(open(tmp_path / "s" / "step_1" / "manifest.json"))[
+        "leaves"]]
+    assert paths == ["opt_state/.step", "opt_state/.mu/a", "opt_state/.mu/b",
+                     "opt_state/.nu/0"]
+    ck = TC.AsyncCheckpointer(str(tmp_path / "a"))
+    assert ck.submit(2, st)
+    ck.close()
+    for d in ("s", "a"):
+        _, got = TC.restore(str(tmp_path / d), st)
+        g = got["opt_state"]
+        assert type(g) is _Pair and g.nu[1] is None and list(g.mu) == ["b", "a"]
+        assert torch.equal(g.step, st["opt_state"].step)
+        assert g.mu["a"].dtype == torch.bfloat16
+        assert torch.equal(g.nu[0], st["opt_state"].nu[0])
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_opt_state_crosses_packages(tmp_path, writer):
+    """Each package's ``OptState`` (step, mu, nu) restores into the other's,
+    with the same manifest."""
+    from repro.training import optimizer as JO
+    from repro_torch.training import optimizer as TO
+
+    rng = np.random.default_rng(5)
+    p = {"w": rng.standard_normal((3, 4)).astype(np.float32),
+         "b": rng.standard_normal((4,)).astype(np.float32)}
+    jst = JO.OptState(jnp.asarray(7, jnp.int32),
+                      jax.tree_util.tree_map(lambda a: jnp.asarray(a * 2), p),
+                      jax.tree_util.tree_map(lambda a: jnp.asarray(a * a), p))
+    tst = TO.OptState(torch.tensor(7, dtype=torch.int32),
+                      {k: torch.from_numpy(a * 2) for k, a in p.items()},
+                      {k: torch.from_numpy(a * a) for k, a in p.items()})
+    for pkg, st in (("jax", jst), ("torch", tst)):
+        (JC if pkg == "jax" else TC).save(str(tmp_path / pkg), 4, {"opt_state": st})
+    man = [json.load(open(tmp_path / d / "step_4" / "manifest.json")) for d in ("jax", "torch")]
+    assert man[0] == man[1]
+    d = str(tmp_path / writer)
+    _, tgot = TC.restore(d, {"opt_state": TO.init({k: torch.zeros(a.shape) for k, a in
+                                                   p.items()}, TO.OptConfig())})
+    assert isinstance(tgot["opt_state"], TO.OptState)
+    _, jgot = JC.restore(d, {"opt_state": JO.init(jax.tree_util.tree_map(jnp.asarray, p),
+                                                  JO.OptConfig())})
+    assert isinstance(jgot["opt_state"], JO.OptState)
+    t_st = tgot["opt_state"]
+    for t, j, want in zip([t_st.step] + TO.tree_leaves(t_st.mu) + TO.tree_leaves(t_st.nu),
+                          jax.tree_util.tree_leaves(jgot["opt_state"]),
+                          jax.tree_util.tree_leaves(jst)):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(np.asarray(j), np.asarray(want))

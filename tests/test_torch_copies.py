@@ -21,6 +21,7 @@ COPIES = [
     "control/__init__.py", "control/actions.py", "control/config.py",
     "control/controller.py", "control/signals.py",
     "core/__init__.py", "core/atomics.py", "core/cmp.py", "core/domain.py",
+    "data/pipeline.py",
     "fabric/config.py", "fabric/stats.py",
     "net/__init__.py", "net/__main__.py", "net/framing.py", "net/server.py", "net/wire.py",
     "obs/__init__.py", "obs/export.py", "obs/gauges.py", "obs/hub.py", "obs/recorder.py",
@@ -36,9 +37,11 @@ REWRITTEN = {
     "fabric/session.py",
     "kernels/__init__.py", "kernels/cmp_claim.py", "kernels/cmp_ring.py",
     "kernels/flash_attention.py", "kernels/ops.py", "kernels/paged_attention.py",
-    "kernels/ref.py", "launch/serve.py", "models/__init__.py", "models/blocks.py",
+    "kernels/ref.py", "launch/serve.py", "launch/train.py", "models/__init__.py",
+    "models/blocks.py",
     "models/layers.py", "models/model.py", "models/moe.py", "serving/admission.py",
     "serving/engine.py", "serving/kv_cache.py", "serving/paged_model.py",
+    "training/optimizer.py", "training/train_loop.py",
 }
 
 

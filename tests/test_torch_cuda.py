@@ -707,3 +707,34 @@ def test_engine_serves_max_batch_1100_with_device_admission(dev):
                             max_seq=64, device_admission=True)
     assert eng._dev_admit.capacity == 17600
     assert cmp_ring.launches - before >= 4
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "granite_moe"])
+def test_train_steps_on_card_match_cpu(dev, arch):
+    """Three Trainer steps on a float32 smoke model on the card and on the
+    CPU from the same params: the losses within 1e-5 and the params within
+    1e-4 (f32 sums in another order; AdamW's per-element division carries
+    a last-bit difference to a few ulps of lr a step), and no serving
+    kernel launched (training attends through the plain path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_loop import Trainer
+
+    cfg = get_config(arch, smoke=True)
+    opt = O.OptConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    batches = [synth_batch(0, i, 2, 16, cfg.vocab_size) for i in range(3)]
+    kernels = (cmp_claim, cmp_ring, flash_attention, paged_attention)
+    before = [m.launches for m in kernels]
+    cpu = Trainer(cfg, opt, seed=1, device="cpu")
+    card = Trainer(cfg, opt, seed=1, device=dev)
+    card.params = O.tree_unflatten(cpu.params, iter([p.to(dev) for p in
+                                                     O.tree_leaves(cpu.params)]))
+    card.opt_state = O.init(card.params, opt)
+    for tr in (cpu, card):
+        tr.fit(iter(batches), 3)
+    np.testing.assert_allclose(card.history, cpu.history, atol=1e-5, rtol=1e-5)
+    for a, b in zip(O.tree_leaves(card.params), O.tree_leaves(cpu.params)):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    assert [m.launches for m in kernels] == before

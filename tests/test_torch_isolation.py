@@ -32,6 +32,13 @@ eng = Engine(cfg, params, max_batch=2, page_size=8, num_pages=16, window=2,
 uid = eng.submit([1, 2, 3], max_new_tokens=2)
 eng.step()  # prefill + one decode step completes the request
 assert len(eng.completed[uid].output) == 2
+from repro_torch.data.pipeline import synth_batch
+from repro_torch.training.optimizer import OptConfig
+from repro_torch.training.train_loop import Trainer
+tr = Trainer(cfg, OptConfig(warmup_steps=1, total_steps=2), device="cpu")
+tr.fit(iter([synth_batch(0, 0, 2, 8, cfg.vocab_size)]), 1)  # one train step
+assert tr.step == 1 and tr.history[0] > 0
+assert {"repro_torch.training.train_loop", "repro_torch.data.pipeline"} <= set(mods)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(mods), bad)
