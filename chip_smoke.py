@@ -62,6 +62,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    time a step and the model FLOP utilisation. No serving kernel may
    launch in this phase: the reference's training path calls no Pallas
    kernel.
+9. the SSM, hybrid and frontend families: (a) the xlstm, hymba, llava-next
+   (3 vision patch embeddings) and musicgen (audio frame tokens) smoke
+   configs in float32, card against CPU: ``apply`` logits, the loss and
+   every gradient, ``prefill`` + 4 ``decode_step`` logits and the final
+   cache; (b) xlstm-125m and (c) hymba-1.5b at full width and depth in
+   bfloat16, each trained by the train driver (8 steps of B=2, xlstm at
+   128 tokens and lr 1e-4, hymba at 512 and lr 1e-5; the loss falls) and
+   decoded on fresh weights (xlstm: 8 lanes,
+   a 512-token prefill, 64 steps; hymba: 4 lanes, a ring of its 1,024-token
+   window, a one-window prefill, 64 steps past it), each decode logit held
+   to ``apply``'s at its position; hymba's ``apply`` through the flash
+   kernel (``attention_impl="pallas"``, one launch a layer) held to the
+   plain attention, each launch's output held to the kernel's plain
+   version on that launch's inputs (atol = rtol = 2e-2), and the reference's two-chunk prefill of 2,048 tokens
+   into its ring measured; (d) llava-next-mistral-7b decoded after a
+   prefill of 2,880 patch embeddings + 64 tokens through
+   ``chunked_cache_attention``, 32 steps, held to ``apply``. Per model:
+   step ms and trained tokens/s, prefill ms, decode step ms, generated
+   tokens/s, peak memory, and the ``cudaLaunchKernel`` of one profiled
+   decode step. Only the flash kernel may launch here, once a hymba layer.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``kernels`` JSON line (five rows: the five ``pallas_call`` sites, the
@@ -72,6 +92,7 @@ before that.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -489,14 +510,19 @@ def check_paged(pa, gen) -> dict:
 
 
 def check_flash(fa, gen) -> dict:
-    """The flash kernel (bf16: wgmma tiles) against its plain version, B=1:
-    at Yi-6B's heads, then at granite-moe's (hd 64, 3 query heads a KV head)
+    """The flash kernel (bf16: wgmma tiles) against its plain version, B=1
+    unless a case says otherwise: at Yi-6B's heads, then at granite-moe's (hd 64, 3 query heads a KV head)
     and each serve-driver config's in the model layout the prefill passes
     ([B, S, H, hd] viewed as [B, H, S, hd]) at prompt lengths of the main
-    paths (64-512, and 3-7 at the serve driver's configs). Times at
+    paths (64-512, and 3-7 at the serve driver's configs), and at
+    hymba-1.5b's heads and window of 1,024 up to S=2,048, and at B=4,
+    S=2,048, the shape phase 9's ``attention_impl="pallas"`` forward gives
+    it. Times at
     Yi-6B's heads, S=T=512 (the yardstick of earlier runs) and 128 (a
     prefill length of the main path): device time from a CUDA graph, SDPA
     the same way, and the eager wrapper loop of earlier runs."""
+    from repro_torch.configs import get_config
+
     dev, dt = "cuda", torch.bfloat16
     heads = served_heads()
     errs = []
@@ -506,28 +532,34 @@ def check_flash(fa, gen) -> dict:
     # the serve driver's prefills too: one tile with 3-7 live rows (phase 7's prompts)
     cases.update({arch: [(512, True, 0), (300, True, 0)] + [(S, True, 0) for S in range(3, 8)]
                   for arch in DRIVER_ARCHS})
+    # phase 9's pallas route: hymba-1.5b's heads (25 over 5, hd 64) and window
+    hymba = get_config("hymba_1_5b")
+    heads["hymba_1_5b"] = (hymba.num_heads, hymba.num_kv_heads, hymba.resolved_head_dim)
+    cases["hymba_1_5b"] = [(S, True, hymba.sliding_window) for S in (300, 1100, 2048)] + [
+        (2048, True, hymba.sliding_window, 4)]  # (S, causal, window[, batch])
     inputs = {}
     for arch, arch_cases in cases.items():
         H, KV, hd = heads[arch]
         model_layout = arch != SERVED[0]
 
-        def rand(n_heads, S):
+        def rand(b, n_heads, S):
             if model_layout:
-                x = torch.randn(1, S, n_heads, hd, generator=gen, device=dev)
+                x = torch.randn(b, S, n_heads, hd, generator=gen, device=dev)
                 return x.to(dt).transpose(1, 2)
-            return torch.randn(1, n_heads, S, hd, generator=gen, device=dev).to(dt)
+            return torch.randn(b, n_heads, S, hd, generator=gen, device=dev).to(dt)
 
-        for S, causal, window in arch_cases:
-            q, k, v = rand(H, S), rand(KV, S), rand(KV, S)
+        for S, causal, window, *batch in arch_cases:
+            b = batch[0] if batch else 1
+            q, k, v = rand(b, H, S), rand(b, KV, S), rand(b, KV, S)
             if arch == SERVED[0]:
                 inputs[(S, causal, window)] = (q, k, v)
-            err = check_close(f"flash_attention {arch} heads S={S} causal={causal} "
+            err = check_close(f"flash_attention {arch} heads B={b} S={S} causal={causal} "
                               f"window={window}",
                               fa.flash_attention(q, k, v, causal=causal,
                                                  sliding_window=window),
                               fa.plain(q, k, v, causal=causal, sliding_window=window))
             errs.append(err)
-            log(f"[kernels] flash_attention B=1 H={H} KV={KV} hd={hd} S=T={S} "
+            log(f"[kernels] flash_attention B={b} H={H} KV={KV} hd={hd} S=T={S} "
                 f"causal={causal} window={window} bf16 ({arch}'s heads"
                 f"{', model layout' if model_layout else ''}): max_abs_err={err:.3e} "
                 f"(atol=rtol={TOL_BF16})")
@@ -734,10 +766,17 @@ def small_reference(seed: int, arch: str) -> None:
         f"(kernels) token-identical to CPU (plain versions)")
 
 
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
+def _to_device(tree, device, dtype=None):
+    """A copy of a tree of dicts, tuples and NamedTuples on ``device``;
+    with ``dtype``, its floating leaves in that dtype."""
+    from repro_torch.tree import tree_map
+
+    def leaf(x):
+        if dtype is not None and x.is_floating_point():
+            return x.to(device, dtype)
+        return x.to(device)
+
+    return tree_map(leaf, tree)
 
 
 def main_path(seed: int, kernels: dict, arch: str) -> dict:
@@ -1347,12 +1386,10 @@ def train_driver(card: str, flags: list) -> list:
     return losses
 
 
-def check_falls(losses: list) -> None:
+def check_falls(losses: list, vocab: int) -> None:
     """The first loss near ln(vocab) (0.02-scaled heads on unit-RMS inputs
-    give logits of std ≈ 1.3), and the mean of the last two below it."""
-    from repro_torch.configs import get_config
-
-    vocab = get_config("yi-6b").vocab_size
+    give logits of std ≈ 0.02·sqrt(d_model)), and the mean of the last two
+    below it."""
     if abs(losses[0] - np.log(vocab)) > 1.5:
         raise AssertionError(f"full-width training: first loss {losses[0]:.4f} is not "
                              f"within 1.5 of ln({vocab})")
@@ -1389,7 +1426,9 @@ def training(seed: int, kernels: dict, card: str) -> None:
     for arch in SERVED:
         train_reference(seed, arch)
     train_reference_bf16(seed)
-    check_falls(train_driver(card, TRAIN_FLAGS))
+    from repro_torch.configs import get_config
+
+    check_falls(train_driver(card, TRAIN_FLAGS), get_config("yi-6b").vocab_size)
     default_lr = [f for f in TRAIN_FLAGS if f not in ("--lr", "1e-5")]
     log("[train] the same at the driver's default lr 1e-3 (its loss is not checked to "
         "fall; see TRAIN_FLAGS):")
@@ -1401,6 +1440,307 @@ def training(seed: int, kernels: dict, card: str) -> None:
         raise AssertionError("a serving kernel launched on the training path")
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the SSM, hybrid and frontend families
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("xlstm_125m", "hymba_1_5b", "llava_next", "musicgen_large")
+FAMILY_TOL = 1e-5  # atol = rtol, card against CPU in f32: sums in another order
+# each family's train-driver run: 8 steps of B=2 x (seq, lr). xlstm-125m's
+# Python time loops make a 512-token step 29-36 s on the host; at 128
+# tokens it is a quarter of that, and at lr 1e-5 its loss then moves less
+# than its step-to-step noise, so it trains at lr 1e-4
+FAMILY_TRAIN = {"xlstm_125m": (128, "1e-4"), "hymba_1_5b": (512, "1e-5")}
+DECODE_NOISE = 2  # decode vs apply, in units of apply's own bf16 error (family_decode)
+
+
+def _hold(what: str, got, want, tol: float) -> float:
+    """Every leaf of ``got`` (card) within atol = rtol = ``tol`` of
+    ``want`` (CPU), infinities in the same places; the largest error."""
+    from repro_torch.tree import tree_leaves
+
+    errs = [0.0]
+    for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        a = a.detach().cpu()
+        if not torch.allclose(a.float(), b.detach().float(), atol=tol, rtol=tol):
+            raise AssertionError(f"{what}: card differs from the CPU "
+                                 f"(max abs err {max_err(a, b.detach())})")
+        fin = torch.isfinite(b.detach().float())
+        if fin.any():
+            errs.append(max_err(a[fin], b.detach()[fin]))
+    return max(errs)
+
+
+def family_reference(seed: int, arch: str) -> None:
+    """Phase 9 (a): the smoke config in float32 from the same weights on
+    the card and on the CPU: ``apply`` logits, the loss and every gradient,
+    ``prefill`` + 4 ``decode_step`` logits and the final cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import apply, decode_step, init_cache, init_params, loss_fn, prefill
+    from repro_torch.models.frontends import audio_frame_tokens, vision_patch_embeds
+    from repro_torch.training import optimizer as O
+
+    cfg = get_config(arch, smoke=True)
+    gen = torch.Generator().manual_seed(seed)
+    params = {"cpu": init_params(cfg, gen, "cpu")}
+    params["cuda"] = _to_device(params["cpu"], "cuda")
+    B, S = 2, 12
+    if cfg.frontend == "audio":
+        tokens = audio_frame_tokens(cfg, B, S + 1, gen, device="cpu")
+    else:
+        tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                               dtype=torch.int32)
+    extra = (vision_patch_embeds(cfg, B, 3, gen, device="cpu")
+             if cfg.frontend == "vision" else None)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = params[dev]
+        t = tokens.to(dev)
+        x = None if extra is None else extra.to(dev)
+        with torch.no_grad():
+            logits, _ = apply(p, t[:, :S], cfg, extra_embeds=x)
+        live = [leaf.detach().requires_grad_(True) for leaf in O.tree_leaves(p)]
+        batch = {"tokens": t} if x is None else {"tokens": t, "extra_embeds": x}
+        loss, _ = loss_fn(O.tree_unflatten(p, iter(live)), batch, cfg)
+        grads = torch.autograd.grad(loss, live)
+        with torch.no_grad():
+            cache = init_cache(cfg, B, (0 if x is None else 3) + S + 4, device=dev)
+            steps, cache = prefill(p, t[:, :8], cfg, cache, extra_embeds=x)
+            steps = [steps]
+            for i in range(8, S):
+                lg, cache = decode_step(p, t[:, i:i + 1], cfg, cache)
+                steps.append(lg)
+        out[dev] = dict(logits=logits, loss=loss.detach(), grads=grads, decode=steps,
+                        cache=cache)
+    errs = {k: _hold(f"{cfg.name} {k}", out["cuda"][k], out["cpu"][k], FAMILY_TOL)
+            for k in ("logits", "loss", "grads", "decode", "cache")}
+    log(f"[family] {cfg.name} f32 card vs CPU (atol=rtol={FAMILY_TOL}), max abs err: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" ({len(out['cpu']['grads'])} gradient leaves"
+        + (", 3 vision_patch_embeds" if extra is not None else "")
+        + (", audio_frame_tokens" if cfg.frontend == "audio" else "") + ")")
+
+
+def family_train(card: str, arch: str) -> None:
+    """The port's train driver at ``arch``'s full width and depth in bf16,
+    8 steps of 2 x ``FAMILY_TRAIN[arch]`` (seq, lr): the loss starts near
+    ln(vocab) and falls."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seq, lr = FAMILY_TRAIN[arch]
+    out = train.main(["--arch", arch, "--steps", "8", "--batch", "2", "--seq", str(seq),
+                      "--lr", lr])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses, secs = out["losses"], out["step_seconds"]
+    step_s = sum(secs[1:]) / len(secs[1:])
+    log(f"[family] {cfg.name} train driver: {out['params']:,} params, {cfg.dtype}, "
+        f"remat={cfg.remat}; losses {[round(x, 4) for x in losses]} (ln V = "
+        f"{np.log(cfg.vocab_size):.4f}); steps 2-8 {step_s * 1e3:.3f} ms a step (step 1 "
+        f"{secs[0] * 1e3:.3f}), {2 * seq / step_s:.2f} trained tokens/s at B=2, S={seq}, "
+        f"lr {lr}; wall {wall:.3f}s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({card})")
+    if len(losses) != 8 or not all(np.isfinite(losses)):
+        raise AssertionError(f"{cfg.name} training: losses {losses}")
+    check_falls(losses, cfg.vocab_size)
+
+
+def _events_ms(fn) -> tuple:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def family_decode(seed: int, arch: str, B: int, prompt: int, steps: int,
+                  n_extra: int = 0, check_pallas: bool = False,
+                  two_chunks: bool = False) -> int:
+    """Phase 9 (b)-(d): fresh bf16 weights at full width and depth; a
+    ``prefill`` of ``n_extra`` vision_patch_embeds + ``prompt`` tokens, then
+    ``steps`` ``decode_step``s fed the next tokens of the same sequence.
+    Each decode logit is held to ``apply``'s at its position within
+    DECODE_NOISE x the forward's own bf16 error, ``noise``: the largest
+    |bf16 apply - f32 apply| over the same positions, the f32 model being
+    the bf16 weights cast up: two bf16 computations of one function, each
+    that far from the f32 one, are up to 2 x noise apart. A wrong position
+    or slot moves a logit by several times its own scale (0.02 *
+    sqrt(d_model), 0.55-1.3), well above it. With ``check_pallas`` the
+    full forward through the flash kernel (``attention_impl="pallas"``) is
+    held to the plain one the same way, over all positions, and each of its
+    launches to the kernel's plain version on that launch's own inputs at
+    phase 3's atol = rtol = 2e-2. Returns the flash kernel's launches there
+    (0 without)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import apply, decode_step, init_cache, init_params, prefill
+    from repro_torch.models import layers
+    from repro_torch.models.frontends import vision_patch_embeds
+
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, "cuda")
+    extra = vision_patch_embeds(cfg, B, n_extra, gen, device="cuda") if n_extra else None
+    total = prompt + steps
+    n_full = 2 * prompt if two_chunks else total  # the positions apply runs over
+    tokens = torch.randint(0, cfg.vocab_size, (B, max(n_full, total)), generator=gen,
+                           dtype=torch.int32, device="cuda")
+    first = n_extra + prompt - 1  # the prefill's logit position
+    with torch.no_grad():
+        full, _ = apply(params, tokens[:, :n_full], cfg, extra_embeds=extra)
+        ref = full[:, first:first + steps + 1]
+        p32 = _to_device(params, "cuda", torch.float32)
+        x32 = None if extra is None else extra.float()
+        ref32, _ = apply(p32, tokens[:, :n_full], dataclasses.replace(cfg, dtype="float32"),
+                         extra_embeds=x32)
+        noise = max_err(ref, ref32[:, first:first + steps + 1])
+        noise_all = max_err(full, ref32)
+        del p32, x32, ref32
+        gc.collect()
+        torch.cuda.empty_cache()
+        cache = init_cache(cfg, B, n_extra + total, device="cuda")
+        chunked = []
+        real = layers.chunked_cache_attention
+        layers.chunked_cache_attention = lambda *a, **k: chunked.append(1) or real(*a, **k)
+        try:
+            (lg, cache), prefill_ms = _events_ms(
+                lambda: prefill(params, tokens[:, :prompt], cfg, cache, extra_embeds=extra))
+        finally:
+            layers.chunked_cache_attention = real
+        got, dec_ms = [lg], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            (lg, cache), ms = _events_ms(
+                lambda: decode_step(params, tokens[:, prompt + i:prompt + i + 1], cfg, cache))
+            got.append(lg)
+            dec_ms.append(ms)
+        torch.cuda.synchronize()
+        dec_wall = time.perf_counter() - t0
+    got = torch.stack(got, dim=1)
+    err = max_err(got, ref)
+    tol = DECODE_NOISE * noise
+    log(f"[family] {cfg.name} decode: {cfg.num_layers} layers d_model={cfg.d_model} "
+        f"{cfg.dtype}, B={B}, prefill of {n_extra} embeds + {prompt} tokens "
+        f"({len(chunked)} chunked_cache_attention calls), {steps} decode steps; "
+        f"max |decode - apply| {err:.4e} over {got.numel():,} logits, bf16 apply vs f32 "
+        f"{noise:.4e}, tolerance {DECODE_NOISE}x that {tol:.4e}")
+    log(f"[family] {cfg.name}: prefill {prefill_ms:.3f} ms, decode step mean "
+        f"{sum(dec_ms) / steps:.3f} ms (min {min(dec_ms):.3f}, max {max(dec_ms):.3f}; CUDA "
+        f"events), {B * steps / dec_wall:.2f} generated tokens/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if not torch.isfinite(got).all() or err > tol:
+        raise AssertionError(f"{cfg.name}: decode differs from apply by {err} > {tol}")
+    if cfg.sliding_window:  # hymba: the ring holds its window, not the sequence
+        ring = cache["blocks"]["0"][0].k.shape[2]
+        log(f"[family] {cfg.name}: KV ring of {ring} slots after {n_extra + total} positions")
+        if ring != cfg.sliding_window:
+            raise AssertionError(f"{cfg.name}: a ring of {ring}, not its window")
+    if n_extra and len(chunked) != cfg.num_layers:
+        raise AssertionError(f"{cfg.name}: the prefill took chunked_cache_attention "
+                             f"{len(chunked)} times, not once a layer")
+    with torch.no_grad():
+        avgs = profile_steps(lambda: decode_step(params, tokens[:, -1:], cfg, cache), 1,
+                             f"one {cfg.name} decode step x {B} lanes")
+    log(f"[profile] cudaLaunchKernel a {cfg.name} decode step: "
+        f"{sum(e.count for e in avgs if e.key == 'cudaLaunchKernel')}")
+    flash = 0
+    if two_chunks:
+        # the reference's chunked prefill of a prompt twice the window into a
+        # ring of the window: the second chunk's queries find the keys they
+        # need overwritten (ROADMAP Queue 3), so it is measured, not held
+        with torch.no_grad():
+            ring0 = init_cache(cfg, B, prompt, device="cuda")
+            lg1, ring0 = prefill(params, tokens[:, :prompt], cfg, ring0)
+            lg2, _ = prefill(params, tokens[:, prompt:2 * prompt], cfg, ring0)
+        log(f"[family] {cfg.name} two-chunk prefill of {2 * prompt} into a ring of "
+            f"{prompt}: first chunk max |prefill - apply| {max_err(lg1, full[:, prompt - 1]):.4e}"
+            f", second chunk {max_err(lg2, full[:, -1]):.4e} (the reference's ring drops "
+            f"keys the second chunk needs)")
+    if check_pallas:
+        # each layer's launch keeps its inputs and output, to be held to the
+        # plain version on those inputs below (no launch of its own)
+        seen, real_fa = [], layers.kops.flash_attention
+
+        def kept(q, k, v, **kw):
+            out = real_fa(q, k, v, **kw)
+            seen.append((q, k, v, kw, out))
+            return out
+
+        before = flash_attention.launches
+        layers.kops.flash_attention = kept
+        try:
+            with torch.no_grad():
+                fast, _ = apply(params, tokens[:, :n_full], dataclasses.replace(
+                    cfg, attention_impl="pallas"))
+        finally:
+            layers.kops.flash_attention = real_fa
+        flash = flash_attention.launches - before
+        if flash != cfg.num_layers or len(seen) != flash:
+            raise AssertionError(f"{cfg.name}: flash launched {flash} times over "
+                                 f"{len(seen)} calls, not once a layer")
+        layer_err = 0.0
+        with torch.no_grad():
+            for i, (q, k, v, kw, out) in enumerate(seen):
+                want = flash_attention.plain(q.transpose(1, 2), k.transpose(1, 2),
+                                             v.transpose(1, 2), **kw).transpose(1, 2)
+                layer_err = max(layer_err, check_close(
+                    f"flash_attention {cfg.name} layer {i} at B={B}, S={n_full}", out, want))
+        log(f"[family] {cfg.name}: each of the {len(seen)} flash launches of the forward "
+            f"below (q {tuple(seen[0][0].shape)}, k/v {tuple(seen[0][1].shape)}, model "
+            f"layout) against the plain version on its own inputs: max_abs_err "
+            f"{layer_err:.4e} (atol=rtol={TOL_BF16})")
+        del seen
+        err, tol = max_err(fast, full), DECODE_NOISE * noise_all
+        log(f"[family] {cfg.name} apply at S={n_full}, B={B}: attention_impl='pallas' vs "
+            f"'ref' max abs err {err:.4e}, bf16 apply vs f32 {noise_all:.4e} over the same "
+            f"{full.numel():,} logits, tolerance {DECODE_NOISE}x that {tol:.4e}; flash "
+            f"launches {flash} (window {cfg.sliding_window}, H/KV "
+            f"{cfg.num_heads}/{cfg.num_kv_heads}, hd {cfg.resolved_head_dim})")
+        if not torch.isfinite(fast).all() or err > tol:
+            raise AssertionError(f"{cfg.name}: apply through flash differs from the plain "
+                                 f"attention by {err} > {tol}")
+    del params, cache, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return flash
+
+
+def families(seed: int, kernels: dict, card: str) -> int:
+    """Phase 9: the smoke configs card vs CPU; xlstm-125m and hymba-1.5b
+    trained and decoded at full width and depth, llava-next-mistral-7b
+    decoded after its 2,880 image embeddings. Returns the flash kernel's
+    launches, which only hymba's pallas check may make."""
+    t0 = time.perf_counter()
+    before = {name: mod.launches for name, mod in kernels.items()}
+    for arch in FAMILIES:
+        family_reference(seed, arch)
+    family_train(card, "xlstm_125m")
+    family_decode(seed, "xlstm_125m", B=8, prompt=512, steps=64)
+    family_train(card, "hymba_1_5b")
+    flash = family_decode(seed, "hymba_1_5b", B=4, prompt=1024, steps=64,
+                          check_pallas=True, two_chunks=True)
+    family_decode(seed, "llava_next", B=2, prompt=64, steps=32, n_extra=2880)
+    after = {name: mod.launches for name, mod in kernels.items()}
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    log(f"[family] kernels' launches in phase 9: {moved}; phase 9 took "
+        f"{time.perf_counter() - t0:.1f}s ({card})")
+    if moved != ({"flash_attention": flash} if flash else {}):
+        raise AssertionError(f"phase 9: a kernel launched off its path ({moved})")
+    return flash
 
 
 def _self_device_us(evt) -> float:
@@ -1528,12 +1868,18 @@ def main() -> int:
     # phase 8: training, smoke references and Yi-6B at full width
     training(args.seed, kernels, card)
 
-    # each row's launches: the serving kernels' from phases 5 and 7, the
-    # claim kernel's from phase 6 (by the JAX call site of its pool size)
+    # phase 9: the SSM, hybrid and frontend families
+    phase9 = families(args.seed, kernels, card)
+
+    # each row's launches: the serving kernels' from phases 5 and 7 (and
+    # flash's from phase 9's pallas route), the claim kernel's from phase 6
+    # (by the JAX call site of its pool size)
     serving = ("cmp_ring", "paged_attention", "flash_attention")
     launches = {name: phase5[name] + phase7[name] for name in serving} | phase6
+    launches["flash_attention"] += phase9
     log(f"[launches] phase 5 (Engine): { {k: phase5[k] for k in serving} }; phase 6 "
-        f"(slotpool): {phase6}; phase 7 (serve driver): { {k: phase7[k] for k in serving} }")
+        f"(slotpool): {phase6}; phase 7 (serve driver): { {k: phase7[k] for k in serving} }"
+        f"; phase 9 (hymba, attention_impl='pallas'): flash {phase9}")
     for row in rows:
         row["route"] = "cuda"
         row["launches"] = launches[row["name"]]

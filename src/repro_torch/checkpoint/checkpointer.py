@@ -40,58 +40,32 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tree as T
+
 BF16 = "bfloat16"
 
 
-def _is_namedtuple(tree) -> bool:
-    return isinstance(tree, tuple) and hasattr(tree, "_fields")
-
-
-def _items(tree) -> List[Tuple[str, Any]]:
-    """Children in jax.tree_util flatten order: sorted dict keys, NamedTuple
-    fields in order (keyed ``.field``, as jax's ``GetAttrKey`` prints),
-    sequence indices in order."""
+def _keys(tree) -> List[str]:
+    """Keys of a node's children in flatten order: sorted dict keys,
+    NamedTuple fields keyed ``.field`` (as jax's ``GetAttrKey`` prints),
+    sequence indices."""
     if isinstance(tree, dict):
-        return [(str(k), tree[k]) for k in sorted(tree)]
-    if _is_namedtuple(tree):
-        return [(f".{f}", v) for f, v in zip(tree._fields, tree)]
-    return [(str(i), v) for i, v in enumerate(tree)]
-
-
-def _rebuild(template, children):
-    """A list, tuple or NamedTuple of ``template``'s type holding
-    ``children``; a NamedTuple takes its fields as positional arguments."""
-    if _is_namedtuple(template):
-        return type(template)(*children)
-    return type(template)(children)
-
-
-def _is_node(tree) -> bool:
-    return isinstance(tree, (dict, list, tuple))
+        return [str(k) for k in sorted(tree)]
+    if T.is_namedtuple(tree):
+        return [f".{f}" for f in tree._fields]
+    return [str(i) for i in range(len(tree))]
 
 
 def _tree_paths(tree, prefix: str = "") -> list:
     """(path, leaf) pairs in flatten order; None holds no leaf."""
     if tree is None:
         return []
-    if not _is_node(tree):
+    if not T.is_node(tree):
         return [(prefix, tree)]
     out = []
-    for key, child in _items(tree):
+    for key, child in zip(_keys(tree), T.children(tree)):
         out.extend(_tree_paths(child, f"{prefix}/{key}" if prefix else key))
     return out
-
-
-def _unflatten(template, leaves):
-    """Rebuild ``template``'s structure from an iterator of leaves."""
-    if template is None:
-        return None
-    if isinstance(template, dict):  # leaves come in sorted key order
-        built = {k: _unflatten(template[k], leaves) for k in sorted(template)}
-        return {k: built[k] for k in template}
-    if isinstance(template, (list, tuple)):
-        return _rebuild(template, [_unflatten(v, leaves) for v in template])
-    return next(leaves)
 
 
 def _host_array(leaf) -> Tuple[np.ndarray, str]:
@@ -216,21 +190,19 @@ def restore(ckpt_dir: str, template: Dict[str, Any], step: Optional[int] = None,
                 if hashlib.sha256(f.read()).hexdigest() != rec["sha256"]:
                     raise IOError(f"integrity failure in {fp} ({rec['path']})")
         out.append(_read_leaf(fp, rec["dtype"], like))
-    return step, _unflatten(template, iter(out))
+    return step, T.tree_unflatten(template, iter(out))
+
+
+def _host_leaf(leaf):
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True)
+    return np.array(leaf)
 
 
 def _host_copy(tree):
     """Host snapshot of a state tree: tensors copied to the CPU, so the
     caller's buffers may be reused while the writer drains."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _host_copy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return _rebuild(tree, [_host_copy(v) for v in tree])
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
-    return np.array(tree)
+    return T.tree_map(_host_leaf, tree)
 
 
 class AsyncCheckpointer:

@@ -1,3 +1,5 @@
-from repro_torch.models.model import apply, init_params, loss_fn, param_count
+from repro_torch.models.model import (apply, decode_step, init_cache, init_params,
+                                      loss_fn, param_count, prefill)
 
-__all__ = ["apply", "init_params", "loss_fn", "param_count"]
+__all__ = ["apply", "decode_step", "init_cache", "init_params", "loss_fn",
+           "param_count", "prefill"]

@@ -1,15 +1,24 @@
 """Model building blocks in torch: norms, RoPE, GQA attention (causal
-self-attention for training, attention over a cache), SwiGLU MLP. Twins of
-the JAX package's ``models/layers.py`` functions of the same names, with
-its layouts ([B, S, H, hd] activations, r-major GQA).
+self-attention, attention over a ring-buffer KV cache, online-softmax
+attention over the cache in KV blocks), SwiGLU MLP. Twins of the JAX
+package's ``models/layers.py`` functions of the same names, with its
+layouts ([B, S, H, hd] activations, r-major GQA).
+
+KV caches carry an explicit per-slot position array, so a ring-buffer
+cache (sliding-window attention) and a linear cache are the same code
+path: a slot whose position falls out of the window is reclaimed by the
+next insert.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
 
 # ---------------------------------------------------------------------------
 # norms
@@ -87,14 +96,19 @@ def _sdpa(q, k, v, mask, softcap: float = 0.0):
 
 def self_attention(q, k, v, *, sliding_window: int = 0, softcap: float = 0.0,
                    impl: str = "ref"):
-    """Causal self-attention over equal-length q/k/v (training), through
-    :func:`_sdpa` with the reference's mask. The reference's ``pallas``
-    branch (its forward-only flash kernel) is not ported: no config selects
-    it and the reference cannot differentiate it."""
-    if impl == "pallas":
-        raise NotImplementedError(
-            "attention_impl='pallas' is the reference's forward-only flash kernel, "
-            "which has no gradient; training attends through the plain path")
+    """Causal self-attention over equal-length q/k/v (training and prefill).
+    ``impl="pallas"`` without a softcap runs the flash kernel (its plain
+    version on a CPU tensor), as the reference runs its Pallas kernel;
+    otherwise :func:`_sdpa` with the reference's mask. The flash kernel has
+    no backward (nor has the reference's a VJP), so the pallas route refuses
+    inputs that record a graph."""
+    if impl == "pallas" and softcap == 0.0:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "attention_impl='pallas' runs the flash kernel, which has no backward "
+                "(the reference's kernel has no VJP either); train with "
+                "attention_impl='ref'")
+        return kops.flash_attention(q, k, v, causal=True, sliding_window=sliding_window)
     S, T = q.shape[1], k.shape[1]
     q_pos = torch.arange(S, device=q.device)[:, None]
     k_pos = torch.arange(T, device=q.device)[None, :]
@@ -115,21 +129,6 @@ def project_qkv(x, p: dict, *, num_heads: int, num_kv_heads: int, head_dim: int,
     return apply_rope(q, positions, rope_theta), apply_rope(k, positions, rope_theta), v
 
 
-def attention_block(x, p: dict, *, num_heads: int, num_kv_heads: int, head_dim: int,
-                    rope_theta: float, sliding_window: int = 0, softcap: float = 0.0,
-                    impl: str = "ref") -> torch.Tensor:
-    """The reference's ``attention_block`` without a cache (training): RoPE
-    at positions ``arange(S)``, causal self-attention, the output
-    projection. x [B,S,D] -> [B,S,D]."""
-    B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    q, k, v = project_qkv(x, p, num_heads=num_heads, num_kv_heads=num_kv_heads,
-                          head_dim=head_dim, positions=positions, rope_theta=rope_theta)
-    out = self_attention(q, k, v, sliding_window=sliding_window, softcap=softcap,
-                         impl=impl)
-    return out.reshape(B, S, num_heads * head_dim) @ p["wo"]
-
-
 def cache_attention(q, k, v, q_pos, k_pos, *, sliding_window: int = 0,
                     softcap: float = 0.0):
     """q [B,S,H,hd]; k,v [B,T,KV,hd] cache contents; q_pos [B,S] absolute
@@ -138,6 +137,119 @@ def cache_attention(q, k, v, q_pos, k_pos, *, sliding_window: int = 0,
     if sliding_window > 0:
         mask = mask & (q_pos[:, :, None] - k_pos[:, None, :] < sliding_window)
     return _sdpa(q, k, v, mask[:, None, None], softcap=softcap)
+
+
+def chunked_cache_attention(q, k, v, q_pos, k_pos, *, sliding_window: int = 0,
+                            softcap: float = 0.0, block_k: int = 1024):
+    """Online-softmax attention over the cache in KV blocks of ``block_k``:
+    an O(S * block_k) working set instead of O(S * T), forward only (the
+    prefill path). The cache is padded to whole blocks with slots at
+    position -1, and the running max starts at -1e30, as in the reference.
+    The reference's ``unroll`` (of its scan over the blocks) and its mesh
+    axes (``kv_block_axis``, ``batch_axes``) have no counterpart here."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    pad = (-T) % block_k
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=-1)
+    qh = q.reshape(B, S, rep, KV, hd)  # r-major GQA (see _sdpa)
+    scale = 1.0 / (hd ** 0.5)
+    acc = torch.zeros((B, S, rep, KV, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((B, S, rep, KV), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, S, rep, KV), dtype=torch.float32, device=q.device)
+    for kc, vc, kp in zip(k.split(block_k, 1), v.split(block_k, 1), k_pos.split(block_k, 1)):
+        s = torch.einsum("bsrgd,btgd->bsrgt", qh, kc).float() * scale
+        if softcap > 0.0:
+            s = torch.tanh(s / softcap) * softcap
+        mask = (kp[:, None, :] >= 0) & (q_pos[:, :, None] >= kp[:, None, :])
+        if sliding_window > 0:
+            mask = mask & (q_pos[:, :, None] - kp[:, None, :] < sliding_window)
+        mask = mask[:, :, None, None, :]
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bsrgt,btgd->bsrgd", p.to(vc.dtype), vc).float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def kv_chunks(seq: int, t_cache: int, block_k: int) -> int:
+    """Number of chunked-attention KV blocks (0 = the direct path); the
+    dispatch condition of :func:`attention_block`."""
+    if block_k <= 0 or seq <= 1 or t_cache <= block_k:
+        return 0
+    return -(-t_cache // block_k)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor    # [B, T, KV, hd]
+    v: torch.Tensor    # [B, T, KV, hd]
+    pos: torch.Tensor  # [B, T] int32, -1 = empty slot
+
+
+def make_kv_cache(batch: int, t_cache: int, num_kv: int, head_dim: int, dtype,
+                  device) -> KVCache:
+    return KVCache(
+        k=torch.zeros((batch, t_cache, num_kv, head_dim), dtype=dtype, device=device),
+        v=torch.zeros((batch, t_cache, num_kv, head_dim), dtype=dtype, device=device),
+        pos=torch.full((batch, t_cache), -1, dtype=torch.int32, device=device),
+    )
+
+
+def cache_insert(cache: KVCache, k_new, v_new, positions) -> KVCache:
+    """A new cache with S entries written at ring slots ``positions % T``
+    (the old one is left as it was). When S >= T only the last T entries
+    survive."""
+    B, S = positions.shape
+    T = cache.k.shape[1]
+    if S >= T:
+        k_new, v_new, positions = k_new[:, -T:], v_new[:, -T:], positions[:, -T:]
+    slots = (positions % T).long()
+    b_idx = torch.arange(B, device=positions.device)[:, None]
+    k, v, pos = cache.k.clone(), cache.v.clone(), cache.pos.clone()
+    k[b_idx, slots] = k_new.to(k.dtype)
+    v[b_idx, slots] = v_new.to(v.dtype)
+    pos[b_idx, slots] = positions.to(pos.dtype)
+    return KVCache(k, v, pos)
+
+
+def attention_block(x, p: dict, *, num_heads: int, num_kv_heads: int, head_dim: int,
+                    rope_theta: float, sliding_window: int = 0, softcap: float = 0.0,
+                    positions: Optional[torch.Tensor] = None,
+                    cache: Optional[KVCache] = None, impl: str = "ref",
+                    chunk_kv: int = 0) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """x [B,S,D] -> (out [B,S,D], new cache or None). RoPE at ``positions``
+    [B,S] (``arange(S)`` when None). Without a cache, causal
+    self-attention; with one, the new keys (rotated at their absolute
+    positions) and values go into the ring first, then the queries attend
+    to the whole ring, in KV blocks of ``chunk_kv`` when
+    :func:`kv_chunks` says so."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    q, k, v = project_qkv(x, p, num_heads=num_heads, num_kv_heads=num_kv_heads,
+                          head_dim=head_dim, positions=positions, rope_theta=rope_theta)
+    if cache is None:
+        out = self_attention(q, k, v, sliding_window=sliding_window, softcap=softcap,
+                             impl=impl)
+        new_cache = None
+    else:
+        new_cache = cache_insert(cache, k, v, positions)
+        if kv_chunks(S, new_cache.k.shape[1], chunk_kv) > 0:
+            out = chunked_cache_attention(
+                q, new_cache.k, new_cache.v, positions, new_cache.pos,
+                sliding_window=sliding_window, softcap=softcap, block_k=chunk_kv)
+        else:
+            out = cache_attention(q, new_cache.k, new_cache.v, positions, new_cache.pos,
+                                  sliding_window=sliding_window, softcap=softcap)
+    return out.reshape(B, S, num_heads * head_dim) @ p["wo"], new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,13 @@
-"""Model parameters, the full-sequence forward and the loss, in torch.
+"""Model parameters, the full-sequence forward, the loss and the decode
+path (``init_cache`` -> ``prefill`` -> ``decode_step``), in torch, for
+every block kind (dense / moe / mlstm / slstm / hymba).
 
 The parameter tree has the JAX package's key paths: ``embed``,
-``final_norm.scale``, ``blocks.<j>.{ln1,attn,ln2,mlp}.*`` with a leading
-layer-stack dim, and ``lm_head``.
+``final_norm.scale``, ``blocks.<j>.<block params>`` with a leading
+layer-stack dim, and ``lm_head``. The cache tree has the JAX package's
+structure too: ``blocks.<j>`` stacked per pattern position (``KVCache``
+NamedTuples, hymba's ``(kv, state)`` pairs, the recurrent state tuples)
+and a shared ``pos`` [B] int32.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -31,14 +37,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     r = cfg.pattern_repeats
     blocks = {}
     for j, kind in enumerate(cfg.block_pattern):
-        if kind not in B.INIT:
-            raise NotImplementedError(f"block kind {kind!r} is not ported yet")
         stacked = None
         for i in range(r):
             one = B.INIT[kind](cfg, generator, device)
             if stacked is None:
-                stacked = _tree_map(lambda x: x.new_empty((r,) + x.shape), one)
-            _tree_zip(lambda dst, src: dst[i].copy_(src), stacked, one)
+                stacked = T.tree_map(lambda x: x.new_empty((r,) + x.shape), one)
+            T.tree_map(lambda dst, src: dst[i].copy_(src), stacked, one)
         blocks[str(j)] = stacked
     params["blocks"] = blocks
     if not cfg.tie_embeddings:
@@ -47,24 +51,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _tree_zip(fn, a, b) -> None:
-    if isinstance(a, dict):
-        for k in a:
-            _tree_zip(fn, a[k], b[k])
-    else:
-        fn(a, b)
-
-
 def param_count(params) -> int:
-    if isinstance(params, dict):
-        return sum(param_count(v) for v in params.values())
-    return params.numel()
+    return sum(x.numel() for x in T.tree_leaves(params))
 
 
 def active_param_count(cfg: ModelConfig, params) -> int:
@@ -92,10 +80,20 @@ def _unstack(tree, r: int) -> list:
     once with ``unbind``. Indexing the leaf a layer at a time would, under
     autograd, write a zero tensor the size of the whole leaf for every
     layer in the backward; one ``unbind`` has one ``stack`` there."""
-    if isinstance(tree, dict):
-        parts = {k: _unstack(v, r) for k, v in tree.items()}
-        return [{k: parts[k][i] for k in parts} for i in range(r)]
-    return list(tree.unbind(0))
+    parts = [x.unbind(0) for x in T.tree_leaves(tree)]
+    return [T.tree_unflatten(tree, (p[i] for p in parts)) for i in range(r)]
+
+
+def _stack(trees: list):
+    """The inverse of :func:`_unstack`: one tree with a leading layer dim."""
+    return T.tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _embed(params, tokens: torch.Tensor, extra_embeds) -> torch.Tensor:
+    x = params["embed"][tokens.long()]
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -105,19 +103,14 @@ def apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     (logits [B, n_extra + S, V] float32, the summed aux loss). With
     ``cfg.remat`` each repeat of the block pattern is recomputed in the
     backward, as the reference's ``jax.checkpoint`` of its scan body."""
-    for kind in cfg.block_pattern:
-        if kind not in B.APPLY:
-            raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    x = params["embed"][tokens.long()]
-    if extra_embeds is not None:
-        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    x = _embed(params, tokens, extra_embeds)
     r = cfg.pattern_repeats
     stacks = [_unstack(params["blocks"][str(j)], r) for j in range(len(cfg.block_pattern))]
 
     def super_fn(x, layer_p):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, kind in enumerate(cfg.block_pattern):
-            x, a = B.APPLY[kind](x, layer_p[j], cfg)
+            x, a, _ = B.APPLY[kind](x, layer_p[j], cfg)
             aux = aux + a
         return x, aux
 
@@ -131,6 +124,63 @@ def apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         auxs.append(a)
     x = L.norm(x, params["final_norm"], cfg.norm)
     return _logits(x, params, cfg), torch.stack(auxs).sum()
+
+
+# ---------------------------------------------------------------------------
+# decode path
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda") -> Dict[str, Any]:
+    """Empty caches stacked per pattern position, and a shared position
+    counter ``pos`` [B] int32."""
+    r = cfg.pattern_repeats
+    blocks = {str(j): _stack([B.init_cache_kind(kind, cfg, batch, seq_len, device)] * r)
+              for j, kind in enumerate(cfg.block_pattern)}
+    return {"blocks": blocks, "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def _run_with_cache(params, x, cfg: ModelConfig, cache, positions):
+    """Every layer over x with its cache; returns (final-normed x, the new
+    stacked block caches)."""
+    r, n = cfg.pattern_repeats, len(cfg.block_pattern)
+    stacks = [_unstack(params["blocks"][str(j)], r) for j in range(n)]
+    caches = [_unstack(cache["blocks"][str(j)], r) for j in range(n)]
+    new = [[] for _ in range(n)]
+    for i in range(r):
+        for j, kind in enumerate(cfg.block_pattern):
+            x, _, nc = B.APPLY[kind](x, stacks[j][i], cfg, positions=positions,
+                                     cache=caches[j][i])
+            new[j].append(nc)
+    x = L.norm(x, params["final_norm"], cfg.norm)
+    return x, {str(j): _stack(new[j]) for j in range(n)}
+
+
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache, *,
+            extra_embeds: Optional[torch.Tensor] = None):
+    """Process a prompt (after ``extra_embeds``, when given) from the
+    cache's positions on, filling the cache. Returns (last-position logits
+    [B, V] f32, new cache); the old cache is left as it was."""
+    x = _embed(params, tokens, extra_embeds)
+    S = x.shape[1]
+    positions = cache["pos"][:, None] + torch.arange(S, dtype=torch.int32,
+                                                     device=x.device)[None, :]
+    x, new_blocks = _run_with_cache(params, x, cfg, cache, positions)
+    logits = _logits(x[:, -1:], params, cfg)[:, 0]
+    return logits, {"blocks": new_blocks, "pos": cache["pos"] + S}
+
+
+def decode_step(params, tokens: torch.Tensor, cfg: ModelConfig, cache):
+    """One-token decode. tokens [B, 1] -> (logits [B, V] f32, new cache)."""
+    x = params["embed"][tokens.long()]
+    x, new_blocks = _run_with_cache(params, x, cfg, cache, cache["pos"][:, None])
+    logits = _logits(x, params, cfg)[:, 0]
+    return logits, {"blocks": new_blocks, "pos": cache["pos"] + 1}
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,

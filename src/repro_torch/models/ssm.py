@@ -1,0 +1,223 @@
+"""Recurrent and state-space blocks in torch: xLSTM (mLSTM + sLSTM) and
+Mamba2-style SSD. Twins of the JAX package's ``models/ssm.py`` functions
+of the same names, with its layouts, its float32 states and its bfloat16
+rounding points (the key scale cast to the key's dtype, each step's output
+cast to the input's dtype, the SSD input cast to the model's dtype before
+the chunked scan).
+
+The time scans are Python loops over torch ops where the reference has
+``lax.scan``: one step per token for mLSTM and sLSTM, one per chunk for
+SSD. The reference's ``unroll`` (of its scans) and ``shard_axis`` (its
+mesh) have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import math
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def _f32(shape, device, fill: float = 0.0) -> torch.Tensor:
+    return torch.full(shape, fill, dtype=torch.float32, device=device)
+
+
+def mlstm_scan(q, k, v, i_pre, f_pre, state=None):
+    """Stabilized mLSTM recurrence over q, k, v [B,H,S,d] and the gate
+    preactivations i_pre, f_pre [B,H,S]. Returns (h [B,H,S,d], final state
+    (C [B,H,d,d], n [B,H,d], m [B,H], a 0-dim dummy)). The stabiliser m
+    starts at -inf; the first step's forget term is zero."""
+    B, H, S, d = q.shape
+    k = k / torch.tensor(math.sqrt(d), dtype=torch.float32).to(k.dtype)
+    if state is None:
+        C, n, m = (_f32((B, H, d, d), q.device), _f32((B, H, d), q.device),
+                   _f32((B, H), q.device, -math.inf))
+    else:
+        C, n, m = state[0], state[1], state[2]
+    # the per-element casts and gates of every step, taken before the loop
+    log_fs = F.logsigmoid(f_pre.float()).unbind(2)
+    hs = []
+    for qf, kf, vf, log_i, log_f in zip(q.float().unbind(2), k.float().unbind(2),
+                                        v.float().unbind(2), i_pre.float().unbind(2), log_fs):
+        m_new = torch.maximum(log_f + m, log_i)
+        m_new = torch.where(torch.isinf(m_new), log_i, m_new)  # first step
+        i_s = torch.exp(log_i - m_new)
+        f_s = torch.where(torch.isinf(m), 0.0, torch.exp(log_f + m - m_new))
+        C = f_s[..., None, None] * C + i_s[..., None, None] * (kf[..., :, None] * vf[..., None, :])
+        n = f_s[..., None] * n + i_s[..., None] * kf
+        num = torch.einsum("bhkv,bhk->bhv", C, qf)
+        den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, qf)), torch.exp(-m_new))
+        hs.append((num / den[..., None]).to(q.dtype))
+        m = m_new
+    return torch.stack(hs, dim=2), (C, n, m, _f32((), q.device))
+
+
+def mlstm_block(x, p: dict, *, num_heads: int, state=None):
+    """x [B,S,D]. Params: wq/wk/wv [D,D], wi/wf [D,H], wo [D,D], ogate [D,D].
+    Returns (out [B,S,D], new state)."""
+    B, S, D = x.shape
+    hd = D // num_heads
+
+    def split(y):
+        return y.reshape(B, S, num_heads, hd).transpose(1, 2)
+
+    q, k, v = split(x @ p["wq"]), split(x @ p["wk"]), split(x @ p["wv"])
+    i_pre = (x @ p["wi"]).transpose(1, 2)  # [B,H,S]
+    f_pre = (x @ p["wf"]).transpose(1, 2)
+    h, new_state = mlstm_scan(q, k, v, i_pre, f_pre, state)
+    h = h.transpose(1, 2).reshape(B, S, D)
+    o = torch.sigmoid(x @ p["ogate"])
+    return (o * h) @ p["wo"], new_state
+
+
+def mlstm_init_state(batch: int, num_heads: int, head_dim: int, device="cuda"):
+    return (_f32((batch, num_heads, head_dim, head_dim), device),
+            _f32((batch, num_heads, head_dim), device),
+            _f32((batch, num_heads), device, -math.inf),
+            _f32((), device))
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def slstm_block(x, p: dict, *, num_heads: int, state=None):
+    """Stabilized sLSTM with block-diagonal (per-head) recurrence.
+
+    Params: wz/wi/wf/wo [D,D] input projections; rz/ri/rf/ro [H,hd,hd]
+    recurrent mixing; wout [D,D]. State: (c, n, h) [B,H,hd] and m [B,H].
+    The four recurrent products of a step are one batched product over
+    the four matrices side by side."""
+    B, S, D = x.shape
+    H = num_heads
+    hd = D // H
+    if state is None:
+        state = slstm_init_state(B, H, hd, x.device)
+    c, n, h, m = state
+    zx = (x @ p["wz"]).reshape(B, S, H, hd)
+    ix = (x @ p["wi"]).reshape(B, S, H, hd)
+    fx = (x @ p["wf"]).reshape(B, S, H, hd)
+    ox = (x @ p["wo"]).reshape(B, S, H, hd)
+    r = torch.cat([p[k].float() for k in ("rz", "ri", "rf", "ro")], dim=-1)  # [H,hd,4hd]
+    hs = []
+    for zt, it, ft, ot in zip(zx.float().unbind(1), ix.float().unbind(1),
+                              fx.float().unbind(1), ox.float().unbind(1)):
+        zr, ir, fr, orr = torch.einsum("bhd,hde->bhe", h, r).split(hd, dim=-1)
+        z = torch.tanh(zt + zr)
+        log_i = torch.mean(it + ir, dim=-1)  # per-head scalar gates [B,H]
+        log_f = F.logsigmoid(torch.mean(ft + fr, dim=-1))
+        o = torch.sigmoid(ot + orr)
+        m_new = torch.maximum(log_f + m, log_i)
+        m_new = torch.where(torch.isinf(m_new), log_i, m_new)
+        i_s = torch.exp(log_i - m_new)[..., None]
+        f_s = torch.where(torch.isinf(m), 0.0, torch.exp(log_f + m - m_new))[..., None]
+        c = f_s * c + i_s * z
+        n = f_s * n + i_s
+        h = o * c / torch.clamp(n, min=1.0)
+        m = m_new
+        hs.append(h.to(x.dtype))
+    return torch.stack(hs, dim=1).reshape(B, S, D) @ p["wout"], (c, n, h, m)
+
+
+def slstm_init_state(batch: int, num_heads: int, head_dim: int, device="cuda"):
+    z = _f32((batch, num_heads, head_dim), device)
+    return (z, z, z, _f32((batch, num_heads), device, -math.inf))
+
+
+# ---------------------------------------------------------------------------
+# SSD (Mamba2-style, scalar per-head decay), chunkwise parallel
+# ---------------------------------------------------------------------------
+
+
+def ssd_chunked(x, b, c, log_a, *, chunk: int = 256, state=None):
+    """y[t] = C[t] . h[t], h[t] = a[t] h[t-1] + B[t] (x) x[t], over x
+    [B,S,H,P], b, c [B,S,H,N], log_a [B,S,H] (<= 0), from ``state``
+    [B,H,P,N] (zeros when None). Quadratic within chunks, a loop across
+    them. Returns (y [B,S,H,P] in x's dtype, final state f32).
+
+    The intra-chunk decay exp(la_t - la_s) is taken only where s <= t: the
+    reference exponentiates every (t, s) and masks the product after, which
+    gives the same values but, once a chunk's summed decay passes ~88
+    (hymba-1.5b's 256-token chunks), an inf in the masked corner whose
+    gradient is NaN. Masking the exponent first keeps the gradient finite;
+    wherever the reference's is finite, the two agree."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    if S % chunk != 0:
+        pad = chunk - S % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, 0, 0, pad))
+        log_a = F.pad(log_a, (0, 0, 0, pad))
+    h = state if state is not None else _f32((B, H, P, N), x.device)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    ys = []
+    for xk, bk, ck, lak in zip(x.split(chunk, 1), b.split(chunk, 1), c.split(chunk, 1),
+                               log_a.split(chunk, 1)):
+        xf, bf, cf = xk.float(), bk.float(), ck.float()
+        la = torch.cumsum(lak.float(), dim=1)  # [B, c, H] inclusive
+        # intra-chunk: M[t,s] = exp(la_t - la_s) * (C_t . B_s), s <= t
+        cb = torch.einsum("bthn,bshn->bhts", cf, bf)
+        seg = (la[:, :, None, :] - la[:, None, :, :]).movedim(3, 1)  # [B, H, t, s]
+        decay = torch.exp(torch.where(causal, seg, -math.inf))
+        mat = torch.where(causal, cb * decay, 0.0)
+        y_intra = torch.einsum("bhts,bshp->bthp", mat, xf)
+        # inter-chunk: y_inter[t] = exp(la_t) * C_t . h
+        y_inter = torch.einsum("bthn,bhpn->bthp", cf, h) * torch.exp(la)[..., None]
+        # state: h' = exp(la_end) h + sum_s exp(la_end - la_s) B_s (x) x_s
+        la_end = la[:, -1, :]  # [B, H]
+        w = torch.exp(la_end[:, None, :] - la)  # [B, c, H]
+        dstate = torch.einsum("bsh,bshp,bshn->bhpn", w, xf, bf)
+        h = torch.exp(la_end)[:, :, None, None] * h + dstate
+        ys.append((y_intra + y_inter).to(x.dtype))
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
+def ssd_decode_step(x, b, c, log_a, state):
+    """One-token recurrence. x [B,H,P]; b, c [B,H,N]; log_a [B,H]; state
+    [B,H,P,N] f32."""
+    a = torch.exp(log_a.float())[..., None, None]
+    state = a * state + torch.einsum("bhp,bhn->bhpn", x.float(), b.float())
+    y = torch.einsum("bhpn,bhn->bhp", state, c.float())
+    return y.to(x.dtype), state
+
+
+def mamba_block(x, p: dict, *, num_heads: int, ssm_state: int, chunk: int = 256,
+                state=None, decode: bool = False):
+    """Mamba2-style block. Params: win [D, 2*Di + 2*H*N + H] fused input
+    projection (x-path, z-gate, B, C, dt), a_log [H] and d_skip [H] (f32),
+    wout [Di, D], Di = H * P. ``decode`` takes one token through
+    :func:`ssd_decode_step`; otherwise :func:`ssd_chunked` over the
+    sequence. Returns (out [B,S,D], new state)."""
+    B, S, D = x.shape
+    H, N = num_heads, ssm_state
+    Di = p["wout"].shape[0]
+    P = Di // H
+    xin, z, bc, dt = (x @ p["win"]).split([Di, Di, 2 * H * N, H], dim=-1)
+    bpart, cpart = bc.chunk(2, dim=-1)
+    xin = xin.reshape(B, S, H, P)
+    bpart = bpart.reshape(B, S, H, N)
+    cpart = cpart.reshape(B, S, H, N)
+    dt = F.softplus(dt.float())  # [B, S, H]
+    log_a = -dt * torch.exp(p["a_log"].float())[None, None, :]
+    xin_dt = xin.float() * dt[..., None]
+    if decode:
+        y, new_state = ssd_decode_step(xin_dt[:, 0], bpart[:, 0], cpart[:, 0],
+                                       log_a[:, 0], state)
+        y = y[:, None]
+    else:
+        y, new_state = ssd_chunked(xin_dt.to(x.dtype), bpart, cpart, log_a,
+                                   chunk=min(chunk, S), state=state)
+    y = y + xin.float() * p["d_skip"].float()[None, None, :, None]
+    y = y.reshape(B, S, Di).to(x.dtype) * F.silu(z)
+    return y @ p["wout"], new_state
+
+
+def mamba_init_state(batch: int, num_heads: int, head_dim: int, ssm_state: int,
+                     device="cuda") -> torch.Tensor:
+    return _f32((batch, num_heads, head_dim, ssm_state), device)

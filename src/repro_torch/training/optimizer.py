@@ -21,9 +21,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, NamedTuple, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import torch
+
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 SLICE = 1 << 25  # elements of one slice of a leaf (128 MiB of float32)
 
@@ -46,22 +48,6 @@ class OptState(NamedTuple):
     step: torch.Tensor
     mu: Any
     nu: Any
-
-
-def tree_leaves(tree) -> List[torch.Tensor]:
-    """Leaves of a tree of dicts in jax.tree_util order (sorted keys)."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    return [tree]
-
-
-def tree_unflatten(template, leaves) -> Any:
-    """``template``'s structure holding ``leaves`` (an iterator, in
-    :func:`tree_leaves` order)."""
-    if isinstance(template, dict):
-        built = {k: tree_unflatten(template[k], leaves) for k in sorted(template)}
-        return {k: built[k] for k in template}
-    return next(leaves)
 
 
 def _slices(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:

@@ -38,8 +38,9 @@ REWRITTEN = {
     "kernels/__init__.py", "kernels/cmp_claim.py", "kernels/cmp_ring.py",
     "kernels/flash_attention.py", "kernels/ops.py", "kernels/paged_attention.py",
     "kernels/ref.py", "launch/serve.py", "launch/train.py", "models/__init__.py",
-    "models/blocks.py",
-    "models/layers.py", "models/model.py", "models/moe.py", "serving/admission.py",
+    "models/blocks.py", "models/frontends.py",
+    "models/layers.py", "models/model.py", "models/moe.py", "models/ssm.py",
+    "serving/admission.py",
     "serving/engine.py", "serving/kv_cache.py", "serving/paged_model.py",
     "training/optimizer.py", "training/train_loop.py",
 }

@@ -738,3 +738,56 @@ def test_train_steps_on_card_match_cpu(dev, arch):
         assert a.is_cuda
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
     assert [m.launches for m in kernels] == before
+
+
+@pytest.mark.parametrize("S", [300, 1100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_impl_pallas_at_hymba_heads(dev, dtype, S):
+    """``self_attention(impl="pallas")`` on the card launches the flash
+    kernel once, at hymba-1.5b's heads (25 over 5, hd 64) and window
+    (1,024: past it at S = 1,100), in the model layout, and agrees with the
+    plain attention (``impl="ref"``); it refuses inputs that record a
+    graph."""
+    from repro_torch.models import layers as TL
+
+    g = torch.Generator(device=dev).manual_seed(S)
+    q = torch.randn(1, S, 25, 64, generator=g, device=dev).to(DT[dtype])
+    k, v = (torch.randn(1, S, 5, 64, generator=g, device=dev).to(DT[dtype]) for _ in range(2))
+    before = flash_attention.launches
+    got = TL.self_attention(q, k, v, sliding_window=1024, impl="pallas")
+    assert flash_attention.launches == before + 1
+    want = TL.self_attention(q, k, v, sliding_window=1024, impl="ref")
+    _close(got.contiguous(), want, 2e-5 if dtype == "float32" else 3e-2)
+    with pytest.raises(NotImplementedError):
+        TL.self_attention(q.requires_grad_(True), k, v, sliding_window=1024, impl="pallas")
+
+
+@pytest.mark.parametrize("arch", ["xlstm_125m", "hymba_1_5b"])
+def test_decode_step_of_new_block_kinds_on_card_matches_cpu(dev, arch):
+    """A prefill and one decode step of the mlstm and slstm kinds (xLSTM)
+    and of hymba (KV ring + Mamba state) on a float32 smoke model, card
+    against CPU from the same params: logits and every cache leaf within
+    1e-5 (f32 sums in another order), -inf stabilisers in the same places,
+    and no kernel launched (the plain attention path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.training import optimizer as O
+
+    cfg = get_config(arch, smoke=True)
+    g = torch.Generator().manual_seed(2)
+    params = init_params(cfg, g, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 9), generator=g, dtype=torch.int32)
+    kernels = (cmp_claim, cmp_ring, flash_attention, paged_attention)
+    before = [m.launches for m in kernels]
+    out = {}
+    for d in ("cpu", dev):
+        p = O.tree_unflatten(params, iter([x.to(d) for x in O.tree_leaves(params)]))
+        cache = init_cache(cfg, 2, 12, device=d)
+        _, cache = prefill(p, tokens[:, :8].to(d), cfg, cache)
+        lg, cache = decode_step(p, tokens[:, 8:].to(d), cfg, cache)
+        out[str(d)] = [lg] + O.tree_leaves(cache)
+    assert [m.launches for m in kernels] == before
+    for a, b in zip(out[str(dev)], out["cpu"], strict=True):
+        assert a.is_cuda and a.dtype == b.dtype
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-5)
+

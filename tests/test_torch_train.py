@@ -1,6 +1,7 @@
 """The port's training path against the JAX package on the CPU: ``loss_fn``
-and its gradients, remat, AdamW, the ``Trainer``'s trajectory, checkpoints
-across packages, exact resume and train-then-serve.
+and its gradients (every block kind: the attention configs, xLSTM and
+hymba), remat, AdamW, the ``Trainer``'s trajectory, checkpoints across
+packages, exact resume and train-then-serve.
 
 Parameters come from ``repro.models.init_params`` through numpy
 (``params_from_numpy``), batches from ``synth_batch``; float32 but for
@@ -43,9 +44,9 @@ from repro_torch.training.train_loop import Trainer
 
 TOL = 1e-5
 PARAM_TOL = 1e-4
-ATTENTION = ["yi_6b", "glm4_9b", "phi3_mini", "command_r_35b", "granite_moe",
-             "llama4_maverick", "llava_next", "musicgen_large"]
-TRAINED = ["yi_6b", "granite_moe"]
+ARCHS = ["yi_6b", "glm4_9b", "phi3_mini", "command_r_35b", "granite_moe",
+         "llama4_maverick", "llava_next", "musicgen_large", "xlstm_125m", "hymba_1_5b"]
+TRAINED = ["yi_6b", "granite_moe", "xlstm_125m", "hymba_1_5b"]
 
 
 def _bridge(jparams):
@@ -80,7 +81,7 @@ def _grads(params, batch, cfg):
     return loss, metrics, torch.autograd.grad(loss, live)
 
 
-@pytest.mark.parametrize("arch", ATTENTION)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_grads_match_jax(arch):
     jcfg, cfg = jax_config(arch, smoke=True), get_config(arch, smoke=True)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(1))
@@ -348,10 +349,30 @@ def test_train_then_serve_same_params(tmp_path):
     assert len(done[u].output) == 3
 
 
-def test_attention_impl_pallas_is_refused():
-    q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="no gradient"):
+def test_attention_impl_pallas_refuses_grad():
+    """The pallas route is the flash kernel, which has no backward (nor has
+    the reference's a VJP): inputs that record a graph are refused."""
+    q = torch.zeros(1, 4, 2, 8, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
         TL.self_attention(q, q, q, impl="pallas")
+    with torch.no_grad():
+        assert TL.self_attention(q, q, q, impl="pallas").shape == q.shape
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (3, 0.0), (0, 5.0)])
+def test_attention_impl_pallas_matches_jax(window, softcap):
+    """``impl="pallas"``: the flash kernel's plain version here, the Pallas
+    kernel in interpret mode in the reference; with a softcap both take the
+    plain attention."""
+    from repro.models import layers as JL
+
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((2, 9, 4, 8), (2, 9, 2, 8), (2, 9, 2, 8)))
+    got = TL.self_attention(*map(torch.from_numpy, (q, k, v)), sliding_window=window,
+                              softcap=softcap, impl="pallas")
+    _close(got, JL.self_attention(*map(jnp.asarray, (q, k, v)), sliding_window=window,
+                                  softcap=softcap, impl="pallas"))
 
 
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (3, 0.0), (0, 5.0), (2, 5.0)])

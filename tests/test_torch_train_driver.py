@@ -7,6 +7,7 @@ import argparse
 import re
 import sys
 
+import numpy as np
 import pytest
 
 from repro.launch import train as jax_train
@@ -58,16 +59,29 @@ def _shape(text: str) -> list:
     return [re.sub(r"\d[\d,]*(\.\d+)?", "N", line) for line in text.strip().splitlines()]
 
 
-def test_smoke_run_prints_the_jax_drivers_lines(monkeypatch, capsys):
-    monkeypatch.setattr(sys, "argv", ["train"] + ARGV)
+def _same_lines_as_jax(monkeypatch, capsys, argv: list) -> dict:
+    """The port's driver on the CPU prints the JAX driver's lines, numbers
+    aside, and the same first line (model name and parameter count)."""
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
     jax_train.main()
     ref = capsys.readouterr().out
-    out = train.main(ARGV + ["--device", "cpu"])
+    out = train.main(argv + ["--device", "cpu"])
     got = capsys.readouterr().out
     assert _shape(got) == _shape(ref) and len(_shape(got)) == 3
     assert got.splitlines()[0] == ref.splitlines()[0]  # same model, same count
     assert out["steps"] == 4 and len(out["losses"]) == len(out["step_seconds"]) == 4
-    assert out["params"] == 139584
+    return out
+
+
+def test_smoke_run_prints_the_jax_drivers_lines(monkeypatch, capsys):
+    assert _same_lines_as_jax(monkeypatch, capsys, ARGV)["params"] == 139584
+
+
+def test_xlstm_smoke_run_prints_the_jax_drivers_lines(monkeypatch, capsys):
+    """The recurrent family through the same driver (mLSTM + sLSTM blocks)."""
+    argv = ["--arch", "xlstm-125m"] + ARGV[2:]
+    out = _same_lines_as_jax(monkeypatch, capsys, argv)
+    assert out["params"] == 111296 and all(np.isfinite(out["losses"]))
 
 
 def test_resume_continues_from_the_saved_step(tmp_path, capsys):
