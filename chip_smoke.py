@@ -82,6 +82,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    step ms and trained tokens/s, prefill ms, decode step ms, generated
    tokens/s, peak memory, and the ``cudaLaunchKernel`` of one profiled
    decode step. Only the flash kernel may launch here, once a hymba layer.
+10. the parallel layer and the launch tooling: (a) Yi-6B at full width and
+   depth in bfloat16 split into 4 stages of 8 layers and run through
+   ``repro_torch.parallel.pipeline.PipelineRunner`` on 6 microbatches of
+   1 x 512 tokens: the forward (no graph) through the flash kernel
+   (``attention_impl="pallas"``, 32 x 6 launches), the last stage's logits
+   equal to ``apply``'s; ``train_grads`` on the plain attention, every
+   gradient within a relative L2 of 1e-2 of the non-pipelined sum (one
+   ``autograd.grad`` of ``loss_fn`` a microbatch), the runner's stats;
+   (b) NCCL at world size 1 on a 1x1 (data, model) mesh: the sharded train
+   step (DTensor params, moments and batch) on Yi-6B at full width cut to 4
+   layers, held to the plain step, and ``compressed_psum`` and
+   ``ring_ag_matmul`` on the card held to their single-process results;
+   (c) ``python -m repro_torch.launch.dryrun --arch yi-6b --shape
+   train_4k`` as a subprocess on the host (started first), its per-GPU
+   counts and three roofline terms under the H100 constants (estimates for
+   a 256-GPU mesh) and its analytic memory against 80 GB. Only the flash
+   kernel may launch here: the pipeline's launches and ``apply``'s.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``kernels`` JSON line (five rows: the five ``pallas_call`` sites, the
@@ -1743,6 +1760,344 @@ def families(seed: int, kernels: dict, card: str) -> int:
     return flash
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the parallel layer and the launch tooling
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 6, 512  # window 4, 6 slots a boundary: 8 micros
+                                               # would exhaust them (ROADMAP Queue 3)
+PIPE_GRAD_TOL = 1e-2  # relative L2 a leaf, pipelined vs non-pipelined sum in bf16: the
+                      # same products but the embedding's backward, whose atomic
+                      # scatter adds in another order each run
+NCCL_LAYERS = 4       # Yi-6B at full width, depth cut to 4 layers for the sharded step
+DRYRUN_CELL = ["--arch", "yi-6b", "--shape", "train_4k", "--out", "build/dryrun"]
+DRYRUN_TIMEOUT = 600
+H100_HBM_BYTES = 80e9
+
+
+def lm_stage_params(params, bounds):
+    """Stage s's params: its slice of the stacked dense blocks (views), the
+    embedding on the first stage, the final norm and head on the last."""
+    def part(tree, l0, l1):
+        if isinstance(tree, dict):
+            return {k: part(v, l0, l1) for k, v in tree.items()}
+        return tree[l0:l1]
+
+    out = []
+    for s, (l0, l1) in enumerate(bounds):
+        p = {"blocks": {"0": part(params["blocks"]["0"], l0, l1)}}
+        if s == 0:
+            p["embed"] = params["embed"]
+        if s == len(bounds) - 1:
+            p["final_norm"] = params["final_norm"]
+            p["lm_head"] = params["lm_head"]
+        out.append(p)
+    return out
+
+
+def lm_stage(cfg, s: int, n_stages: int, n_layers: int):
+    """stage_s((tokens or hidden, targets), params) -> (hidden or logits,
+    targets) from the port's ``_unstack`` and ``B.APPLY``, each layer
+    recomputed in the backward when ``cfg.remat`` (as ``apply``)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    def layer(h, p):
+        return B.APPLY["dense"](h, p, cfg)[0]
+
+    def f(x, p):
+        h, targets = x
+        if s == 0:
+            h = p["embed"][h.long()]
+        for lp in M._unstack(p["blocks"]["0"], n_layers):
+            h = checkpoint(layer, h, lp, use_reentrant=False) if cfg.remat else layer(h, lp)
+        if s == n_stages - 1:
+            return M._logits(L.norm(h, p["final_norm"], cfg.norm), p, cfg), targets
+        return h, targets
+
+    return f
+
+
+def lm_loss(y):
+    """``loss_fn``'s mean next-token cross-entropy of a (logits, targets) pair."""
+    logits, targets = y
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.mean(-torch.gather(logp, -1, targets.long()[..., None])[..., 0])
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def pipeline_yi(seed: int, kernels: dict, card: str) -> int:
+    """Phase 10 (a): Yi-6B at full width and depth in 4 stages of 8 layers
+    through ``PipelineRunner``, 6 microbatches of 1 x 512 tokens. The
+    forward (no graph) through the flash kernel, the last stage's logits
+    equal to ``apply``'s (tolerance 0: the same kernels on the same inputs);
+    ``train_grads`` on the plain attention, every leaf's gradient within
+    PIPE_GRAD_TOL (relative L2) of the non-pipelined sum, the mean loss
+    equal to it. Returns the flash kernel's launches in the forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import apply, init_params, loss_fn
+    from repro_torch.parallel.pipeline import PipelineRunner
+    from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+
+    cfg = get_config("yi_6b")
+    n_layers = cfg.num_layers // PIPE_STAGES
+    bounds = [(s * n_layers, (s + 1) * n_layers) for s in range(PIPE_STAGES)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (PIPE_MICRO, 1, PIPE_SEQ + 1), generator=gen,
+                         dtype=torch.int32, device="cuda")
+    mb = [(t[:, :-1], t[:, 1:]) for t in toks]
+    stage_params = lm_stage_params(params, bounds)
+
+    pcfg = dataclasses.replace(cfg, attention_impl="pallas")
+    fns = [lambda x, s=s, f=lm_stage(pcfg, s, PIPE_STAGES, n_layers): f(x, stage_params[s])
+           for s in range(PIPE_STAGES)]
+    runner = PipelineRunner(fns, PIPE_MICRO)
+    flash = kernels["flash_attention"]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        n0, t0 = flash.launches, time.perf_counter()
+        outs = runner.forward(mb)
+        torch.cuda.synchronize()
+        fwd_s, launches = time.perf_counter() - t0, flash.launches - n0
+        if launches != cfg.num_layers * PIPE_MICRO:
+            raise AssertionError(f"pipeline forward: {launches} flash launches, want "
+                                 f"{cfg.num_layers} x {PIPE_MICRO}")
+        for m, (logits, _) in enumerate(outs):
+            want, _ = apply(params, mb[m][0], pcfg)
+            if not torch.equal(logits, want):
+                raise AssertionError(f"pipeline forward, micro {m}: logits differ from "
+                                     f"apply's (max abs err {max_err(logits, want)})")
+    log(f"[pipeline] yi-6b 4 x 8 layers, {PIPE_MICRO} micros of 1 x {PIPE_SEQ}: forward "
+        f"{fwd_s * 1e3:.1f} ms, {launches} flash launches, logits == apply's; stats "
+        f"{runner.stats}, window {runner.window} ({card})")
+    if not (runner.stats["reclaimed"] > 0 and runner.stats["peak_slots"] <= runner.window + 2):
+        raise AssertionError(f"pipeline forward stats {runner.stats}")
+    del outs
+
+    runner = PipelineRunner([lm_stage(cfg, s, PIPE_STAGES, n_layers)
+                             for s in range(PIPE_STAGES)], PIPE_MICRO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, loss = runner.train_grads(stage_params, mb, lm_loss)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    stats = runner.stats
+    if not (stats["fwd"] == stats["bwd"] == PIPE_STAGES * PIPE_MICRO
+            and stats["reclaimed"] > 0 and stats["peak_slots"] <= runner.window + 2):
+        raise AssertionError(f"pipeline train stats {stats}")
+    full = {"embed": grads[0]["embed"], "final_norm": grads[-1]["final_norm"],
+            "lm_head": grads[-1]["lm_head"],
+            "blocks": {"0": tree_unflatten(grads[0]["blocks"]["0"], iter(
+                [torch.cat(parts) for parts in zip(*(tree_leaves(g["blocks"]["0"])
+                                                     for g in grads))]))}}
+    del grads
+    peak_pipe = torch.cuda.max_memory_allocated() / 1e9
+
+    leaves = tree_leaves(params)
+    ref, losses = None, []
+    for t in toks:  # the non-pipelined sum, one autograd.grad of loss_fn a micro
+        live = [x.detach().requires_grad_(True) for x in leaves]
+        l_m, _ = loss_fn(tree_unflatten(params, iter(live)), {"tokens": t}, cfg)
+        g = torch.autograd.grad(l_m, live)
+        if ref is None:
+            ref = list(g)
+        else:
+            for acc, gm in zip(ref, g):
+                acc.add_(gm)
+        losses.append(l_m.detach())
+        del live, g, l_m
+    loss_ref = torch.stack(losses).mean()
+    errs = {path: rel_l2(g, r) for (path, g), r in zip(tree_paths(full), ref, strict=True)}
+    worst = max(errs, key=errs.get)
+    if errs[worst] > PIPE_GRAD_TOL or not torch.isclose(loss, loss_ref, rtol=1e-6):
+        raise AssertionError(f"pipeline grads: {worst} at relative L2 {errs[worst]}; loss "
+                             f"{loss.item()} vs {loss_ref.item()}")
+    log(f"[pipeline] train_grads {train_s * 1e3:.1f} ms (6 micros fwd+bwd); stats {stats}; "
+        f"loss {loss.item():.6f} == non-pipelined {loss_ref.item():.6f}; largest relative L2 "
+        f"{errs[worst]:.3e} ({worst}), embed {errs['embed']:.3e}, "
+        f"{sum(e == 0.0 for e in errs.values())}/{len(errs)} leaves bit-equal; peak memory "
+        f"{peak_pipe:.1f} GB in the pipeline, {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+        f"with the reference ({card})")
+    del params, stage_params, full, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def nccl_world1(seed: int, card: str) -> None:
+    """Phase 10 (b): NCCL at world size 1 on a 1x1 (data, model) mesh: the
+    sharded train step (``param_shardings``, ``batch_specs_for``,
+    ``make_train_step(..., mesh)``) on Yi-6B at full width, 4 layers, held
+    to the plain step (the loss, every gradient and every updated param);
+    ``compressed_psum`` and ``ring_ag_matmul`` on the card held to their
+    single-process results. The group is torn down at the end."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.parallel import collectives as COL
+    from repro_torch.parallel import sharding as S
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        t0 = time.perf_counter()
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        cfg = dataclasses.replace(get_config("yi_6b"), num_layers=NCCL_LAYERS)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = init_params(cfg, gen, "cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (2, PIPE_SEQ + 1), generator=gen,
+                               dtype=torch.int32, device="cuda")
+        opt_cfg = O.OptConfig(lr=1e-5, warmup_steps=1, total_steps=10)
+        plain = tree_unflatten(params, iter([p.clone() for p in tree_leaves(params)]))
+        live = [p.detach().requires_grad_(True) for p in tree_leaves(plain)]
+        loss_p, _ = loss_fn(tree_unflatten(plain, iter(live)), {"tokens": tokens}, cfg)
+        grads_p = torch.autograd.grad(loss_p, live)
+        del live
+
+        sharded = S.param_shardings(params, mesh)
+        batch = S.distribute({"tokens": tokens}, S.batch_specs_for(mesh, {"tokens": tokens}),
+                             mesh)
+        live = [p.detach().requires_grad_(True) for p in tree_leaves(sharded)]
+        with implicit_replication():
+            loss_d, _ = loss_fn(tree_unflatten(sharded, iter(live)), batch, cfg)
+            grads_d = torch.autograd.grad(loss_d, live)
+        del live
+        errs = [rel_l2(gd.full_tensor(), gp) for gd, gp in zip(grads_d, grads_p, strict=True)]
+        loss_d = loss_d.full_tensor()
+        if max(errs) > PIPE_GRAD_TOL or not torch.isclose(loss_d, loss_p, rtol=1e-6):
+            raise AssertionError(f"sharded grads: relative L2 up to {max(errs)}; loss "
+                                 f"{loss_d.item()} vs {loss_p.item()}")
+        del grads_d, grads_p
+
+        new_d, _, m_d = make_train_step(cfg, opt_cfg, mesh)(
+            sharded, O.init(sharded, opt_cfg), batch)
+        new_p, _, m_p = make_train_step(cfg, opt_cfg)(plain, O.init(plain, opt_cfg),
+                                                     {"tokens": tokens})
+        step_err = max(check_close("sharded step", d.full_tensor(), p)
+                       for d, p in zip(tree_leaves(new_d), tree_leaves(new_p), strict=True))
+        placements = {str(p) for x in tree_leaves(new_d) for p in x.placements}
+        log(f"[nccl] world 1, mesh {tuple(mesh.mesh_dim_names)} {tuple(mesh.shape)} on "
+            f"{mesh.device_type}: yi-6b x {NCCL_LAYERS} layers, batch 2 x {PIPE_SEQ}: loss "
+            f"{loss_d.item():.6f} vs plain {loss_p.item():.6f}, grads relative L2 <= "
+            f"{max(errs):.3e}, updated params max abs err {step_err:.3e} (placements "
+            f"{sorted(placements)}); step losses {m_d['loss'].full_tensor().item():.6f} / "
+            f"{m_p['loss'].item():.6f}")
+        del params, plain, sharded, new_d, new_p
+
+        g = torch.randn(4096, 4096, generator=gen, device="cuda") * 0.01
+        err = torch.randn(4096, 4096, generator=gen, device="cuda") * 1e-4
+        out, new_err = COL.compressed_psum(g, err)
+        q, scale = COL.quantize_int8((g + err).cpu())
+        deq = COL.dequantize_int8(q, scale)
+        if not (torch.equal(out.cpu(), deq) and torch.equal(new_err.cpu(), (g + err).cpu() - deq)):
+            raise AssertionError("compressed_psum at world 1 differs from its single-process "
+                                 f"result (max abs err {max_err(out.cpu(), deq)})")
+        x = torch.randn(512, 4096, generator=gen, device="cuda")
+        w = torch.randn(4096, 1024, generator=gen, device="cuda")
+        if not torch.equal(COL.ring_ag_matmul(x, w), x @ w):
+            raise AssertionError("ring_ag_matmul at world 1 differs from x @ w")
+        torch.cuda.synchronize()
+        log(f"[nccl] compressed_psum (4096^2 f32, int8 error feedback) and ring_ag_matmul "
+            f"(512 x 4096 @ 4096 x 1024) equal their single-process results; (b) took "
+            f"{time.perf_counter() - t0:.1f}s ({card})")
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def start_dryrun(here: str) -> subprocess.Popen:
+    """Phase 10 (c), started first: the dry run of yi-6b x train_4k on the
+    16x16 fake mesh, in a process of its own (it needs its own default
+    process group) on the host CPU (meta tensors, no card)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CELL],
+                            cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def finish_dryrun(proc: subprocess.Popen, here: str, card: str) -> None:
+    """Phase 10 (c): the dry run's per-GPU counts and its three terms under
+    the H100 constants, and the analytic memory against the card's 80 GB.
+    Estimates for a 256-GPU mesh, not measurements."""
+    from repro_torch.launch import roofline as R
+
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lines = [ln for ln in out.splitlines() if ln.startswith("[dryrun]")]
+    if proc.returncode != 0:
+        raise AssertionError(f"dry run exited {proc.returncode}:\n{out[-3000:]}")
+    with open(os.path.join(here, "build", "dryrun", "yi_6b__train_4k__pod16x16.json")) as f:
+        row = json.load(f)
+    t, mem = row["roofline"], row["memory_analytic"]
+    for ln in lines:
+        log(ln)
+    log(f"[dryrun] yi-6b train_4k on 16x16 (256 GPUs; estimates, not measurements): per GPU "
+        f"{t['flops_per_chip']:.4e} FLOPs, {t['bytes_per_chip']:.4e} bytes (unfused: an "
+        f"over-count), {t['wire_bytes_per_chip']:.4e} wire bytes {t['wire_breakdown']} in "
+        f"{t['collective_ops']} collectives; compute {t['compute_s']:.4f}s (at "
+        f"{R.PEAK_FLOPS:.3g} FLOP/s), memory {t['memory_s']:.4f}s (at {R.HBM_BW:.3g} B/s), "
+        f"collective {t['collective_s']:.4f}s (at {R.LINK_BW:.3g} B/s, InfiniBand), dominant "
+        f"{t['dominant']}; useful FLOPs {t['useful_flops_ratio']:.3f}; analytic memory "
+        f"{mem['total'] / 1e9:.2f} GB of {H100_HBM_BYTES / 1e9:.0f} GB "
+        f"({ {k: round(v / 1e9, 3) for k, v in mem.items()} }); traced in "
+        f"{row['compile_seconds']:.1f}s on the host ({card})")
+    if mem["total"] > H100_HBM_BYTES:
+        raise AssertionError(f"yi-6b train_4k does not fit one H100: {mem['total']:.4e} B")
+
+
+def parallel_layer(seed: int, kernels: dict, card: str, here: str) -> int:
+    """Phase 10: the dry run started in the background, the Yi-6B
+    pipeline, NCCL at world size 1, then the dry run's result. Returns the
+    flash kernel's launches in the pipeline forward; besides those, only
+    the flash launches of ``apply`` it is held to may happen here."""
+    t0 = time.perf_counter()
+    before = {name: mod.launches for name, mod in kernels.items()}
+    dry = start_dryrun(here)
+    try:
+        flash = pipeline_yi(seed, kernels, card)
+        nccl_world1(seed, card)
+    except BaseException:
+        dry.kill()
+        dry.communicate()
+        raise
+    finish_dryrun(dry, here, card)
+    moved = {k: mod.launches - before[k] for k, mod in kernels.items()
+             if mod.launches != before[k]}
+    log(f"[parallel] kernels' launches in phase 10: {moved} (the pipeline's {flash}, the "
+        f"rest apply's to hold it); phase 10 took {time.perf_counter() - t0:.1f}s ({card})")
+    if moved != {"flash_attention": 2 * flash}:
+        raise AssertionError(f"phase 10: a kernel launched off its path ({moved})")
+    return flash
+
+
 def _self_device_us(evt) -> float:
     return getattr(evt, "self_device_time_total",
                    getattr(evt, "self_cuda_time_total", 0.0))
@@ -1871,15 +2226,19 @@ def main() -> int:
     # phase 9: the SSM, hybrid and frontend families
     phase9 = families(args.seed, kernels, card)
 
+    # phase 10: the parallel layer and the launch tooling
+    phase10 = parallel_layer(args.seed, kernels, card, here)
+
     # each row's launches: the serving kernels' from phases 5 and 7 (and
     # flash's from phase 9's pallas route), the claim kernel's from phase 6
     # (by the JAX call site of its pool size)
     serving = ("cmp_ring", "paged_attention", "flash_attention")
     launches = {name: phase5[name] + phase7[name] for name in serving} | phase6
-    launches["flash_attention"] += phase9
+    launches["flash_attention"] += phase9 + phase10
     log(f"[launches] phase 5 (Engine): { {k: phase5[k] for k in serving} }; phase 6 "
         f"(slotpool): {phase6}; phase 7 (serve driver): { {k: phase7[k] for k in serving} }"
-        f"; phase 9 (hymba, attention_impl='pallas'): flash {phase9}")
+        f"; phase 9 (hymba, attention_impl='pallas'): flash {phase9}; phase 10 (the Yi-6B "
+        f"pipeline forward): flash {phase10}")
     for row in rows:
         row["route"] = "cuda"
         row["launches"] = launches[row["name"]]

@@ -21,9 +21,12 @@ so a checkpoint written by either package restores in the other:
   read back as a uint16 view reinterpreted as ``torch.bfloat16`` (numpy has
   no bfloat16).
 
-Leaves may be torch tensors (any device), numpy arrays or Python scalars;
-:func:`restore` gives each leaf back as a torch tensor on the device of the
-template's leaf (a numpy array where the template's leaf is not a tensor).
+Leaves may be torch tensors (any device), DTensors (saved as their global
+arrays), numpy arrays or Python scalars; :func:`restore` gives each leaf
+back as a torch tensor on the device of the template's leaf (a numpy array
+where the template's leaf is not a tensor), and with ``shardings`` as
+DTensors on another mesh: a checkpoint written on one mesh restores onto
+any other mesh shape (elastic re-mesh).
 """
 
 from __future__ import annotations
@@ -35,42 +38,26 @@ import queue as pyqueue
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch import tree as T
+from repro_torch.parallel import sharding as S
 
 BF16 = "bfloat16"
 
 
-def _keys(tree) -> List[str]:
-    """Keys of a node's children in flatten order: sorted dict keys,
-    NamedTuple fields keyed ``.field`` (as jax's ``GetAttrKey`` prints),
-    sequence indices."""
-    if isinstance(tree, dict):
-        return [str(k) for k in sorted(tree)]
-    if T.is_namedtuple(tree):
-        return [f".{f}" for f in tree._fields]
-    return [str(i) for i in range(len(tree))]
-
-
-def _tree_paths(tree, prefix: str = "") -> list:
-    """(path, leaf) pairs in flatten order; None holds no leaf."""
-    if tree is None:
-        return []
-    if not T.is_node(tree):
-        return [(prefix, tree)]
-    out = []
-    for key, child in zip(_keys(tree), T.children(tree)):
-        out.extend(_tree_paths(child, f"{prefix}/{key}" if prefix else key))
-    return out
-
-
 def _host_array(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as (numpy array to write, manifest dtype). bfloat16 tensors
-    become their raw 2-byte words."""
+    become their raw 2-byte words; a DTensor is gathered to its global
+    array first (a collective: every rank of its mesh calls this)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -100,9 +87,20 @@ def save(ckpt_dir: str, step: int, state: Dict[str, Any],
     ``ReplicaSet.state()``), data-pipeline cursors, uid counters: the
     exact-seat resume state that is *structure*, not arrays. It rides the
     same tmp-dir + rename, so a step either has both its leaves and its
-    frontiers or neither."""
+    frontiers or neither.
+
+    A state with DTensor leaves is saved by every rank of the default
+    process group together: each such leaf is written as its global array,
+    which every rank takes part in gathering; rank 0 writes, and all ranks
+    return once the step is complete on disk."""
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
     final = os.path.join(ckpt_dir, f"step_{step}")
+    sharded = any(isinstance(x, DTensor) for x in T.tree_leaves(state))
+    if sharded and dist.get_rank() != 0:
+        for leaf in T.tree_leaves(state):
+            _host_array(leaf)
+        dist.barrier()
+        return final
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
@@ -111,7 +109,7 @@ def save(ckpt_dir: str, step: int, state: Dict[str, Any],
             json.dump(aux, f)
 
     manifest = {"step": step, "leaves": []}
-    for i, (path, leaf) in enumerate(_tree_paths(state)):
+    for i, (path, leaf) in enumerate(T.tree_paths(state)):
         arr, dtype = _host_array(leaf)
         fname = f"leaf_{i:05d}.npy"
         _write_leaf(os.path.join(tmp, fname), arr, dtype)
@@ -130,6 +128,8 @@ def save(ckpt_dir: str, step: int, state: Dict[str, Any],
         f.write(str(step))
     os.replace(os.path.join(ckpt_dir, "latest.tmp"),
                os.path.join(ckpt_dir, "latest"))
+    if sharded:
+        dist.barrier()
     return final
 
 
@@ -155,41 +155,74 @@ def restore_aux(ckpt_dir: str, step: Optional[int] = None
         return step, json.load(f)
 
 
-def _read_leaf(path: str, dtype: str, like):
+def _read_leaf(path: str, dtype: str, like, sharding, mesh):
     arr = np.load(path)
-    if isinstance(like, torch.Tensor):
-        arr = np.require(arr, requirements="C")
-        if dtype == BF16:
-            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(arr)
-        return t.to(like.device)
-    return arr
+    if not isinstance(like, torch.Tensor):
+        return arr
+    arr = np.require(arr, requirements="C")
+    if dtype == BF16:
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    t = t.to(like.device)
+    if isinstance(sharding, tuple):
+        return distribute_tensor(t, *sharding)
+    if sharding is not None:
+        return distribute_tensor(t, mesh, S.placements(sharding, mesh))
+    if isinstance(like, DTensor):
+        return distribute_tensor(t, like.device_mesh, like.placements)
+    return t
+
+
+def _is_sharding(s) -> bool:
+    """A ``(mesh, placements)`` pair or a spec (any leaf of a tree)."""
+    return (isinstance(s, tuple) and len(s) == 2 and isinstance(s[0], DeviceMesh)) or (
+        not T.is_node(s))
+
+
+def _per_leaf(tree, shardings) -> list:
+    """The sharding of each leaf of ``tree`` (None where there is none)
+    from ``shardings``, a prefix tree of it: a sharding at a node applies
+    to every leaf below it; a missing dict key or ``None`` gives none."""
+    if shardings is None or _is_sharding(shardings):
+        return [shardings] * len(T.tree_leaves(tree))
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _per_leaf(tree[k], shardings.get(k))]
+    return [s for c, sc in zip(T.children(tree), T.children(shardings), strict=True)
+            for s in _per_leaf(c, sc)]
 
 
 def restore(ckpt_dir: str, template: Dict[str, Any], step: Optional[int] = None,
-            verify: bool = True) -> Tuple[int, Dict[str, Any]]:
+            shardings: Any = None, verify: bool = True, mesh=None
+            ) -> Tuple[int, Dict[str, Any]]:
     """Restore into the structure of ``template``: a leaf comes back as a
     torch tensor on the device of the template's tensor leaf (its dtype
-    the checkpoint's), else as a numpy array."""
+    the checkpoint's; a DTensor in the template's placements where the
+    template's leaf is one), else as a numpy array.
+
+    ``shardings`` re-lays-out onto a new mesh (elastic re-mesh): a prefix
+    tree of ``state`` (params-only is fine) whose leaves are ``(mesh,
+    placements)`` pairs or partition specs (``parallel.sharding.P``, laid
+    out on ``mesh``); the tensors it reaches come back as DTensors there.
+    Every rank of that mesh calls it."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     d = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    flat_t = [leaf for _, leaf in _tree_paths(template)]
+    flat_t = T.tree_leaves(template)
     leaves = manifest["leaves"]
     assert len(leaves) == len(flat_t), (
         f"checkpoint has {len(leaves)} leaves, template {len(flat_t)}")
     out = []
-    for rec, like in zip(leaves, flat_t):
+    for rec, like, sharding in zip(leaves, flat_t, _per_leaf(template, shardings)):
         fp = os.path.join(d, rec["file"])
         if verify:
             with open(fp, "rb") as f:
                 if hashlib.sha256(f.read()).hexdigest() != rec["sha256"]:
                     raise IOError(f"integrity failure in {fp} ({rec['path']})")
-        out.append(_read_leaf(fp, rec["dtype"], like))
+        out.append(_read_leaf(fp, rec["dtype"], like, sharding, mesh))
     return step, T.tree_unflatten(template, iter(out))
 
 

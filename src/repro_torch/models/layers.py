@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel.sharding import per_batch_shard, replicate, view
 
 # ---------------------------------------------------------------------------
 # norms
@@ -75,11 +76,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 
 
+@per_batch_shard
 def _sdpa(q, k, v, mask, softcap: float = 0.0):
     """q:[B,S,H,hd] k,v:[B,T,KV,hd] mask broadcastable to [B,rep,KV,S,T].
     r-major GQA: query head h uses KV head h % KV. The logits come out of a
     working-dtype product and are cast to f32; the weights are cast back to
-    v's dtype before the PV product, as in the reference."""
+    v's dtype before the PV product, as in the reference. On DTensors it
+    runs on each rank's batch shard."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     rep = H // KV
@@ -123,9 +126,9 @@ def project_qkv(x, p: dict, *, num_heads: int, num_kv_heads: int, head_dim: int,
     """q [B,S,H,hd] and k, v [B,S,KV,hd] of x [B,S,D]; RoPE on q and k at
     ``positions`` [B,S]."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, num_heads, head_dim)
-    k = (x @ p["wk"]).reshape(B, S, num_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(B, S, num_kv_heads, head_dim)
+    q = view(x @ p["wq"], B, S, num_heads, head_dim)
+    k = view(x @ p["wk"], B, S, num_kv_heads, head_dim)
+    v = view(x @ p["wv"], B, S, num_kv_heads, head_dim)
     return apply_rope(q, positions, rope_theta), apply_rope(k, positions, rope_theta), v
 
 
@@ -139,6 +142,7 @@ def cache_attention(q, k, v, q_pos, k_pos, *, sliding_window: int = 0,
     return _sdpa(q, k, v, mask[:, None, None], softcap=softcap)
 
 
+@per_batch_shard
 def chunked_cache_attention(q, k, v, q_pos, k_pos, *, sliding_window: int = 0,
                             softcap: float = 0.0, block_k: int = 1024):
     """Online-softmax attention over the cache in KV blocks of ``block_k``:
@@ -146,7 +150,8 @@ def chunked_cache_attention(q, k, v, q_pos, k_pos, *, sliding_window: int = 0,
     prefill path). The cache is padded to whole blocks with slots at
     position -1, and the running max starts at -1e30, as in the reference.
     The reference's ``unroll`` (of its scan over the blocks) and its mesh
-    axes (``kv_block_axis``, ``batch_axes``) have no counterpart here."""
+    axes (``kv_block_axis``, ``batch_axes``) have no counterpart here; on
+    DTensors it runs on each rank's batch shard."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -213,7 +218,8 @@ def cache_insert(cache: KVCache, k_new, v_new, positions) -> KVCache:
         k_new, v_new, positions = k_new[:, -T:], v_new[:, -T:], positions[:, -T:]
     slots = (positions % T).long()
     b_idx = torch.arange(B, device=positions.device)[:, None]
-    k, v, pos = cache.k.clone(), cache.v.clone(), cache.pos.clone()
+    k, v, pos, k_new, v_new = replicate(*cache, k_new, v_new)  # no-op unless sharded
+    k, v, pos = k.clone(), v.clone(), pos.clone()
     k[b_idx, slots] = k_new.to(k.dtype)
     v[b_idx, slots] = v_new.to(v.dtype)
     pos[b_idx, slots] = positions.to(pos.dtype)
@@ -249,7 +255,7 @@ def attention_block(x, p: dict, *, num_heads: int, num_kv_heads: int, head_dim: 
         else:
             out = cache_attention(q, new_cache.k, new_cache.v, positions, new_cache.pos,
                                   sliding_window=sliding_window, softcap=softcap)
-    return out.reshape(B, S, num_heads * head_dim) @ p["wo"], new_cache
+    return view(out, B, S, num_heads * head_dim) @ p["wo"], new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -15,12 +15,14 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import per_batch_shard, replicate
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -89,8 +91,16 @@ def _stack(trees: list):
     return T.tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
-def _embed(params, tokens: torch.Tensor, extra_embeds) -> torch.Tensor:
-    x = params["embed"][tokens.long()]
+def _lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens.long()]
+
+
+def _embed(params, tokens: torch.Tensor, extra_embeds=None) -> torch.Tensor:
+    table = params["embed"]
+    if isinstance(table, DTensor):  # gathered whole, looked up a batch shard a rank
+        x = per_batch_shard(_lookup)(tokens, replicate(table)[0])
+    else:
+        x = _lookup(tokens, table)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     return x
@@ -172,7 +182,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache, *,
 
 def decode_step(params, tokens: torch.Tensor, cfg: ModelConfig, cache):
     """One-token decode. tokens [B, 1] -> (logits [B, V] f32, new cache)."""
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens)
     x, new_blocks = _run_with_cache(params, x, cfg, cache, cache["pos"][:, None])
     logits = _logits(x, params, cfg)[:, 0]
     return logits, {"blocks": new_blocks, "pos": cache["pos"] + 1}

@@ -24,6 +24,7 @@ import math
 from typing import Any, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -52,8 +53,10 @@ class OptState(NamedTuple):
 
 def _slices(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Views of ``x`` along its leading axis, of at most SLICE elements
-    each (at least one row)."""
-    if x.dim() == 0 or x.numel() <= SLICE:
+    each (at least one row). A DTensor is one slice: its leading axis may
+    be sharded, where a split would gather it, and its shards are already
+    a fraction of the leaf."""
+    if x.dim() == 0 or x.numel() <= SLICE or isinstance(x, DTensor):
         return (x,)
     rows = max(1, SLICE // (x.numel() // x.shape[0]))
     return x.split(rows)

@@ -11,8 +11,16 @@ The JAX package's ``training/train_loop.py`` on one device:
 The step runs eagerly and updates the params and moments in place, the
 counterpart of the reference's ``donate_argnums``. It reads one number
 back to the host a step, the loss, where the reference waits on it with
-``block_until_ready``. The reference's ``mesh`` argument (a sharded step)
-is not ported.
+``block_until_ready``.
+
+Sharded: with params and moments as DTensors (``parallel.sharding.
+param_shardings``) and the batch sharded by ``batch_specs_for``, the same
+step runs on every rank of the mesh. DTensor's sharding propagation plays
+GSPMD's part; the step runs under ``implicit_replication``, so the plain
+tensors a layer or the optimizer makes (positions, masks, the step and
+the learning rate) count as replicated. The ``mesh`` argument is inert,
+as in the reference, where jit follows the shardings of the params it is
+given.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.configs.base import ModelConfig
@@ -28,11 +37,13 @@ from repro_torch.models import model as M
 from repro_torch.training import optimizer as O
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig, mesh=None) -> Callable:
     """Returns (params, opt_state, batch) -> (params, opt_state, metrics):
     the loss and its gradients by autograd, then :func:`O.apply_updates`,
-    which writes the new params and moments over the old."""
+    which writes the new params and moments over the old. Plain tensors or
+    DTensors alike (``mesh`` is accepted and unused, as in the reference)."""
 
+    @implicit_replication()
     def step_fn(params, opt_state, batch):
         # leaves that share the params' storage and record the graph, so
         # the params themselves never require grad

@@ -9,7 +9,7 @@ not give.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List
+from typing import Any, Callable, Iterator, List, Tuple
 
 
 def is_namedtuple(node) -> bool:
@@ -42,6 +42,35 @@ def rebuild(node, kids) -> Any:
     if is_namedtuple(node):
         return type(node)(*kids)
     return type(node)(kids)
+
+
+def keys(node) -> List[str]:
+    """Keys of a node's children in flatten order, as ``jax.tree_util``
+    prints them: sorted dict keys, NamedTuple fields as ``.field``,
+    sequence indices; ``None`` has none."""
+    if node is None:
+        return []
+    if isinstance(node, dict):
+        return [str(k) for k in sorted(node)]
+    if is_namedtuple(node):
+        return [f".{f}" for f in node._fields]
+    return [str(i) for i in range(len(node))]
+
+
+def tree_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(``/``-joined key path, leaf) pairs in flatten order (the JAX
+    package's path strings: ``blocks/0/attn/wq``)."""
+    if not is_node(tree):
+        return [(prefix, tree)]
+    out = []
+    for key, child in zip(keys(tree), children(tree)):
+        out.extend(tree_paths(child, f"{prefix}/{key}" if prefix else key))
+    return out
+
+
+def tree_map_with_path(fn: Callable, tree) -> Any:
+    """``tree``'s structure holding ``fn(path, leaf)``."""
+    return tree_unflatten(tree, iter([fn(p, x) for p, x in tree_paths(tree)]))
 
 
 def tree_leaves(tree) -> List[Any]:

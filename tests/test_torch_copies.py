@@ -20,9 +20,10 @@ COPIES = [
     "configs/phi3_mini.py", "configs/xlstm_125m.py", "configs/yi_6b.py",
     "control/__init__.py", "control/actions.py", "control/config.py",
     "control/controller.py", "control/signals.py",
-    "core/__init__.py", "core/atomics.py", "core/cmp.py", "core/domain.py",
+    "core/__init__.py", "core/atomics.py", "core/baselines.py", "core/cmp.py",
+    "core/domain.py", "core/window.py",
     "data/pipeline.py",
-    "fabric/config.py", "fabric/stats.py",
+    "fabric/config.py", "fabric/stats.py", "launch/report.py",
     "net/__init__.py", "net/__main__.py", "net/framing.py", "net/server.py", "net/wire.py",
     "obs/__init__.py", "obs/export.py", "obs/gauges.py", "obs/hub.py", "obs/recorder.py",
     "sched/__init__.py", "sched/classes.py", "sched/policy.py", "sched/replica.py",
@@ -37,9 +38,11 @@ REWRITTEN = {
     "fabric/session.py",
     "kernels/__init__.py", "kernels/cmp_claim.py", "kernels/cmp_ring.py",
     "kernels/flash_attention.py", "kernels/ops.py", "kernels/paged_attention.py",
-    "kernels/ref.py", "launch/serve.py", "launch/train.py", "models/__init__.py",
+    "kernels/ref.py", "launch/dryrun.py", "launch/mesh.py", "launch/roofline.py",
+    "launch/serve.py", "launch/train.py", "models/__init__.py",
     "models/blocks.py", "models/frontends.py",
     "models/layers.py", "models/model.py", "models/moe.py", "models/ssm.py",
+    "parallel/collectives.py", "parallel/pipeline.py", "parallel/sharding.py",
     "serving/admission.py",
     "serving/engine.py", "serving/kv_cache.py", "serving/paged_model.py",
     "training/optimizer.py", "training/train_loop.py",

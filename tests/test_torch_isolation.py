@@ -91,3 +91,10 @@ def test_port_runs_without_jax_or_reference_package():
 def test_port_sources_import_no_jax_or_reference(path):
     hits = FORBIDDEN.findall(path.read_text())
     assert not hits, f"{path}: imports {hits}"
+
+
+def test_fake_process_group_import_is_confined_to_launch_mesh():
+    """torch's fake backend lives in an internal testing module: only
+    ``launch/mesh.py`` imports it (for the dry run's 256/512-rank world)."""
+    users = sorted(str(p.relative_to(ROOT)) for p in PORT_FILES if "fake_pg" in p.read_text())
+    assert users == ["src/repro_torch/launch/mesh.py"], users
