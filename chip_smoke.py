@@ -92,13 +92,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``autograd.grad`` of ``loss_fn`` a microbatch), the runner's stats;
    (b) NCCL at world size 1 on a 1x1 (data, model) mesh: the sharded train
    step (DTensor params, moments and batch) on Yi-6B at full width cut to 4
-   layers, held to the plain step, and ``compressed_psum`` and
-   ``ring_ag_matmul`` on the card held to their single-process results;
-   (c) ``python -m repro_torch.launch.dryrun --arch yi-6b --shape
-   train_4k`` as a subprocess on the host (started first), its per-GPU
-   counts and three roofline terms under the H100 constants (estimates for
-   a 256-GPU mesh) and its analytic memory against 80 GB. Only the flash
-   kernel may launch here: the pipeline's launches and ``apply``'s.
+   layers, on granite-moe-3b-a800m at full width and depth (2 x 512: MoE
+   routing on each rank's tokens, TP expert products) and on xlstm-125m at
+   full width and depth (2 x 64: the time loops on each batch shard), each
+   held bit for bit to the plain step (loss, every gradient, every updated
+   param), and ``compressed_psum`` and ``ring_ag_matmul`` on the card held
+   to their single-process results; (c) ``python -m
+   repro_torch.launch.dryrun`` of yi-6b, granite-moe, llama4-maverick and
+   xlstm-125m at train_4k, four subprocesses on the host (started first),
+   each cell's per-GPU counts and three roofline terms under the H100
+   constants (estimates for a 256-GPU mesh), yi's FLOPs a GPU beside PR
+   19's, and yi's analytic memory against 80 GB. Only the flash kernel
+   may launch here: the pipeline's launches and ``apply``'s.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``kernels`` JSON line (five rows: the five ``pallas_call`` sites, the
@@ -1769,8 +1774,13 @@ PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 6, 512  # window 4, 6 slots a boundary: 8
 PIPE_GRAD_TOL = 1e-2  # relative L2 a leaf, pipelined vs non-pipelined sum in bf16: the
                       # same products but the embedding's backward, whose atomic
                       # scatter adds in another order each run
-NCCL_LAYERS = 4       # Yi-6B at full width, depth cut to 4 layers for the sharded step
-DRYRUN_CELL = ["--arch", "yi-6b", "--shape", "train_4k", "--out", "build/dryrun"]
+# the sharded step at NCCL world size 1: (arch, config cut, batch, seq); full width
+NCCL_STEPS = (("yi_6b", {"num_layers": 4}, 2, PIPE_SEQ),
+              ("granite_moe", {}, 2, 512),
+              ("xlstm_125m", {}, 2, 64))
+DRYRUN_CELLS = (("yi-6b", "train_4k"), ("granite-moe", "train_4k"),
+                ("llama4-maverick", "train_4k"), ("xlstm-125m", "train_4k"))
+DRYRUN_OUT = "build/dryrun"
 DRYRUN_TIMEOUT = 600
 H100_HBM_BYTES = 80e9
 
@@ -1935,26 +1945,101 @@ def pipeline_yi(seed: int, kernels: dict, card: str) -> int:
     return launches
 
 
-def nccl_world1(seed: int, card: str) -> None:
-    """Phase 10 (b): NCCL at world size 1 on a 1x1 (data, model) mesh: the
-    sharded train step (``param_shardings``, ``batch_specs_for``,
-    ``make_train_step(..., mesh)``) on Yi-6B at full width, 4 layers, held
-    to the plain step (the loss, every gradient and every updated param);
-    ``compressed_psum`` and ``ring_ag_matmul`` on the card held to their
-    single-process results. The group is torn down at the end."""
-    import socket
+def _loss_grads(params, tokens, cfg):
+    from repro_torch.models import loss_fn
+    from repro_torch.tree import tree_leaves, tree_unflatten
 
-    import torch.distributed as dist
+    live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = loss_fn(tree_unflatten(params, iter(live)), {"tokens": tokens}, cfg)
+    return loss.detach(), list(torch.autograd.grad(loss, live))
+
+
+def _bit_equal(what: str, got: list, want: list) -> None:
+    """Each of ``got`` (DTensors) equal to ``want``'s, bit for bit."""
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        g = g.full_tensor().to(w.device)
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: leaf {i} of {len(want)} differs from the plain "
+                                 f"step's (max abs err {max_err(g, w)})")
+
+
+def sharded_step(seed: int, mesh, arch: str, over: dict, batch: int, seq: int,
+                 card: str) -> None:
+    """``arch`` at full width (``over`` cuts its depth) through the sharded
+    train step on ``mesh``, held to the plain step bit for bit: the loss
+    and every gradient of ``loss_fn``, then every param ``make_train_step``
+    updates. The plain side runs first on a copy of the weights, and each
+    side's gradients and moments are freed before the next is made; the
+    plain step's params wait in host memory (granite-moe at full depth:
+    the sharded step's f32 moments and the optimizer's f32 copies of a
+    whole DTensor leaf leave no room for them on the card)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.models import init_params, loss_fn
-    from repro_torch.parallel import collectives as COL
+    from repro_torch.models import init_params
     from repro_torch.parallel import sharding as S
     from repro_torch.training import optimizer as O
     from repro_torch.training.train_loop import make_train_step
     from repro_torch.tree import tree_leaves, tree_unflatten
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), **over)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+                           dtype=torch.int32, device="cuda")
+    opt_cfg = O.OptConfig(lr=1e-5, warmup_steps=1, total_steps=10)
+    plain = tree_unflatten(params, iter([p.clone() for p in tree_leaves(params)]))
+    loss_p, grads_p = _loss_grads(plain, tokens, cfg)
+
+    sharded = S.param_shardings(params, mesh)
+    del params
+    batch_d = S.distribute({"tokens": tokens}, S.batch_specs_for(mesh, {"tokens": tokens}),
+                           mesh)
+    with implicit_replication():
+        loss_d, grads_d = _loss_grads(sharded, batch_d["tokens"], cfg)
+    _bit_equal(f"{arch} sharded loss", [loss_d], [loss_p])
+    _bit_equal(f"{arch} sharded gradients", grads_d, grads_p)
+    del grads_d, grads_p
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+
+    new_p, opt_p, m_p = make_train_step(cfg, opt_cfg)(plain, O.init(plain, opt_cfg),
+                                                     {"tokens": tokens})
+    want = [x.cpu() for x in tree_leaves(new_p)]
+    del opt_p, new_p, plain  # before the sharded step makes its own moments
+    new_d, _, m_d = make_train_step(cfg, opt_cfg, mesh)(sharded, O.init(sharded, opt_cfg),
+                                                       batch_d)
+    _bit_equal(f"{arch} sharded step", tree_leaves(new_d), want)
+    torch.cuda.synchronize()
+    n = sum(x.numel() for x in want)
+    placements = sorted({str(p) for x in tree_leaves(new_d) for p in x.placements})
+    log(f"[nccl] {arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, {n / 1e9:.3f}B "
+        f"params), batch {batch} x {seq}: loss {loss_d.full_tensor().item():.6f} == plain "
+        f"{loss_p.item():.6f}; {len(want)} gradients and updated params "
+        f"bit-equal to the plain step's (placements {placements}); step losses "
+        f"{m_d['loss'].full_tensor().item():.6f} / {m_p['loss'].item():.6f}; loss and "
+        f"gradients {t1 - t0:.1f}s, the two steps {time.perf_counter() - t1:.1f}s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB ({card})")
+    del sharded, new_d, want
+
+
+def nccl_world1(seed: int, card: str) -> None:
+    """Phase 10 (b): NCCL at world size 1 on a 1x1 (data, model) mesh: the
+    sharded train step (``param_shardings``, ``batch_specs_for``,
+    ``make_train_step(..., mesh)``) held to the plain step on each of
+    NCCL_STEPS (:func:`sharded_step`); ``compressed_psum`` and
+    ``ring_ag_matmul`` on the card held to their single-process results.
+    The group is torn down at the end."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel import collectives as COL
 
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -1965,48 +2050,14 @@ def nccl_world1(seed: int, card: str) -> None:
     try:
         t0 = time.perf_counter()
         mesh = make_debug_mesh(1, 1, device_type="cuda")
-        cfg = dataclasses.replace(get_config("yi_6b"), num_layers=NCCL_LAYERS)
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        params = init_params(cfg, gen, "cuda")
-        tokens = torch.randint(0, cfg.vocab_size, (2, PIPE_SEQ + 1), generator=gen,
-                               dtype=torch.int32, device="cuda")
-        opt_cfg = O.OptConfig(lr=1e-5, warmup_steps=1, total_steps=10)
-        plain = tree_unflatten(params, iter([p.clone() for p in tree_leaves(params)]))
-        live = [p.detach().requires_grad_(True) for p in tree_leaves(plain)]
-        loss_p, _ = loss_fn(tree_unflatten(plain, iter(live)), {"tokens": tokens}, cfg)
-        grads_p = torch.autograd.grad(loss_p, live)
-        del live
-
-        sharded = S.param_shardings(params, mesh)
-        batch = S.distribute({"tokens": tokens}, S.batch_specs_for(mesh, {"tokens": tokens}),
-                             mesh)
-        live = [p.detach().requires_grad_(True) for p in tree_leaves(sharded)]
-        with implicit_replication():
-            loss_d, _ = loss_fn(tree_unflatten(sharded, iter(live)), batch, cfg)
-            grads_d = torch.autograd.grad(loss_d, live)
-        del live
-        errs = [rel_l2(gd.full_tensor(), gp) for gd, gp in zip(grads_d, grads_p, strict=True)]
-        loss_d = loss_d.full_tensor()
-        if max(errs) > PIPE_GRAD_TOL or not torch.isclose(loss_d, loss_p, rtol=1e-6):
-            raise AssertionError(f"sharded grads: relative L2 up to {max(errs)}; loss "
-                                 f"{loss_d.item()} vs {loss_p.item()}")
-        del grads_d, grads_p
-
-        new_d, _, m_d = make_train_step(cfg, opt_cfg, mesh)(
-            sharded, O.init(sharded, opt_cfg), batch)
-        new_p, _, m_p = make_train_step(cfg, opt_cfg)(plain, O.init(plain, opt_cfg),
-                                                     {"tokens": tokens})
-        step_err = max(check_close("sharded step", d.full_tensor(), p)
-                       for d, p in zip(tree_leaves(new_d), tree_leaves(new_p), strict=True))
-        placements = {str(p) for x in tree_leaves(new_d) for p in x.placements}
         log(f"[nccl] world 1, mesh {tuple(mesh.mesh_dim_names)} {tuple(mesh.shape)} on "
-            f"{mesh.device_type}: yi-6b x {NCCL_LAYERS} layers, batch 2 x {PIPE_SEQ}: loss "
-            f"{loss_d.item():.6f} vs plain {loss_p.item():.6f}, grads relative L2 <= "
-            f"{max(errs):.3e}, updated params max abs err {step_err:.3e} (placements "
-            f"{sorted(placements)}); step losses {m_d['loss'].full_tensor().item():.6f} / "
-            f"{m_p['loss'].item():.6f}")
-        del params, plain, sharded, new_d, new_p
+            f"{mesh.device_type}")
+        for arch, over, batch, seq in NCCL_STEPS:
+            sharded_step(seed, mesh, arch, over, batch, seq, card)
+        gc.collect()
+        torch.cuda.empty_cache()
 
+        gen = torch.Generator(device="cuda").manual_seed(seed)
         g = torch.randn(4096, 4096, generator=gen, device="cuda") * 0.01
         err = torch.randn(4096, 4096, generator=gen, device="cuda") * 1e-4
         out, new_err = COL.compressed_psum(g, err)
@@ -2029,48 +2080,61 @@ def nccl_world1(seed: int, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def start_dryrun(here: str) -> subprocess.Popen:
-    """Phase 10 (c), started first: the dry run of yi-6b x train_4k on the
-    16x16 fake mesh, in a process of its own (it needs its own default
-    process group) on the host CPU (meta tensors, no card)."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"), CUDA_VISIBLE_DEVICES="")
-    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CELL],
-                            cwd=here, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+def start_dryrun(here: str) -> list:
+    """Phase 10 (c), started first: the dry run of each of DRYRUN_CELLS on
+    the 16x16 fake mesh, each in a process of its own (it needs its own
+    default process group) on the host CPU (meta tensors, no card)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    return [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                              "--shape", shape, "--out", DRYRUN_OUT], cwd=here, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for arch, shape in DRYRUN_CELLS]
 
 
-def finish_dryrun(proc: subprocess.Popen, here: str, card: str) -> None:
-    """Phase 10 (c): the dry run's per-GPU counts and its three terms under
-    the H100 constants, and the analytic memory against the card's 80 GB.
-    Estimates for a 256-GPU mesh, not measurements."""
-    from repro_torch.launch import roofline as R
-
-    try:
-        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
-    finally:
+def stop(procs: list) -> None:
+    for proc in procs:
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
-    lines = [ln for ln in out.splitlines() if ln.startswith("[dryrun]")]
-    if proc.returncode != 0:
-        raise AssertionError(f"dry run exited {proc.returncode}:\n{out[-3000:]}")
-    with open(os.path.join(here, "build", "dryrun", "yi_6b__train_4k__pod16x16.json")) as f:
-        row = json.load(f)
-    t, mem = row["roofline"], row["memory_analytic"]
-    for ln in lines:
-        log(ln)
-    log(f"[dryrun] yi-6b train_4k on 16x16 (256 GPUs; estimates, not measurements): per GPU "
-        f"{t['flops_per_chip']:.4e} FLOPs, {t['bytes_per_chip']:.4e} bytes (unfused: an "
-        f"over-count), {t['wire_bytes_per_chip']:.4e} wire bytes {t['wire_breakdown']} in "
-        f"{t['collective_ops']} collectives; compute {t['compute_s']:.4f}s (at "
-        f"{R.PEAK_FLOPS:.3g} FLOP/s), memory {t['memory_s']:.4f}s (at {R.HBM_BW:.3g} B/s), "
-        f"collective {t['collective_s']:.4f}s (at {R.LINK_BW:.3g} B/s, InfiniBand), dominant "
-        f"{t['dominant']}; useful FLOPs {t['useful_flops_ratio']:.3f}; analytic memory "
-        f"{mem['total'] / 1e9:.2f} GB of {H100_HBM_BYTES / 1e9:.0f} GB "
-        f"({ {k: round(v / 1e9, 3) for k, v in mem.items()} }); traced in "
-        f"{row['compile_seconds']:.1f}s on the host ({card})")
-    if mem["total"] > H100_HBM_BYTES:
-        raise AssertionError(f"yi-6b train_4k does not fit one H100: {mem['total']:.4e} B")
+
+
+def finish_dryrun(procs: list, here: str, card: str) -> None:
+    """Phase 10 (c): each cell's per-GPU counts and its three terms under
+    the H100 constants, and yi-6b's analytic memory against the card's 80
+    GB. Estimates for a 256-GPU mesh, not measurements."""
+    from repro_torch.launch import roofline as R
+
+    deadline = time.monotonic() + DRYRUN_TIMEOUT
+    try:
+        outs = [proc.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+                for proc in procs]
+    finally:
+        stop(procs)
+    for (arch, shape), proc, out in zip(DRYRUN_CELLS, procs, outs):
+        if proc.returncode != 0:
+            raise AssertionError(f"dry run of {arch} x {shape} exited {proc.returncode}:\n"
+                                 f"{out[-3000:]}")
+        name = f"{arch.replace('-', '_')}__{shape}__pod16x16.json"
+        with open(os.path.join(here, DRYRUN_OUT, name)) as f:
+            row = json.load(f)
+        t, mem = row["roofline"], row["memory_analytic"]
+        log(f"[dryrun] {arch} {shape} on 16x16 (256 GPUs; estimates, not measurements): per "
+            f"GPU {t['flops_per_chip']:.4e} FLOPs, {t['bytes_per_chip']:.4e} bytes (unfused: "
+            f"an over-count), {t['wire_bytes_per_chip']:.4e} wire bytes "
+            f"{ {k: float(f'{v:.4g}') for k, v in t['wire_breakdown'].items()} } in "
+            f"{t['collective_ops']} collectives; compute {t['compute_s']:.4f}s (at "
+            f"{R.PEAK_FLOPS:.3g} FLOP/s), memory {t['memory_s']:.4f}s (at {R.HBM_BW:.3g} B/s), "
+            f"collective {t['collective_s']:.4f}s (at {R.LINK_BW:.3g} B/s, InfiniBand), "
+            f"dominant {t['dominant']}; useful FLOPs {t['useful_flops_ratio']:.3f}; analytic "
+            f"memory {mem['total'] / 1e9:.2f} GB of {H100_HBM_BYTES / 1e9:.0f} GB; notes "
+            f"{row['notes'][2:]}; traced in {row['compile_seconds']:.1f}s on the host ({card})")
+        if arch == "yi-6b":
+            log(f"[dryrun] yi-6b train_4k flops_per_chip {t['flops_per_chip']:.4e}, useful "
+                f"FLOPs {t['useful_flops_ratio']:.3f}; PR 19 (heads replicated over 'model', "
+                f"torch 2.11 on this machine): 1.0969e15, 0.136")
+            if mem["total"] > H100_HBM_BYTES:
+                raise AssertionError(f"yi-6b train_4k does not fit one H100: {mem['total']:.4e} B")
 
 
 def parallel_layer(seed: int, kernels: dict, card: str, here: str) -> int:
@@ -2085,8 +2149,7 @@ def parallel_layer(seed: int, kernels: dict, card: str, here: str) -> int:
         flash = pipeline_yi(seed, kernels, card)
         nccl_world1(seed, card)
     except BaseException:
-        dry.kill()
-        dry.communicate()
+        stop(dry)
         raise
     finish_dryrun(dry, here, card)
     moved = {k: mod.launches - before[k] for k, mod in kernels.items()

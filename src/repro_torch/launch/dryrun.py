@@ -35,7 +35,10 @@ attention's KV blocks and hymba's SSD chunks are counted as they run. The
 one exception is the per-token time loop of mLSTM/sLSTM (xLSTM): over
 :data:`SSM_TRIPS_DIRECT` trips (``trip_counts``) the cell is counted at two
 short sequence lengths and extrapolated linearly in the length (xLSTM has
-no attention, so every cost of its step is linear in it).
+no attention, so every cost of its step is linear in it), or, where the
+shorter length counts more on some key (DTensor's propagation chose
+another layout there), in proportion to the longer count; the JSON's
+``notes`` say which.
 
 These are estimates of a step on a 256/512-GPU mesh, made on one host:
 not measurements.
@@ -283,10 +286,17 @@ def _measure_cfg(cfg: ModelConfig, shape: InputShape, mesh) -> Dict[str, Any]:
     raw = {f"seq{n}": count(*lower_cell(cfg, dataclasses.replace(shape, seq_len=n), mesh))
            for n in SSM_LENGTHS}
     (n1, m1), (n2, m2) = zip(SSM_LENGTHS, raw.values())
-    frac = (shape.seq_len - n1) / (n2 - n1)
-    total = {k: m1[k] + (m2[k] - m1[k]) * frac for k in m1}
+    if all(m2[k] >= m1[k] for k in m1):
+        frac = (shape.seq_len - n1) / (n2 - n1)
+        total = {k: m1[k] + (m2[k] - m1[k]) * frac for k in m1}
+        how = "linear in the length through the two counts"
+    else:  # DTensor's propagation laid the two lengths out differently
+        total = {k: m2[k] * shape.seq_len / n2 for k in m2}
+        how = (f"in proportion to the count at {n2} (the {n1}-token count is larger on "
+               f"some key: the two lengths were laid out differently)")
     total["collective_ops"] = round(total["collective_ops"])
-    return {"trips": trips, "raw": raw, "corrected": total}
+    return {"trips": trips, "raw": raw, "corrected": total,
+            "note": f"counted at {n1} and {n2} tokens and extrapolated {how}"}
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +422,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         result["trips"] = m["trips"]
         result["raw"] = m["raw"]  # per-length counts (xLSTM) or the one count
         result["roofline"] = terms
-        result["notes"] = [ESTIMATE_NOTE, BYTES_NOTE]
+        result["notes"] = [ESTIMATE_NOTE, BYTES_NOTE, *layout_notes(cfg, mesh),
+                           *([m["note"]] if "note" in m else [])]
         result["compile_seconds"] = time.time() - t0  # the trace's seconds (the reference's key)
         result["ok"] = True
         if verbose:
@@ -427,6 +438,32 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         if verbose:
             print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: FAIL {result['error']}")
     return result
+
+
+def layout_notes(cfg: ModelConfig, mesh) -> list:
+    """How attention and the experts are laid out over 'model' in this
+    cell (``sharding.per_head_shard``, the MoE rules' EP/TP fallback)."""
+    m = S.axis_sizes(mesh).get("model", 1)
+    notes = []
+    if any(k in ("dense", "moe", "hymba") for k in cfg.block_pattern):
+        H, KV = cfg.num_heads, cfg.num_kv_heads
+        if H % m == 0:
+            kv = "split with them" if KV == H else "replicated over 'model'"
+            notes.append(f"attention head-parallel: {H // m} of {H} query heads a rank over "
+                         f"'model'; K and V ({KV} heads) {kv}")
+        else:
+            notes.append(f"attention heads replicated over 'model' (explicit rule, "
+                         f"sharding.per_head_shard): {H} query heads do not divide its {m} "
+                         f"ranks, so each rank attends with every head")
+        if cfg.kv_block_axis:
+            notes.append(f"chunked cache attention: queries and the softmax state split over "
+                         f"'{cfg.kv_block_axis}' along the sequence, KV blocks read whole")
+    if cfg.num_experts:
+        E = cfg.num_experts
+        notes.append(f"experts split over 'model' (EP, {E // m} of {E} a rank)" if E % m == 0
+                     else f"expert FFN dims split over 'model' (TP): {E} experts do not "
+                          f"divide its {m} ranks")
+    return notes
 
 
 def _active_params(cfg: ModelConfig, p_struct) -> int:

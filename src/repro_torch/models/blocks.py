@@ -99,7 +99,7 @@ def _attention(x, p, cfg: ModelConfig, positions, cache):
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
         sliding_window=cfg.sliding_window, softcap=cfg.attn_softcap,
         positions=positions, cache=cache, impl=cfg.attention_impl,
-        chunk_kv=cfg.attn_chunk_kv)
+        chunk_kv=cfg.attn_chunk_kv, kv_block_axis=cfg.kv_block_axis)
 
 
 def _no_aux(x) -> torch.Tensor:

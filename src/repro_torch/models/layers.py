@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.parallel.sharding import per_batch_shard, replicate, view
+from repro_torch.parallel.sharding import per_batch_shard, per_head_shard, view
 
 # ---------------------------------------------------------------------------
 # norms
@@ -76,13 +76,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 
 
-@per_batch_shard
+@per_head_shard
 def _sdpa(q, k, v, mask, softcap: float = 0.0):
     """q:[B,S,H,hd] k,v:[B,T,KV,hd] mask broadcastable to [B,rep,KV,S,T].
     r-major GQA: query head h uses KV head h % KV. The logits come out of a
     working-dtype product and are cast to f32; the weights are cast back to
     v's dtype before the PV product, as in the reference. On DTensors it
-    runs on each rank's batch shard."""
+    runs on each rank's batch shard and heads (``sharding.per_head_shard``)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     rep = H // KV
@@ -142,16 +142,19 @@ def cache_attention(q, k, v, q_pos, k_pos, *, sliding_window: int = 0,
     return _sdpa(q, k, v, mask[:, None, None], softcap=softcap)
 
 
-@per_batch_shard
+@per_head_shard(seq_args=(0,))
 def chunked_cache_attention(q, k, v, q_pos, k_pos, *, sliding_window: int = 0,
                             softcap: float = 0.0, block_k: int = 1024):
     """Online-softmax attention over the cache in KV blocks of ``block_k``:
     an O(S * block_k) working set instead of O(S * T), forward only (the
     prefill path). The cache is padded to whole blocks with slots at
     position -1, and the running max starts at -1e30, as in the reference.
-    The reference's ``unroll`` (of its scan over the blocks) and its mesh
-    axes (``kv_block_axis``, ``batch_axes``) have no counterpart here; on
-    DTensors it runs on each rank's batch shard."""
+    The reference's ``unroll`` (of its scan over the blocks) has no
+    counterpart here. On DTensors it runs on each rank's batch shard and
+    heads; with ``kv_block_axis=`` a mesh axis name, the queries and the
+    running softmax state are split over that axis along the sequence and
+    each KV block is read whole, as the reference lays them out
+    (``sharding.per_head_shard``; no-op for plain tensors)."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -212,31 +215,41 @@ def cache_insert(cache: KVCache, k_new, v_new, positions) -> KVCache:
     """A new cache with S entries written at ring slots ``positions % T``
     (the old one is left as it was). When S >= T only the last T entries
     survive."""
-    B, S = positions.shape
-    T = cache.k.shape[1]
+    S, T = positions.shape[1], cache.k.shape[1]
     if S >= T:
         k_new, v_new, positions = k_new[:, -T:], v_new[:, -T:], positions[:, -T:]
+    return KVCache(*_ring_write(*cache, k_new, v_new, positions))
+
+
+@per_batch_shard
+def _ring_write(k, v, pos, k_new, v_new, positions):
+    """Copies of the ring k, v [B,T,KV,hd] and pos [B,T] with the entries
+    written at slots ``positions % T``; on DTensors on each rank's batch
+    shard (DTensor has no rule for the scatter, ``index_put``), the ring
+    whole on every rank of the other axes."""
+    B, T = k.shape[0], k.shape[1]
     slots = (positions % T).long()
     b_idx = torch.arange(B, device=positions.device)[:, None]
-    k, v, pos, k_new, v_new = replicate(*cache, k_new, v_new)  # no-op unless sharded
     k, v, pos = k.clone(), v.clone(), pos.clone()
     k[b_idx, slots] = k_new.to(k.dtype)
     v[b_idx, slots] = v_new.to(v.dtype)
     pos[b_idx, slots] = positions.to(pos.dtype)
-    return KVCache(k, v, pos)
+    return k, v, pos
 
 
 def attention_block(x, p: dict, *, num_heads: int, num_kv_heads: int, head_dim: int,
                     rope_theta: float, sliding_window: int = 0, softcap: float = 0.0,
                     positions: Optional[torch.Tensor] = None,
                     cache: Optional[KVCache] = None, impl: str = "ref",
-                    chunk_kv: int = 0) -> Tuple[torch.Tensor, Optional[KVCache]]:
+                    chunk_kv: int = 0,
+                    kv_block_axis: Optional[str] = None) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """x [B,S,D] -> (out [B,S,D], new cache or None). RoPE at ``positions``
     [B,S] (``arange(S)`` when None). Without a cache, causal
     self-attention; with one, the new keys (rotated at their absolute
     positions) and values go into the ring first, then the queries attend
     to the whole ring, in KV blocks of ``chunk_kv`` when
-    :func:`kv_chunks` says so."""
+    :func:`kv_chunks` says so (the queries split over the mesh axis
+    ``kv_block_axis`` names, when sharded)."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
@@ -251,7 +264,8 @@ def attention_block(x, p: dict, *, num_heads: int, num_kv_heads: int, head_dim: 
         if kv_chunks(S, new_cache.k.shape[1], chunk_kv) > 0:
             out = chunked_cache_attention(
                 q, new_cache.k, new_cache.v, positions, new_cache.pos,
-                sliding_window=sliding_window, softcap=softcap, block_k=chunk_kv)
+                sliding_window=sliding_window, softcap=softcap, block_k=chunk_kv,
+                kv_block_axis=kv_block_axis)
         else:
             out = cache_attention(q, new_cache.k, new_cache.v, positions, new_cache.pos,
                                   sliding_window=sliding_window, softcap=softcap)

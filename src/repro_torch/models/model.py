@@ -15,14 +15,13 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.parallel.sharding import per_batch_shard, replicate
+from repro_torch.parallel.sharding import per_batch_shard
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -91,16 +90,14 @@ def _stack(trees: list):
     return T.tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+@per_batch_shard(whole=("table",))
 def _lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens.long()]
 
 
 def _embed(params, tokens: torch.Tensor, extra_embeds=None) -> torch.Tensor:
-    table = params["embed"]
-    if isinstance(table, DTensor):  # gathered whole, looked up a batch shard a rank
-        x = per_batch_shard(_lookup)(tokens, replicate(table)[0])
-    else:
-        x = _lookup(tokens, table)
+    # a DTensor table is gathered whole and looked up on each batch shard
+    x = _lookup(tokens, params["embed"])
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     return x

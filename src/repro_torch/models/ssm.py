@@ -8,7 +8,10 @@ the chunked scan).
 The time scans are Python loops over torch ops where the reference has
 ``lax.scan``: one step per token for mLSTM and sLSTM, one per chunk for
 SSD. The reference's ``unroll`` (of its scans) and ``shard_axis`` (its
-mesh) have no counterpart here.
+mesh) have no counterpart here. On DTensors the projections stay DTensor
+products, the head reshapes go through ``sharding.view``, and each scan
+runs on each rank's batch shard (``sharding.per_batch_shard``), so a
+time step costs plain-tensor ops, no DTensor dispatch.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from __future__ import annotations
 import math
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.sharding import per_batch_shard, view
 
 # ---------------------------------------------------------------------------
 # mLSTM
@@ -26,6 +31,7 @@ def _f32(shape, device, fill: float = 0.0) -> torch.Tensor:
     return torch.full(shape, fill, dtype=torch.float32, device=device)
 
 
+@per_batch_shard
 def mlstm_scan(q, k, v, i_pre, f_pre, state=None):
     """Stabilized mLSTM recurrence over q, k, v [B,H,S,d] and the gate
     preactivations i_pre, f_pre [B,H,S]. Returns (h [B,H,S,d], final state
@@ -63,13 +69,13 @@ def mlstm_block(x, p: dict, *, num_heads: int, state=None):
     hd = D // num_heads
 
     def split(y):
-        return y.reshape(B, S, num_heads, hd).transpose(1, 2)
+        return view(y, B, S, num_heads, hd).transpose(1, 2)
 
     q, k, v = split(x @ p["wq"]), split(x @ p["wk"]), split(x @ p["wv"])
     i_pre = (x @ p["wi"]).transpose(1, 2)  # [B,H,S]
     f_pre = (x @ p["wf"]).transpose(1, 2)
     h, new_state = mlstm_scan(q, k, v, i_pre, f_pre, state)
-    h = h.transpose(1, 2).reshape(B, S, D)
+    h = view(h.transpose(1, 2), B, S, D)
     o = torch.sigmoid(x @ p["ogate"])
     return (o * h) @ p["wo"], new_state
 
@@ -86,24 +92,13 @@ def mlstm_init_state(batch: int, num_heads: int, head_dim: int, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def slstm_block(x, p: dict, *, num_heads: int, state=None):
-    """Stabilized sLSTM with block-diagonal (per-head) recurrence.
-
-    Params: wz/wi/wf/wo [D,D] input projections; rz/ri/rf/ro [H,hd,hd]
-    recurrent mixing; wout [D,D]. State: (c, n, h) [B,H,hd] and m [B,H].
-    The four recurrent products of a step are one batched product over
-    the four matrices side by side."""
-    B, S, D = x.shape
-    H = num_heads
-    hd = D // H
-    if state is None:
-        state = slstm_init_state(B, H, hd, x.device)
+@per_batch_shard(whole=("r",))
+def _slstm_scan(zx, ix, fx, ox, r, state):
+    """The sLSTM recurrence over the input preactivations [B,S,H,hd] and
+    the recurrent matrices r [H,hd,4hd] from ``state``; (h [B,S,H,hd] in
+    the inputs' dtype, the final state)."""
     c, n, h, m = state
-    zx = (x @ p["wz"]).reshape(B, S, H, hd)
-    ix = (x @ p["wi"]).reshape(B, S, H, hd)
-    fx = (x @ p["wf"]).reshape(B, S, H, hd)
-    ox = (x @ p["wo"]).reshape(B, S, H, hd)
-    r = torch.cat([p[k].float() for k in ("rz", "ri", "rf", "ro")], dim=-1)  # [H,hd,4hd]
+    hd = zx.shape[-1]
     hs = []
     for zt, it, ft, ot in zip(zx.float().unbind(1), ix.float().unbind(1),
                               fx.float().unbind(1), ox.float().unbind(1)):
@@ -120,8 +115,26 @@ def slstm_block(x, p: dict, *, num_heads: int, state=None):
         n = f_s * n + i_s
         h = o * c / torch.clamp(n, min=1.0)
         m = m_new
-        hs.append(h.to(x.dtype))
-    return torch.stack(hs, dim=1).reshape(B, S, D) @ p["wout"], (c, n, h, m)
+        hs.append(h.to(zx.dtype))
+    return torch.stack(hs, dim=1), (c, n, h, m)
+
+
+def slstm_block(x, p: dict, *, num_heads: int, state=None):
+    """Stabilized sLSTM with block-diagonal (per-head) recurrence.
+
+    Params: wz/wi/wf/wo [D,D] input projections; rz/ri/rf/ro [H,hd,hd]
+    recurrent mixing; wout [D,D]. State: (c, n, h) [B,H,hd] and m [B,H].
+    The four recurrent products of a step are one batched product over
+    the four matrices side by side."""
+    B, S, D = x.shape
+    H = num_heads
+    hd = D // H
+    if state is None:
+        state = slstm_init_state(B, H, hd, x.device)
+    zx, ix, fx, ox = (view(x @ p[k], B, S, H, hd) for k in ("wz", "wi", "wf", "wo"))
+    r = torch.cat([p[k].float() for k in ("rz", "ri", "rf", "ro")], dim=-1)  # [H,hd,4hd]
+    hs, new_state = _slstm_scan(zx, ix, fx, ox, r, state)
+    return view(hs, B, S, D) @ p["wout"], new_state
 
 
 def slstm_init_state(batch: int, num_heads: int, head_dim: int, device="cuda"):
@@ -134,6 +147,7 @@ def slstm_init_state(batch: int, num_heads: int, head_dim: int, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
+@per_batch_shard
 def ssd_chunked(x, b, c, log_a, *, chunk: int = 256, state=None):
     """y[t] = C[t] . h[t], h[t] = a[t] h[t-1] + B[t] (x) x[t], over x
     [B,S,H,P], b, c [B,S,H,N], log_a [B,S,H] (<= 0), from ``state``
@@ -178,6 +192,7 @@ def ssd_chunked(x, b, c, log_a, *, chunk: int = 256, state=None):
     return torch.cat(ys, dim=1)[:, :S], h
 
 
+@per_batch_shard
 def ssd_decode_step(x, b, c, log_a, state):
     """One-token recurrence. x [B,H,P]; b, c [B,H,N]; log_a [B,H]; state
     [B,H,P,N] f32."""
@@ -200,9 +215,9 @@ def mamba_block(x, p: dict, *, num_heads: int, ssm_state: int, chunk: int = 256,
     P = Di // H
     xin, z, bc, dt = (x @ p["win"]).split([Di, Di, 2 * H * N, H], dim=-1)
     bpart, cpart = bc.chunk(2, dim=-1)
-    xin = xin.reshape(B, S, H, P)
-    bpart = bpart.reshape(B, S, H, N)
-    cpart = cpart.reshape(B, S, H, N)
+    xin = view(xin, B, S, H, P)
+    bpart = view(bpart, B, S, H, N)
+    cpart = view(cpart, B, S, H, N)
     dt = F.softplus(dt.float())  # [B, S, H]
     log_a = -dt * torch.exp(p["a_log"].float())[None, None, :]
     xin_dt = xin.float() * dt[..., None]
@@ -214,7 +229,7 @@ def mamba_block(x, p: dict, *, num_heads: int, ssm_state: int, chunk: int = 256,
         y, new_state = ssd_chunked(xin_dt.to(x.dtype), bpart, cpart, log_a,
                                    chunk=min(chunk, S), state=state)
     y = y + xin.float() * p["d_skip"].float()[None, None, :, None]
-    y = y.reshape(B, S, Di).to(x.dtype) * F.silu(z)
+    y = view(y, B, S, Di).to(x.dtype) * F.silu(z)
     return y @ p["wout"], new_state
 
 

@@ -29,35 +29,60 @@ The sharded train step (``training/train_loop.make_train_step(..., mesh)``)
 runs ``loss_fn`` and AdamW on DTensors under DTensor's
 ``implicit_replication``, which treats the plain tensors a layer makes for
 itself (RoPE positions and frequencies, the causal mask, the aux-loss
-zero, the optimizer's step and learning rate) as replicated. Where DTensor
-has no rule for an op, its input is redistributed explicitly (a no-op for
-plain tensors):
+zero, the optimizer's step and learning rate) as replicated. The
+projections and the expert products are DTensor products; what DTensor
+has no rule for, or would run once on every rank of an axis, runs on
+local tensors under an explicit layout (each a no-op for plain tensors):
 
-* the head reshapes of ``models/layers.py`` (``project_qkv``'s split into
-  heads, ``attention_block``'s merge of them) go through :func:`view`,
-  which replicates a sharded dim that a reshape cannot split evenly over
-  its mesh axis;
-* ``_sdpa`` and ``chunked_cache_attention`` run on each rank's batch
-  shard (:func:`per_batch_shard`): their einsums flatten the batch with
-  the head dims, which DTensor refuses where a head dim is sharded (torch
-  2.11, forward and backward: "Attempted to flatten multiple dimensions,
-  with dimension 1 being sharded"), so attention runs data-parallel, its
-  heads replicated over 'model';
+* the head reshapes (``project_qkv``'s split into heads, the merge after
+  attention, the mLSTM, sLSTM and Mamba head splits) go through
+  :func:`view`, which replicates a sharded dim that a reshape cannot split
+  evenly over its mesh axis (Yi-6B's 4 KV heads over a 'model' axis of 16;
+  xLSTM's 4 heads);
+* attention (``_sdpa``, ``chunked_cache_attention``) is head-parallel
+  (:func:`per_head_shard`): each rank attends with its batch shard and its
+  own query heads, split over 'model' as ``wq``'s columns are; K and V
+  are replicated over 'model' (unless KV == H) and each rank takes the KV
+  heads its query heads read (r-major GQA, h % KV). The explicit head
+  rule: where H does not divide 'model' (llama4-maverick's 40 heads over
+  16), the heads are not split and every rank of 'model' attends with
+  all of them (over the batch split 'model' may already carry), and the
+  dry run's JSON ``notes`` say so. ``kv_block_axis`` splits the queries
+  and the softmax state of ``chunked_cache_attention`` over that axis
+  along the sequence instead, as the reference does. Local einsums also
+  keep clear of torch 2.11's refusal to flatten a batch with a sharded
+  head dim ("Attempted to flatten multiple dimensions, with dimension 1
+  being sharded");
+* MoE routing and dispatch (``models/moe.py``) run on each rank's tokens
+  (:class:`Rows`): the claim positions are offset by the other ranks'
+  claims (an all-gather of E integers a group), the expert buffers are a
+  Partial sum of each rank's claims, and each rank reads its claims'
+  outputs from the replicated result; ``bincount`` (no DTensor rule, no
+  meta kernel) is a ``scatter_add``;
+* the mLSTM, sLSTM and SSD time loops run on each rank's batch shard
+  (:func:`per_batch_shard`), so a time step costs plain-tensor ops;
 * ``model._embed`` gathers a DTensor table whole (FSDP's all-gather; its
   gradient reduce-scattered back) and looks the tokens up on each batch
   shard: torch 2.11 has no rule for the indexing gather's backward, and
   2.13's embedding rule leaves a vocab-sharded table's output in a partial
   state it cannot reduce-scatter;
-* ``cache_insert`` (the KV ring's scatter, ``index_put``, which DTensor
-  cannot run on a sharded cache) replicates the cache and the new entries
-  first (:func:`replicate`): a sharded cache is gathered on each insert;
+* ``cache_insert`` (the KV ring's scatter, ``index_put``, for which torch
+  2.11 has no DTensor rule at all) writes each rank's batch shard of the
+  ring (:func:`per_batch_shard`): a ring split over 'model' along time is
+  gathered there on each insert;
 * ``training/optimizer._slices`` takes a DTensor leaf whole (a split along
   a sharded leading dim would gather it).
+
+A rank's batch shard is split over each batch axis ('pod', 'data') the
+batch divides, whatever split DTensor's propagation gave the tensor there
+(and over another axis it already comes split over), so the layout does
+not change with the shapes.
 """
 
 from __future__ import annotations
 
 import functools
+import inspect
 import math
 import re
 from typing import Any, Dict
@@ -314,47 +339,232 @@ def view(x, *shape):
     return x.reshape(shape)
 
 
-def per_batch_shard(fn):
-    """``fn`` run on each rank's batch shard where its arguments are
-    DTensors. The first DTensor argument's batch (dim 0) sets the layout:
-    every tensor argument of that batch is brought to its batch sharding
-    alone (other placements replicated, Partial sums reduced; a plain one
-    is taken as replicated and sliced), every other DTensor argument is
-    replicated whole (its gradient then a Partial sum over the batch's mesh
-    axes); ``fn`` runs on the local tensors, and its output is the DTensor
-    of those shards. Plain arguments alone call ``fn`` as it is."""
+def _row_dims(x: DTensor, skip: tuple = ()) -> list:
+    """The mesh dims, in mesh order, over which ``x``'s rows (its dim 0)
+    are split for code that runs on each rank's rows: each batch axis
+    ('pod', 'data') whose split the rows divide, and each other axis
+    (not in ``skip``) over which ``x`` comes split already. The batch
+    axes are taken whatever split DTensor's propagation gave ``x``, so
+    the layout does not change with the shapes."""
+    dims, n = [], 1
+    for i, (name, p) in enumerate(zip(x.device_mesh.mesh_dim_names, x.placements)):
+        m = x.device_mesh.size(i)
+        if (name in ("pod", "data") or (p == Shard(0) and name not in skip)) \
+                and x.shape[0] % (n * m) == 0:
+            dims.append(i)
+            n *= m
+    return dims
+
+
+class Rows:
+    """The split of a tensor's rows (its dim 0: a batch, or tokens) over
+    its mesh, for code that runs on each rank's rows. A rank's rows are
+    the chunk of the row order at :attr:`index` of :attr:`n` (its
+    coordinates over the row dims, in mesh order). For a plain tensor one
+    rank holds every row and each method is the identity.
+
+    * :meth:`local`: a tensor of these rows (a DTensor, or a plain tensor
+      taken as replicated) as this rank's rows, other placements
+      replicated and Partial sums reduced; its gradient flows back;
+    * :meth:`wrap`: the DTensor whose rows are each rank's local rows;
+    * :meth:`whole`: a DTensor replicated and taken local, its gradient
+      a Partial sum over the row dims (each rank's rows add their part);
+    * :meth:`sum`: the DTensor that is the sum of every rank's local
+      tensor, Partial over the row dims (its gradient the whole one);
+    * :meth:`before`: of an integer tensor each rank holds, the sum of the
+      ranks' before this one in row order (an all-gather over the row
+      dims)."""
+
+    def __init__(self, x):
+        self.mesh = x.device_mesh if isinstance(x, DTensor) else None
+        self.n, self.index = 1, 0
+        if self.mesh is None:
+            return
+        dims = _row_dims(x)
+        self.rows = tuple(Shard(0) if i in dims else Replicate() for i in range(self.mesh.ndim))
+        self.whole_pl = (Replicate(),) * self.mesh.ndim
+        self.partial = tuple(Partial() if i in dims else Replicate()
+                             for i in range(self.mesh.ndim))
+        coord = self.mesh.get_coordinate()
+        for i in dims:
+            m = self.mesh.size(i)
+            self.n, self.index = self.n * m, self.index * m + coord[i]
+
+    def local(self, x):
+        if self.mesh is None or not isinstance(x, torch.Tensor) or x.dim() == 0:
+            return x
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, self.mesh, self.whole_pl, run_check=False)
+        return x.redistribute(self.mesh, self.rows).to_local()
+
+    def wrap(self, x):
+        if self.mesh is None or not isinstance(x, torch.Tensor) or x.dim() == 0:
+            return x
+        return DTensor.from_local(x, self.mesh, self.rows, run_check=False)
+
+    def whole(self, x):
+        if self.mesh is None or not isinstance(x, DTensor):
+            return x
+        return x.redistribute(self.mesh, self.whole_pl).to_local(grad_placements=self.partial)
+
+    def sum(self, x):
+        if self.mesh is None:
+            return x
+        return _SumShards.apply(x, self.mesh, self.partial)
+
+    def before(self, x):
+        if self.mesh is None:
+            return torch.zeros_like(x)
+        stacked = DTensor.from_local(x[None], self.mesh, self.rows, run_check=False)
+        return stacked.full_tensor()[:self.index].sum(0)
+
+
+class _SumShards(torch.autograd.Function):
+    """Each rank's local tensor as one term of a Partial sum; the gradient
+    of each term is the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, partial):
+        ctx.mesh = mesh
+        return DTensor.from_local(x, mesh, partial, run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, [Replicate()] * ctx.mesh.ndim).to_local(), None, None
+
+
+def per_batch_shard(fn=None, *, whole: tuple = ()):
+    """``fn`` run on each rank's batch shard where its arguments hold
+    DTensors. The first DTensor among the tensors of the arguments (trees
+    of them included) sets the layout: its batch (dim 0) is split over the
+    batch axes it divides and any other axis it comes split over
+    (:class:`Rows`). Each tensor argument of that batch is brought
+    to its batch shard alone (a plain one is taken as replicated and
+    sliced); the arguments named in ``whole`` are replicated whole (their
+    gradients then Partial sums over the batch's mesh dims); others, and
+    0-dim tensors, pass as they are. ``fn`` runs on the local tensors, and
+    each tensor of its output with a batch dim becomes the DTensor of
+    those shards. Plain arguments alone call ``fn`` as it is."""
+    if fn is None:
+        return functools.partial(per_batch_shard, whole=whole)
+    sig = inspect.signature(fn)
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
-        lead = next((a for a in args if isinstance(a, DTensor)), None)
+        if not any(isinstance(a, DTensor) for a in T.tree_leaves([args, kwargs])):
+            return fn(*args, **kwargs)  # plain tensors: no binding on the hot path
+        bound = sig.bind(*args, **kwargs)
+        leaves = T.tree_leaves([v for k, v in bound.arguments.items() if k not in whole])
+        lead = next((a for a in leaves if isinstance(a, DTensor)), None)
         if lead is None:
             return fn(*args, **kwargs)
-        mesh, batch = lead.device_mesh, lead.shape[0]
-        target = [p if p == Shard(0) else Replicate() for p in lead.placements]
-        whole = [Replicate()] * mesh.ndim
-        partial = [Partial() if p == Shard(0) else Replicate() for p in target]
+        rows, batch = Rows(lead), lead.shape[0]
 
         def local(x):
-            if not isinstance(x, torch.Tensor) or x.dim() == 0:
-                return x
-            if x.shape[0] == batch:
-                if not isinstance(x, DTensor):
-                    if batch == 1:
-                        return x
-                    x = DTensor.from_local(x, mesh, whole, run_check=False)
-                return x.redistribute(mesh, target).to_local()
-            if isinstance(x, DTensor):
-                return x.redistribute(mesh, whole).to_local(grad_placements=partial)
+            if isinstance(x, torch.Tensor) and x.dim() > 0 and x.shape[0] == batch:
+                return x if batch == 1 and not isinstance(x, DTensor) else rows.local(x)
             return x
 
-        out = fn(*map(local, args), **kwargs)
-        return DTensor.from_local(out, mesh, target, run_check=False)
+        for k, v in bound.arguments.items():
+            bound.arguments[k] = (T.tree_map(rows.whole, v) if k in whole
+                                  else T.tree_map(local, v))
+        return T.tree_map(rows.wrap, fn(*bound.args, **bound.kwargs))
 
     return wrapped
 
 
-def replicate(*xs):
-    """Each DTensor of ``xs`` replicated on every mesh axis (Partial sums
-    reduced); plain tensors as they are."""
-    return tuple(x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
-                 if isinstance(x, DTensor) else x for x in xs)
+def per_head_shard(fn=None, *, seq_args: tuple = ()):
+    """Attention ``fn(q, k, v, *rest, **kw)`` (q [B,S,H,hd], k, v
+    [B,T,KV,hd], r-major GQA: head h reads KV head h % KV) run on each
+    rank's batch shard and its own heads where q is a DTensor:
+
+    * q goes split by batch (Shard(0)) over 'pod' and 'data' where the
+      batch divides them (and over any other axis but 'model' it comes
+      split over), and by heads (Shard(2)) over 'model', as
+      the columns of ``wq`` are; where H does not divide 'model' (e.g.
+      llama4-maverick's 40 heads over 16) the heads stay whole, and q
+      keeps its split over 'model' if it came batch-split there, else is
+      replicated over it;
+    * with ``kv_block_axis=`` a mesh axis name, the queries go split over
+      that axis along the sequence (Shard(1); ``seq_args`` names the
+      positional arguments of ``rest``, e.g. the query positions, whose
+      dim 1 is that sequence) and K, V are replicated over it, as the
+      reference's ``chunked_cache_attention`` lays them out;
+    * k and v take q's split of the heads where KV == H; otherwise they
+      are replicated over the head dims, and each rank takes the KV heads
+      its query heads read: KV of them in rotated order (h0 + i) % KV when
+      its H_loc heads are a multiple of KV, else one a head;
+    * the other tensors of the batch are brought to the batch shard (their
+      dim 1 split with the queries' for ``seq_args``).
+
+    The output [B,S,H,hd] has q's layout. Plain tensors alone call ``fn``
+    as it is."""
+    if fn is None:
+        return functools.partial(per_head_shard, seq_args=seq_args)
+
+    @functools.wraps(fn)
+    def wrapped(q, k, v, *rest, kv_block_axis=None, **kw):
+        lead = next((a for a in (q, k, v, *rest) if isinstance(a, DTensor)), None)
+        if lead is None:
+            return fn(q, k, v, *rest, **kw)
+        mesh = lead.device_mesh
+        B, S, H, _ = q.shape
+        KV = k.shape[2]
+        rep = [Replicate()] * mesh.ndim
+        if not isinstance(q, DTensor):
+            q = DTensor.from_local(q, mesh, rep, run_check=False)
+        names, n_head = mesh.mesh_dim_names, 1
+        batch = _row_dims(q, skip=("model",))
+        qt, kt, kg, st = [], [], [], []
+        for i, p in enumerate(q.placements):
+            m = mesh.size(i)
+            if i in batch:
+                qt.append(Shard(0)), kt.append(Shard(0)), kg.append(Shard(0))
+                st.append(Shard(0))
+            elif names[i] == kv_block_axis and S % m == 0:
+                qt.append(Shard(1)), kt.append(Replicate()), kg.append(Partial())
+                st.append(Shard(1))
+            elif names[i] == "model" and H % (n_head * m) == 0:
+                n_head *= m
+                qt.append(Shard(2)), st.append(Replicate())
+                kt.append(Shard(2) if KV == H else Replicate())
+                kg.append(Shard(2) if KV == H else Partial())
+            elif p == Shard(0) and B % (math.prod(mesh.size(j) for j in batch) * m) == 0:
+                # heads that do not divide 'model': a batch split there kept
+                batch.append(i)
+                qt.append(p), kt.append(p), kg.append(p), st.append(p)
+            else:
+                qt.append(Replicate()), kt.append(Replicate()), kg.append(Replicate())
+                st.append(Replicate())
+        heads = [i for i, p in enumerate(qt) if p == Shard(2)]
+        coord, h_index, n_heads = mesh.get_coordinate(), 0, 1
+        for i in heads:
+            n_heads, h_index = n_heads * mesh.size(i), h_index * mesh.size(i) + coord[i]
+        h_loc = H // n_heads
+        h0 = h_index * h_loc
+
+        def kv_local(x):
+            if not isinstance(x, DTensor):
+                x = DTensor.from_local(x, mesh, rep, run_check=False)
+            x = x.redistribute(mesh, kt).to_local(grad_placements=kg)
+            if KV == H or not heads:
+                return x
+            kv_loc = KV if h_loc % KV == 0 else h_loc
+            if kv_loc == KV and h0 % KV == 0:
+                return x
+            idx = (h0 + torch.arange(kv_loc, device=x.device)) % KV
+            return x.index_select(2, idx)
+
+        def rest_local(j, x):
+            if not isinstance(x, torch.Tensor) or x.dim() == 0 or x.shape[0] != B:
+                return x
+            if not isinstance(x, DTensor):
+                x = DTensor.from_local(x, mesh, rep, run_check=False)
+            pl = st if j in seq_args else [p if p == Shard(0) else Replicate() for p in st]
+            return x.redistribute(mesh, pl).to_local()
+
+        out = fn(q.redistribute(mesh, qt).to_local(), kv_local(k), kv_local(v),
+                 *(rest_local(j, x) for j, x in enumerate(rest)), **kw)
+        return DTensor.from_local(out, mesh, qt, run_check=False)
+
+    return wrapped

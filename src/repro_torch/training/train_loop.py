@@ -18,7 +18,8 @@ param_shardings``) and the batch sharded by ``batch_specs_for``, the same
 step runs on every rank of the mesh. DTensor's sharding propagation plays
 GSPMD's part; the step runs under ``implicit_replication``, so the plain
 tensors a layer or the optimizer makes (positions, masks, the step and
-the learning rate) count as replicated. The ``mesh`` argument is inert,
+the learning rate) count as replicated, and each gradient is brought to
+its param's layout before the update. The ``mesh`` argument is inert,
 as in the reference, where jit follows the shardings of the params it is
 given.
 """
@@ -29,12 +30,24 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.training import optimizer as O
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its param's layout (Partial sums reduced and
+    scattered, as GSPMD gives a gradient its param's sharding); the
+    optimizer then combines moments, gradients and params shard by shard
+    (torch 2.11 cannot take a Shard moment to a Partial gradient's
+    layout). Plain gradients as they are."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig, mesh=None) -> Callable:
@@ -49,7 +62,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig, mesh=None) -> Callab
         # the params themselves never require grad
         live = [p.detach().requires_grad_(True) for p in O.tree_leaves(params)]
         loss, metrics = M.loss_fn(O.tree_unflatten(params, iter(live)), batch, cfg)
-        grads = torch.autograd.grad(loss, live)
+        grads = [_like(g, p) for g, p in zip(torch.autograd.grad(loss, live), live)]
         del loss, live
         metrics = {k: v.detach() for k, v in metrics.items()}
         params, opt_state, opt_m = O.apply_updates(

@@ -16,6 +16,7 @@ import os
 import pathlib
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import pytest
@@ -189,3 +190,39 @@ def test_smoke_dry_run_on_a_fake_mesh_writes_the_reference_json(tmp_path):
         rows = report.load(str(tmp_path))
         assert "| yi-6b | train_4k | ok |" in report.table(rows, "mesh2x4")
         assert report.summarize(rows, "mesh2x4").startswith("1 compiled")
+
+
+DRY_CELLS = [(a, "train_4k") for a in ARCHS] + [
+    (a, "decode_32k") for a in ("granite_moe", "llama4_maverick", "xlstm_125m")]
+
+
+@pytest.fixture(scope="module")
+def family_dry_runs(tmp_path_factory):
+    """Each of DRY_CELLS dry-run by the CLI on the smoke config over a 2x4
+    fake mesh, a process a cell (a process has one default group), the
+    processes side by side; {cell: (its stdout, its JSON row or None)}."""
+    out = tmp_path_factory.mktemp("dry")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+
+    def run(cell):
+        arch, shape = cell
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch.replace("_", "-"),
+             "--shape", shape, "--smoke", "--mesh", "2x4", "--out", str(out)],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+        path = out / f"{arch}__{shape}__mesh2x4.json"
+        row = json.loads(path.read_text()) if path.exists() else None
+        return proc.returncode, proc.stdout + proc.stderr[-3000:], row
+
+    with ThreadPoolExecutor(4) as pool:
+        return dict(zip(DRY_CELLS, pool.map(run, DRY_CELLS)))
+
+
+@pytest.mark.parametrize("arch,shape", DRY_CELLS)
+def test_every_family_dry_runs_on_a_fake_mesh(family_dry_runs, arch, shape):
+    rc, log, row = family_dry_runs[(arch, shape)]
+    assert rc == 0 and row is not None, log
+    assert row["ok"] and not row.get("skipped"), row.get("traceback")
+    assert _REF_KEYS <= set(row) and set(row["roofline"]) == _ROOFLINE_KEYS
+    assert row["roofline"]["flops_per_chip"] > 0
+    assert "[dryrun] done: 1/1 cells OK" in log
