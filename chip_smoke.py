@@ -104,6 +104,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    constants (estimates for a 256-GPU mesh), yi's FLOPs a GPU beside PR
    19's, and yi's analytic memory against 80 GB. Only the flash kernel
    may launch here: the pipeline's launches and ``apply``'s.
+11. the examples (``examples/torch_*.py``, each ``main()`` in-process as it
+   stands, with its own assertions): the four serve examples (glm4-9b
+   smoke in float32 through ``Fabric``: quickstart, batched with
+   preemption, multi-tenant, and replicated with a live resize, cadence
+   checkpoints under ``build/``, a crash and ``Fabric.restore``), each a
+   counted run on the card whose paged and flash launches are held to its
+   forward calls (device admission is off, so the ring may not run), each
+   kernel call held to the plain version on its own inputs (atol = rtol =
+   2e-5 in float32), and each example run again on the CPU (plain
+   versions): every drain token-identical, in the same completion order;
+   then the data-pipeline demo, and ``torch_train_lm.py`` at the
+   reference's CI scale (20 steps of 4 x 64 at a quarter of xlstm-125m's
+   width; the loss falls) and at full published width (4 steps of 8 x 64;
+   finite losses). No kernel may launch in the last two.
+
+Each phase's wall is printed on a line of its own (``[wall]``), and all of
+them on one line after phase 11.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``kernels`` JSON line (five rows: the five ``pallas_call`` sites, the
@@ -119,6 +136,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1022,10 +1040,11 @@ class ForwardCounts:
     def __exit__(self, *exc):
         self.engine.paged_forward = self.real
 
-    def check(self, what: str, launches: dict) -> None:
+    def check(self, what: str, launches: dict, ring: bool = True) -> None:
         """The paged and flash launches of this run against its forward
         calls: launches_per_call(pps, page) x layers a paged call, one
-        flash launch a layer a prompt."""
+        flash launch a layer a prompt; with ``ring``, the admission ring
+        ran, else it did not (device admission off)."""
         per_call = self.kernels["paged_attention"].launches_per_call
         want_paged = sum(per_call(pps, page) * layers
                          for kind, pps, page, layers in self.calls if kind == "paged")
@@ -1038,16 +1057,19 @@ class ForwardCounts:
                                  f"{launches['flash_attention']} != {want_paged}/"
                                  f"{want_flash} from {n_paged} paged and "
                                  f"{len(self.calls) - n_paged} flash forward calls")
-        if launches["cmp_ring"] < 1:
-            raise AssertionError(f"{what}: the admission ring kernel never ran")
+        if (launches["cmp_ring"] >= 1) != ring:
+            raise AssertionError(f"{what}: the admission ring kernel ran "
+                                 f"{launches['cmp_ring']} times (device admission "
+                                 f"{'on' if ring else 'off'})")
         log(f"[driver] {what}: launches {launches} = {n_paged} paged forward calls x "
             f"launches_per_call x layers and {len(self.calls) - n_paged} flash prompts "
             f"x layers")
 
 
-def counted_run(what: str, kernels: dict, run):
+def counted_run(what: str, kernels: dict, run, ring: bool = True):
     """``run()`` with the kernels' counts set to 0 just before it and read
-    just after, held to its forward calls; returns (its result, launches)."""
+    just after, held to its forward calls (``ring`` as in
+    :meth:`ForwardCounts.check`); returns (its result, launches)."""
     torch.cuda.synchronize()
     for mod in kernels.values():
         mod.launches = 0
@@ -1055,7 +1077,7 @@ def counted_run(what: str, kernels: dict, run):
         out = run()
     torch.cuda.synchronize()
     launches = {name: mod.launches for name, mod in kernels.items()}
-    counts.check(what, launches)
+    counts.check(what, launches, ring)
     return out, launches
 
 
@@ -2161,6 +2183,221 @@ def parallel_layer(seed: int, kernels: dict, card: str, here: str) -> int:
     return flash
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the examples
+# ---------------------------------------------------------------------------
+
+SERVE_EXAMPLES = ("torch_quickstart", "torch_serve_batched", "torch_serve_multitenant",
+                  "torch_serve_replicated")
+TOL_F32 = 2e-5                 # atol = rtol in float32: sums in another order
+# the reference's documented CI scale (its loss falls), then the full
+# published width at the example's batch of 8 for a few steps at 64 tokens
+# (its Python time loops take ≈1.3 s a step there at batch 2)
+TRAIN_LM_RUNS = (["--steps", "20", "--scale", "0.25", "--batch", "4", "--seq", "64"],
+                 ["--steps", "4", "--scale", "1.0", "--seq", "64"])
+
+
+def load_example(here: str, name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  os.path.join(here, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class KernelCalls:
+    """Keeps the inputs (copied: the pages change after the call) and the
+    output of each paged and flash call the serving path makes through
+    ``repro_torch.kernels.ops`` while in use, to be held to the kernels'
+    plain versions afterwards (no launch of its own)."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.real = ops, (ops.paged_attention, ops.flash_attention)
+        self.calls = []  # (kernel, args, kwargs, output)
+
+    def __enter__(self):
+        real_pa, real_fa = self.real
+
+        def keep(name, real):
+            def call(*args, **kw):
+                kept = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+                out = real(*args, **kw)
+                self.calls.append((name, kept, kw, out.clone()))
+                return out
+            return call
+
+        self.ops.paged_attention = keep("paged_attention", real_pa)
+        self.ops.flash_attention = keep("flash_attention", real_fa)
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.paged_attention, self.ops.flash_attention = self.real
+
+    def hold(self, what: str, paged, flash) -> dict:
+        """Each kept call against its kernel's plain version on its own
+        inputs (atol = rtol = 2e-5 in float32, 2e-2 in bfloat16); the
+        largest error and the shapes seen, a kernel."""
+        errs, shapes = {"paged_attention": 0.0, "flash_attention": 0.0}, {}
+        with torch.no_grad():
+            for name, args, kw, out in self.calls:
+                if name == "paged_attention":
+                    want = paged.plain(*args, **kw)
+                else:
+                    q, k, v = (t.transpose(1, 2) for t in args)
+                    want = flash.plain(q, k, v, **kw).transpose(1, 2)
+                tol = TOL_F32 if out.dtype == torch.float32 else TOL_BF16
+                err = max_err(out, want)
+                if not torch.allclose(out.float(), want.float(), atol=tol, rtol=tol):
+                    raise AssertionError(f"{what}: {name} at q {tuple(args[0].shape)} "
+                                         f"disagrees with its plain version (max abs err {err})")
+                errs[name] = max(errs[name], err)
+                shapes.setdefault(name, set()).add(tuple(args[0].shape))
+        return errs, shapes
+
+
+def _drains(fabric_cls, log_to: list):
+    """``fabric_cls.drain`` recording each drain's (uid, qclass, output)
+    in completion order; returns the real one."""
+    real = fabric_cls.drain
+
+    def recorded(self, *a, **kw):
+        done = real(self, *a, **kw)
+        log_to.append([(u, r.qclass, list(r.output)) for u, r in done.items()])
+        return done
+
+    fabric_cls.drain = recorded
+    return real
+
+
+def serve_example(here: str, name: str, kernels: dict, card: str) -> tuple:
+    """One serve example's ``main()`` on the card as it stands (its own
+    assertions), counted, each kernel call held to the plain version; then
+    the same on the CPU (plain versions) from the same weights (drawn on
+    the CPU for both): every drain token-identical and in the same
+    completion order. Returns (launches, errors a kernel)."""
+    from repro_torch.fabric import Fabric
+    from repro_torch.fabric import session
+    from repro_torch.kernels import flash_attention, paged_attention
+
+    mod = load_example(here, name)
+    runs, real, real_state = {}, Fabric.drain, session.Fabric._model_state
+
+    def cpu_seeded(config, model_cfg, params, device):
+        # the same weights on both devices: the card's generator would draw others
+        if params is None:
+            model_cfg, params = real_state(config, model_cfg, None, "cpu")
+            params = _to_device(params, device)
+        return real_state(config, model_cfg, params, device)
+
+    session.Fabric._model_state = staticmethod(cpu_seeded)
+    try:
+        for device in ("cuda", "cpu"):
+            argv = ["--device", device]
+            if name == "torch_serve_replicated":
+                ck = os.path.join(here, "build", "phase11_ckpt", device)
+                shutil.rmtree(ck, ignore_errors=True)
+                argv += ["--ckpt-dir", ck]
+            runs[device] = []
+            _drains(Fabric, runs[device])
+            t0 = time.perf_counter()
+            if device == "cuda":
+                with KernelCalls() as calls:
+                    _, launches = counted_run(f"examples/{name}.py", kernels,
+                                              lambda: mod.main(argv), ring=False)
+            else:
+                mod.main(argv)
+            Fabric.drain = real
+            log(f"[examples] {name}.py --device {device}: {time.perf_counter() - t0:.2f}s")
+    finally:
+        Fabric.drain = real
+        session.Fabric._model_state = staticmethod(real_state)
+    if runs["cuda"] != runs["cpu"] or not runs["cuda"]:
+        raise AssertionError(f"examples/{name}.py: the card's drains {runs['cuda']} differ "
+                             f"from the CPU's {runs['cpu']}")
+    errs, shapes = calls.hold(f"examples/{name}.py", paged_attention, flash_attention)
+    if launches["cmp_claim"]:
+        raise AssertionError(f"examples/{name}.py: the claim kernel ran off its path")
+    served = sum(len(d) for d in runs["cuda"])
+    log(f"[examples] {name}.py: {served} requests drained, card token-identical to the CPU "
+        f"in the same order; launches {launches}; each of its {len(calls.calls)} kernel calls "
+        f"held to the plain version on its inputs: max_abs_err {errs} (q shapes "
+        f"{ {k: sorted(v) for k, v in shapes.items()} }; {card})")
+    return launches, errs
+
+
+def train_lm(here: str, card: str, flags: list) -> list:
+    """``examples/torch_train_lm.py`` on the card at ``flags``, from a
+    fresh checkpoint directory; its losses (all finite) and step seconds."""
+    mod = load_example(here, "torch_train_lm")
+    ck = os.path.join(here, "build", "phase11_train_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    runs, real = [], mod.Trainer
+
+    class Kept(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            runs.append(self)
+
+    mod.Trainer = Kept
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.main(flags + ["--device", "cuda", "--ckpt-dir", ck])
+    wall = time.perf_counter() - t0
+    (tr,) = runs
+    losses = tr.history
+    if len(losses) != int(flags[1]) or not all(np.isfinite(losses)):
+        raise AssertionError(f"examples/torch_train_lm.py {' '.join(flags)}: losses {losses}")
+    times = tr.step_times
+    log(f"[examples] torch_train_lm.py {' '.join(flags)}: {tr.cfg.name} d_model "
+        f"{tr.cfg.d_model} x {tr.cfg.num_layers} layers, {tr.cfg.dtype}; losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; step s {times[0]:.3f} first, "
+        f"{np.median(times[1:] or times):.3f} median after; wall {wall:.2f}s; stragglers "
+        f"{tr.stragglers} ({card})")
+    return losses
+
+
+def examples(here: str, kernels: dict, card: str) -> dict:
+    """Phase 11: the port's six examples on the card. Returns the serving
+    kernels' launches of the serve examples (each its own counted run) and
+    the largest error of their kernel calls; the pipeline demo and
+    ``torch_train_lm.py`` may launch no kernel."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(kernels, 0)
+    errs = {"paged_attention": 0.0, "flash_attention": 0.0}
+    for name in SERVE_EXAMPLES:
+        launches, err = serve_example(here, name, kernels, card)
+        for k, n in launches.items():
+            total[k] += n
+        for k, e in err.items():
+            errs[k] = max(errs[k], e)
+    if not (total["paged_attention"] and total["flash_attention"]):
+        raise AssertionError(f"phase 11: a serving kernel never launched ({total})")
+    before = {name: mod.launches for name, mod in kernels.items()}
+    t1 = time.perf_counter()
+    load_example(here, "torch_data_pipeline_demo").main(["--device", "cuda"])
+    log(f"[examples] torch_data_pipeline_demo.py --device cuda: "
+        f"{time.perf_counter() - t1:.2f}s")
+    from repro_torch.configs import get_config
+
+    ci = train_lm(here, card, TRAIN_LM_RUNS[0])
+    check_falls(ci, get_config("xlstm-125m").vocab_size)
+    train_lm(here, card, TRAIN_LM_RUNS[1])
+    after = {name: mod.launches for name, mod in kernels.items()}
+    if after != before:
+        raise AssertionError(f"a serving kernel launched in the pipeline demo or in "
+                             f"torch_train_lm.py ({before} -> {after})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[examples] serving kernels' launches in phase 11: {total}; phase 11 took "
+        f"{time.perf_counter() - t0:.1f}s ({card})")
+    return {"launches": total, "errs": errs}
+
+
 def _self_device_us(evt) -> float:
     return getattr(evt, "self_device_time_total",
                    getattr(evt, "self_cuda_time_total", 0.0))
@@ -2229,7 +2466,14 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import cmp_claim, cmp_ring, flash_attention, paged_attention
 
+    walls = []
+
+    def phase(n: int, what: str, t0: float) -> None:
+        walls.append((n, what, time.perf_counter() - t0))
+        log(f"[wall] phase {n} ({what}): {walls[-1][2]:.1f}s")
+
     # phase 1: card
+    t0 = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -2239,6 +2483,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
     torch.backends.cudnn.allow_tf32 = False
+    phase(1, "card", t0)
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -2252,8 +2497,10 @@ def main() -> int:
             kernel = _kernel_name(line)
         elif "registers" in line or "spill" in line:
             log(f"[build] {kernel}: {line.replace('ptxas info    :', '').strip()}")
+    phase(2, "build", t0)
 
     # phase 3: kernels against their plain versions
+    t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = [check_ring(cmp_ring, rng), check_paged(paged_attention, gen),
@@ -2261,13 +2508,17 @@ def main() -> int:
     repaired = check_attention_repairs(paged_attention, flash_attention, gen)
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], repaired["paged"])
     rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], repaired["flash"])
+    phase(3, "kernels", t0)
 
     # phase 4: small-input reference
+    t0 = time.perf_counter()
     for arch in SERVED:
         small_reference(args.seed, arch)
+    phase(4, "small-input reference", t0)
 
     # phase 5: the main path, one model after the other (each one's weights
     # are freed before the next is made)
+    t0 = time.perf_counter()
     kernels = {"cmp_ring": cmp_ring, "paged_attention": paged_attention,
                "flash_attention": flash_attention, "cmp_claim": cmp_claim}
     phase5 = dict.fromkeys(kernels, 0)
@@ -2276,33 +2527,54 @@ def main() -> int:
             phase5[name] += n
         gc.collect()
         torch.cuda.empty_cache()
+    phase(5, "Engine at full width", t0)
 
     # phase 6: the device CMP queue
+    t0 = time.perf_counter()
     phase6 = device_queue(args.seed, kernels)
+    phase(6, "device CMP queue", t0)
 
     # phase 7: the serve driver at glm4-9b's full width
+    t0 = time.perf_counter()
     phase7 = serve_driver(args.seed, kernels, card)
+    phase(7, "serve driver", t0)
 
     # phase 8: training, smoke references and Yi-6B at full width
+    t0 = time.perf_counter()
     training(args.seed, kernels, card)
+    phase(8, "training", t0)
 
     # phase 9: the SSM, hybrid and frontend families
+    t0 = time.perf_counter()
     phase9 = families(args.seed, kernels, card)
+    phase(9, "SSM, hybrid and frontend families", t0)
 
     # phase 10: the parallel layer and the launch tooling
+    t0 = time.perf_counter()
     phase10 = parallel_layer(args.seed, kernels, card, here)
+    phase(10, "parallel layer and launch tooling", t0)
+
+    # phase 11: the examples
+    t0 = time.perf_counter()
+    phase11 = examples(here, kernels, card)
+    phase(11, "examples", t0)
+    log("[wall] " + "; ".join(f"phase {n} {s:.1f}s" for n, _, s in walls)
+        + f"; total {sum(s for *_, s in walls):.1f}s ({card})")
 
     # each row's launches: the serving kernels' from phases 5 and 7 (and
     # flash's from phase 9's pallas route), the claim kernel's from phase 6
     # (by the JAX call site of its pool size)
     serving = ("cmp_ring", "paged_attention", "flash_attention")
-    launches = {name: phase5[name] + phase7[name] for name in serving} | phase6
+    ex = phase11["launches"]
+    launches = {name: phase5[name] + phase7[name] + ex[name] for name in serving} | phase6
     launches["flash_attention"] += phase9 + phase10
     log(f"[launches] phase 5 (Engine): { {k: phase5[k] for k in serving} }; phase 6 "
         f"(slotpool): {phase6}; phase 7 (serve driver): { {k: phase7[k] for k in serving} }"
         f"; phase 9 (hymba, attention_impl='pallas'): flash {phase9}; phase 10 (the Yi-6B "
-        f"pipeline forward): flash {phase10}")
+        f"pipeline forward): flash {phase10}; phase 11 (the serve examples): "
+        f"{ {k: ex[k] for k in serving} }")
     for row in rows:
+        row["max_abs_err"] = max(row["max_abs_err"], phase11["errs"].get(row["name"], 0.0))
         row["route"] = "cuda"
         row["launches"] = launches[row["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -35,10 +35,12 @@ attention's KV blocks and hymba's SSD chunks are counted as they run. The
 one exception is the per-token time loop of mLSTM/sLSTM (xLSTM): over
 :data:`SSM_TRIPS_DIRECT` trips (``trip_counts``) the cell is counted at two
 short sequence lengths and extrapolated linearly in the length (xLSTM has
-no attention, so every cost of its step is linear in it), or, where the
-shorter length counts more on some key (DTensor's propagation chose
-another layout there), in proportion to the longer count; the JSON's
-``notes`` say which.
+no attention, so every cost of its step is linear in it). The lengths, 64
+and 128 tokens, are long enough that an activation outweighs a
+projection's weight, as at the cell's own length, so DTensor lays both
+out as it would the cell (at 32 tokens it reduced the gradients
+otherwise); a cell whose longer count is smaller on some key was laid out
+differently at the two lengths, and fails rather than extrapolate.
 
 These are estimates of a step on a 256/512-GPU mesh, made on one host:
 not measurements.
@@ -84,7 +86,7 @@ from repro_torch.training import optimizer as O
 from repro_torch.training.train_loop import make_train_step
 
 SSM_TRIPS_DIRECT = 64        # per-token recurrent trips counted as they run
-SSM_LENGTHS = (32, 64)       # the two lengths an xLSTM cell is counted at beyond that
+SSM_LENGTHS = (64, 128)      # the two lengths an xLSTM cell is counted at beyond that
 BYTES_NOTE = ("bytes_per_chip sums each unfused aten op's input and output bytes: an "
               "over-count of a fused compiler's bytes accessed (memory_s is an upper bound)")
 ESTIMATE_NOTE = "estimates for the mesh from a meta-device trace on one host, not measurements"
@@ -286,17 +288,15 @@ def _measure_cfg(cfg: ModelConfig, shape: InputShape, mesh) -> Dict[str, Any]:
     raw = {f"seq{n}": count(*lower_cell(cfg, dataclasses.replace(shape, seq_len=n), mesh))
            for n in SSM_LENGTHS}
     (n1, m1), (n2, m2) = zip(SSM_LENGTHS, raw.values())
-    if all(m2[k] >= m1[k] for k in m1):
-        frac = (shape.seq_len - n1) / (n2 - n1)
-        total = {k: m1[k] + (m2[k] - m1[k]) * frac for k in m1}
-        how = "linear in the length through the two counts"
-    else:  # DTensor's propagation laid the two lengths out differently
-        total = {k: m2[k] * shape.seq_len / n2 for k in m2}
-        how = (f"in proportion to the count at {n2} (the {n1}-token count is larger on "
-               f"some key: the two lengths were laid out differently)")
+    shrunk = [k for k in m1 if m2[k] < m1[k]]
+    if shrunk:  # DTensor's propagation laid the two lengths out differently
+        raise AssertionError(f"the {n1}- and {n2}-token counts were laid out differently "
+                             f"(the longer counts less on {shrunk}): no linear extrapolation")
+    frac = (shape.seq_len - n1) / (n2 - n1)
+    total = {k: m1[k] + (m2[k] - m1[k]) * frac for k in m1}
     total["collective_ops"] = round(total["collective_ops"])
     return {"trips": trips, "raw": raw, "corrected": total,
-            "note": f"counted at {n1} and {n2} tokens and extrapolated {how}"}
+            "note": f"counted at {n1} and {n2} tokens and extrapolated linearly in the length"}
 
 
 # ---------------------------------------------------------------------------
@@ -422,7 +422,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         result["trips"] = m["trips"]
         result["raw"] = m["raw"]  # per-length counts (xLSTM) or the one count
         result["roofline"] = terms
-        result["notes"] = [ESTIMATE_NOTE, BYTES_NOTE, *layout_notes(cfg, mesh),
+        result["notes"] = [ESTIMATE_NOTE, BYTES_NOTE, *layout_notes(cfg, mesh, shape),
                            *([m["note"]] if "note" in m else [])]
         result["compile_seconds"] = time.time() - t0  # the trace's seconds (the reference's key)
         result["ok"] = True
@@ -440,11 +440,28 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     return result
 
 
-def layout_notes(cfg: ModelConfig, mesh) -> list:
-    """How attention and the experts are laid out over 'model' in this
-    cell (``sharding.per_head_shard``, the MoE rules' EP/TP fallback)."""
-    m = S.axis_sizes(mesh).get("model", 1)
+def layout_notes(cfg: ModelConfig, mesh, shape: InputShape) -> list:
+    """How attention, the experts and the recurrent time loops are laid out
+    over 'model' in this cell (``sharding.per_head_shard``, the MoE rules'
+    EP/TP fallback, ``sharding.per_batch_shard``'s loop routes)."""
+    sizes = S.axis_sizes(mesh)
+    m = sizes.get("model", 1)
     notes = []
+    loops = [k for k in ("mlstm", "slstm", "hymba") if k in cfg.block_pattern]
+    if loops and m > 1:
+        H = cfg.ssm_heads or cfg.num_heads
+        B = shape.global_batch
+        n_b = math.prod(sizes[a] for a in (cfg.batch_axes or S.batch_axes(mesh)))
+        rows = B // n_b if B % n_b == 0 else B
+        what = "the SSD scan" if loops == ["hymba"] else "the mLSTM/sLSTM time loops"
+        if H % m == 0:
+            notes.append(f"{what} head-parallel: {H // m} of {H} heads a rank over 'model'")
+        elif rows % m == 0:
+            notes.append(f"{what} split over 'model' by batch rows ({rows // m} of the {rows} "
+                         f"rows of a batch shard a rank): {H} heads do not divide its {m} ranks")
+        else:
+            notes.append(f"{what} repeated on every rank of 'model': neither its {H} heads nor "
+                         f"the {rows} rows of a batch shard divide its {m} ranks")
     if any(k in ("dense", "moe", "hymba") for k in cfg.block_pattern):
         H, KV = cfg.num_heads, cfg.num_kv_heads
         if H % m == 0:

@@ -11,7 +11,10 @@ SSD. The reference's ``unroll`` (of its scans) and ``shard_axis`` (its
 mesh) have no counterpart here. On DTensors the projections stay DTensor
 products, the head reshapes go through ``sharding.view``, and each scan
 runs on each rank's batch shard (``sharding.per_batch_shard``), so a
-time step costs plain-tensor ops, no DTensor dispatch.
+time step costs plain-tensor ops, no DTensor dispatch. Each scan names
+its tensors' head dims there, and its work is split over 'model' as
+well: by heads where they divide it (sLSTM's recurrent matrices split
+with them), else by the batch shard's rows.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.sharding import per_batch_shard, view
+from repro_torch.parallel.sharding import per_batch_shard, reduced, view
 
 # ---------------------------------------------------------------------------
 # mLSTM
@@ -31,7 +34,7 @@ def _f32(shape, device, fill: float = 0.0) -> torch.Tensor:
     return torch.full(shape, fill, dtype=torch.float32, device=device)
 
 
-@per_batch_shard
+@per_batch_shard(heads=dict(q=1, k=1, v=1, i_pre=1, f_pre=1, state=1), out_heads=(1, 1))
 def mlstm_scan(q, k, v, i_pre, f_pre, state=None):
     """Stabilized mLSTM recurrence over q, k, v [B,H,S,d] and the gate
     preactivations i_pre, f_pre [B,H,S]. Returns (h [B,H,S,d], final state
@@ -77,7 +80,7 @@ def mlstm_block(x, p: dict, *, num_heads: int, state=None):
     h, new_state = mlstm_scan(q, k, v, i_pre, f_pre, state)
     h = view(h.transpose(1, 2), B, S, D)
     o = torch.sigmoid(x @ p["ogate"])
-    return (o * h) @ p["wo"], new_state
+    return reduced((o * h) @ p["wo"]), new_state
 
 
 def mlstm_init_state(batch: int, num_heads: int, head_dim: int, device="cuda"):
@@ -92,7 +95,8 @@ def mlstm_init_state(batch: int, num_heads: int, head_dim: int, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-@per_batch_shard(whole=("r",))
+@per_batch_shard(whole=("r",), heads=dict(zx=2, ix=2, fx=2, ox=2, r=0, state=1),
+                 out_heads=(2, 1))
 def _slstm_scan(zx, ix, fx, ox, r, state):
     """The sLSTM recurrence over the input preactivations [B,S,H,hd] and
     the recurrent matrices r [H,hd,4hd] from ``state``; (h [B,S,H,hd] in
@@ -134,7 +138,7 @@ def slstm_block(x, p: dict, *, num_heads: int, state=None):
     zx, ix, fx, ox = (view(x @ p[k], B, S, H, hd) for k in ("wz", "wi", "wf", "wo"))
     r = torch.cat([p[k].float() for k in ("rz", "ri", "rf", "ro")], dim=-1)  # [H,hd,4hd]
     hs, new_state = _slstm_scan(zx, ix, fx, ox, r, state)
-    return view(hs, B, S, D) @ p["wout"], new_state
+    return reduced(view(hs, B, S, D) @ p["wout"]), new_state
 
 
 def slstm_init_state(batch: int, num_heads: int, head_dim: int, device="cuda"):
@@ -147,7 +151,7 @@ def slstm_init_state(batch: int, num_heads: int, head_dim: int, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-@per_batch_shard
+@per_batch_shard(heads=dict(x=2, b=2, c=2, log_a=2, state=1), out_heads=(2, 1))
 def ssd_chunked(x, b, c, log_a, *, chunk: int = 256, state=None):
     """y[t] = C[t] . h[t], h[t] = a[t] h[t-1] + B[t] (x) x[t], over x
     [B,S,H,P], b, c [B,S,H,N], log_a [B,S,H] (<= 0), from ``state``
@@ -192,7 +196,7 @@ def ssd_chunked(x, b, c, log_a, *, chunk: int = 256, state=None):
     return torch.cat(ys, dim=1)[:, :S], h
 
 
-@per_batch_shard
+@per_batch_shard(heads=dict(x=1, b=1, c=1, log_a=1, state=1), out_heads=(1, 1))
 def ssd_decode_step(x, b, c, log_a, state):
     """One-token recurrence. x [B,H,P]; b, c [B,H,N]; log_a [B,H]; state
     [B,H,P,N] f32."""

@@ -60,7 +60,12 @@ local tensors under an explicit layout (each a no-op for plain tensors):
   outputs from the replicated result; ``bincount`` (no DTensor rule, no
   meta kernel) is a ``scatter_add``;
 * the mLSTM, sLSTM and SSD time loops run on each rank's batch shard
-  (:func:`per_batch_shard`), so a time step costs plain-tensor ops;
+  (:func:`per_batch_shard`), so a time step costs plain-tensor ops, and
+  split over 'model' too: by heads where they divide it, else by the
+  batch shard's rows where those do, else (the dry run's ``notes`` say
+  so) whole on every rank of 'model'; the xLSTM blocks' output
+  projections are reduced (:func:`reduced`), so the next block's
+  products split over 'model' rather than repeat on each rank;
 * ``model._embed`` gathers a DTensor table whole (FSDP's all-gather; its
   gradient reduce-scattered back) and looks the tokens up on each batch
   shard: torch 2.11 has no rule for the indexing gather's backward, and
@@ -314,6 +319,20 @@ def _fit(x: DTensor, shape) -> DTensor:
     return x.redistribute(x.device_mesh, pl) if pl != list(x.placements) else x
 
 
+def reduced(x):
+    """``x`` with its Partial sums reduced (replicated over those mesh
+    dims); a plain tensor, or a DTensor without a Partial placement, as it
+    is. A block's output projection (rows split over 'model') gives a
+    Partial sum; left so, the residual stream stays Partial, and each
+    product of the next block then runs with the whole weight on every
+    rank of 'model' (DTensor gathers the weight rather than reduce the
+    activation)."""
+    if isinstance(x, DTensor) and any(isinstance(p, Partial) for p in x.placements):
+        return x.redistribute(x.device_mesh, [Replicate() if isinstance(p, Partial) else p
+                                              for p in x.placements])
+    return x
+
+
 class _View(torch.autograd.Function):
     """A DTensor reshape that fits its input, and in the backward its
     gradient, to the reshape first."""
@@ -339,17 +358,17 @@ def view(x, *shape):
     return x.reshape(shape)
 
 
-def _row_dims(x: DTensor, skip: tuple = ()) -> list:
+def _row_dims(x: DTensor, skip: tuple = (), take: tuple = ()) -> list:
     """The mesh dims, in mesh order, over which ``x``'s rows (its dim 0)
     are split for code that runs on each rank's rows: each batch axis
-    ('pod', 'data') whose split the rows divide, and each other axis
-    (not in ``skip``) over which ``x`` comes split already. The batch
-    axes are taken whatever split DTensor's propagation gave ``x``, so
-    the layout does not change with the shapes."""
+    ('pod', 'data') and each axis in ``take`` whose split the rows divide,
+    and each other axis (not in ``skip``) over which ``x`` comes split
+    already. The batch axes are taken whatever split DTensor's propagation
+    gave ``x``, so the layout does not change with the shapes."""
     dims, n = [], 1
     for i, (name, p) in enumerate(zip(x.device_mesh.mesh_dim_names, x.placements)):
         m = x.device_mesh.size(i)
-        if (name in ("pod", "data") or (p == Shard(0) and name not in skip)) \
+        if (name in ("pod", "data", *take) or (p == Shard(0) and name not in skip)) \
                 and x.shape[0] % (n * m) == 0:
             dims.append(i)
             n *= m
@@ -360,52 +379,67 @@ class Rows:
     """The split of a tensor's rows (its dim 0: a batch, or tokens) over
     its mesh, for code that runs on each rank's rows. A rank's rows are
     the chunk of the row order at :attr:`index` of :attr:`n` (its
-    coordinates over the row dims, in mesh order). For a plain tensor one
-    rank holds every row and each method is the identity.
+    coordinates over the row dims, in mesh order; ``skip`` and ``take`` as
+    :func:`_row_dims` has them). With ``heads``, mesh axis names that are
+    not row dims, each tensor is also split over those axes along the dim
+    given to each method as ``h`` (a tensor without ``h`` is whole there).
+    For a plain tensor one rank holds every row and each method is the
+    identity.
 
     * :meth:`local`: a tensor of these rows (a DTensor, or a plain tensor
       taken as replicated) as this rank's rows, other placements
       replicated and Partial sums reduced; its gradient flows back;
     * :meth:`wrap`: the DTensor whose rows are each rank's local rows;
-    * :meth:`whole`: a DTensor replicated and taken local, its gradient
-      a Partial sum over the row dims (each rank's rows add their part);
+    * :meth:`whole`: a DTensor replicated over the row dims and taken
+      local, its gradient a Partial sum over them (each rank's rows add
+      their part);
     * :meth:`sum`: the DTensor that is the sum of every rank's local
       tensor, Partial over the row dims (its gradient the whole one);
     * :meth:`before`: of an integer tensor each rank holds, the sum of the
       ranks' before this one in row order (an all-gather over the row
       dims)."""
 
-    def __init__(self, x):
+    def __init__(self, x, *, skip: tuple = (), take: tuple = (), heads: tuple = ()):
         self.mesh = x.device_mesh if isinstance(x, DTensor) else None
         self.n, self.index = 1, 0
         if self.mesh is None:
             return
-        dims = _row_dims(x)
-        self.rows = tuple(Shard(0) if i in dims else Replicate() for i in range(self.mesh.ndim))
-        self.whole_pl = (Replicate(),) * self.mesh.ndim
-        self.partial = tuple(Partial() if i in dims else Replicate()
-                             for i in range(self.mesh.ndim))
+        self.dims = _row_dims(x, skip, take)
+        self.head_dims = [i for i, name in enumerate(self.mesh.mesh_dim_names)
+                          if name in heads and i not in self.dims]
+        self.rows = self._placements(None, Shard(0))
+        self.partial = self._placements(None, Partial())
         coord = self.mesh.get_coordinate()
-        for i in dims:
+        for i in self.dims:
             m = self.mesh.size(i)
             self.n, self.index = self.n * m, self.index * m + coord[i]
 
-    def local(self, x):
+    def _placements(self, h, row) -> tuple:
+        """``row`` on the row dims, Shard(h) on the head dims (with ``h``),
+        Replicate elsewhere."""
+        return tuple(row if i in self.dims
+                     else Shard(h) if h is not None and i in self.head_dims else Replicate()
+                     for i in range(self.mesh.ndim))
+
+    def local(self, x, h=None):
         if self.mesh is None or not isinstance(x, torch.Tensor) or x.dim() == 0:
             return x
         if not isinstance(x, DTensor):
-            x = DTensor.from_local(x, self.mesh, self.whole_pl, run_check=False)
-        return x.redistribute(self.mesh, self.rows).to_local()
+            x = DTensor.from_local(x, self.mesh, (Replicate(),) * self.mesh.ndim,
+                                   run_check=False)
+        return x.redistribute(self.mesh, self._placements(h, Shard(0))).to_local()
 
-    def wrap(self, x):
+    def wrap(self, x, h=None):
         if self.mesh is None or not isinstance(x, torch.Tensor) or x.dim() == 0:
             return x
-        return DTensor.from_local(x, self.mesh, self.rows, run_check=False)
+        return DTensor.from_local(x, self.mesh, self._placements(h, Shard(0)),
+                                  run_check=False)
 
-    def whole(self, x):
+    def whole(self, x, h=None):
         if self.mesh is None or not isinstance(x, DTensor):
             return x
-        return x.redistribute(self.mesh, self.whole_pl).to_local(grad_placements=self.partial)
+        return x.redistribute(self.mesh, self._placements(h, Replicate())).to_local(
+            grad_placements=self._placements(h, Partial()))
 
     def sum(self, x):
         if self.mesh is None:
@@ -433,7 +467,29 @@ class _SumShards(torch.autograd.Function):
         return g.redistribute(ctx.mesh, [Replicate()] * ctx.mesh.ndim).to_local(), None, None
 
 
-def per_batch_shard(fn=None, *, whole: tuple = ()):
+def _loop_rows(x: DTensor, h: int) -> Rows:
+    """The layout of a time loop over ``x`` [B, ..., H at dim ``h``, ...]:
+    split by heads over 'model' where H divides it (the heads come split
+    so from the projections, as ``wq``'s columns are), else by rows over
+    'model' where the rank's batch shard divides it, else the batch shard
+    whole on every rank of 'model' (the loop then runs on each)."""
+    m = axis_sizes(x.device_mesh).get("model", 1)
+    if m == 1:
+        return Rows(x)
+    if x.shape[h] % m == 0:
+        return Rows(x, skip=("model",), heads=("model",))
+    return Rows(x, take=("model",))
+
+
+def _prefix_map(fn, prefix, tree):
+    """``fn(leaf, p)`` over ``tree``, ``p`` the entry of ``prefix`` (a tree
+    prefix of ``tree``: a sequence for a sequence node) above the leaf."""
+    if isinstance(prefix, (tuple, list)) and isinstance(tree, (tuple, list)):
+        return T.rebuild(tree, [_prefix_map(fn, p, t) for p, t in zip(prefix, tree, strict=True)])
+    return T.tree_map(lambda x: fn(x, prefix), tree)
+
+
+def per_batch_shard(fn=None, *, whole: tuple = (), heads: dict = None, out_heads=None):
     """``fn`` run on each rank's batch shard where its arguments hold
     DTensors. The first DTensor among the tensors of the arguments (trees
     of them included) sets the layout: its batch (dim 0) is split over the
@@ -444,31 +500,54 @@ def per_batch_shard(fn=None, *, whole: tuple = ()):
     gradients then Partial sums over the batch's mesh dims); others, and
     0-dim tensors, pass as they are. ``fn`` runs on the local tensors, and
     each tensor of its output with a batch dim becomes the DTensor of
-    those shards. Plain arguments alone call ``fn`` as it is."""
+    those shards. Plain arguments alone call ``fn`` as it is.
+
+    A time loop names the head dim of its arguments' tensors in ``heads``
+    ({argument: dim}, trees of them included; ``whole`` ones too) and of
+    its outputs' in ``out_heads`` (a prefix of the output's tree), and its
+    work is laid over 'model' as well (:func:`_loop_rows`): split by heads,
+    the outputs keep that split; split by rows, the outputs are brought
+    back whole over 'model' (the layout the inputs came in, which the next
+    op expects)."""
     if fn is None:
-        return functools.partial(per_batch_shard, whole=whole)
+        return functools.partial(per_batch_shard, whole=whole, heads=heads, out_heads=out_heads)
     sig = inspect.signature(fn)
+    heads = heads or {}
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
         if not any(isinstance(a, DTensor) for a in T.tree_leaves([args, kwargs])):
             return fn(*args, **kwargs)  # plain tensors: no binding on the hot path
         bound = sig.bind(*args, **kwargs)
-        leaves = T.tree_leaves([v for k, v in bound.arguments.items() if k not in whole])
-        lead = next((a for a in leaves if isinstance(a, DTensor)), None)
+        name, lead = next(((k, a) for k, v in bound.arguments.items() if k not in whole
+                           for a in T.tree_leaves(v) if isinstance(a, DTensor)), (None, None))
         if lead is None:
             return fn(*args, **kwargs)
-        rows, batch = Rows(lead), lead.shape[0]
+        rows = _loop_rows(lead, heads[name]) if heads else Rows(lead)
+        batch = lead.shape[0]
 
-        def local(x):
+        def local(x, h):
             if isinstance(x, torch.Tensor) and x.dim() > 0 and x.shape[0] == batch:
-                return x if batch == 1 and not isinstance(x, DTensor) else rows.local(x)
+                if batch == 1 and not isinstance(x, DTensor) and not rows.head_dims:
+                    return x
+                return rows.local(x, h)
             return x
 
         for k, v in bound.arguments.items():
-            bound.arguments[k] = (T.tree_map(rows.whole, v) if k in whole
-                                  else T.tree_map(local, v))
-        return T.tree_map(rows.wrap, fn(*bound.args, **bound.kwargs))
+            bound.arguments[k] = _prefix_map(rows.whole if k in whole else local, heads.get(k), v)
+        out = _prefix_map(rows.wrap, out_heads, fn(*bound.args, **bound.kwargs))
+        spread = [i for i in rows.dims if lead.placements[i] != Shard(0)
+                  and lead.device_mesh.mesh_dim_names[i] not in ("pod", "data")]
+        if not spread:
+            return out
+
+        def back(x):  # whole again over the axes only the loop split the rows over
+            if not isinstance(x, DTensor):
+                return x
+            pl = [Replicate() if i in spread else p for i, p in enumerate(x.placements)]
+            return x.redistribute(x.device_mesh, pl)
+
+        return T.tree_map(back, out)
 
     return wrapped
 
@@ -497,8 +576,8 @@ def per_head_shard(fn=None, *, seq_args: tuple = ()):
     * the other tensors of the batch are brought to the batch shard (their
       dim 1 split with the queries' for ``seq_args``).
 
-    The output [B,S,H,hd] has q's layout. Plain tensors alone call ``fn``
-    as it is."""
+    The output [B,S,H,hd] has q's layout, but for a sequence split, which
+    is gathered whole again. Plain tensors alone call ``fn`` as it is."""
     if fn is None:
         return functools.partial(per_head_shard, seq_args=seq_args)
 
@@ -565,6 +644,9 @@ def per_head_shard(fn=None, *, seq_args: tuple = ()):
 
         out = fn(q.redistribute(mesh, qt).to_local(), kv_local(k), kv_local(v),
                  *(rest_local(j, x) for j, x in enumerate(rest)), **kw)
-        return DTensor.from_local(out, mesh, qt, run_check=False)
+        out = DTensor.from_local(out, mesh, qt, run_check=False)
+        if Shard(1) in qt:  # torch 2.11 cannot flatten [B, S, ...] with S split, as wo's product does
+            out = out.redistribute(mesh, [Replicate() if p == Shard(1) else p for p in qt])
+        return out
 
     return wrapped

@@ -1,6 +1,8 @@
 """The torch port stands alone: it imports neither JAX nor the JAX package
-``repro``, at run time or in its sources — the serving fabric's wire
-transport workers (``python -m repro_torch.net``) included."""
+``repro``, at run time or in its sources (``chip_smoke.py`` and the
+port's examples, ``examples/torch_*.py``, included) — the serving
+fabric's wire transport workers (``python -m repro_torch.net``)
+included."""
 
 import os
 import pathlib
@@ -11,7 +13,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
 
 _PROBE = r"""

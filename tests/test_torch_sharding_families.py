@@ -16,6 +16,11 @@ in float32, one rank run a config.
 * Attention is head-parallel: each rank's queries hold H/2 of the heads;
   with ``kv_block_axis="model"`` the chunked cache attention of a prefill
   splits its queries over 'model' along the sequence instead.
+* The mLSTM, sLSTM and SSD time loops split their work over the mesh:
+  the (row, head) slices the four ranks' loops run on are disjoint and
+  make up the global batch x heads once, by heads where they divide
+  'model' (xLSTM and hymba smoke, 4 heads) and by batch rows where they
+  do not (xLSTM with one head).
 """
 
 import dataclasses
@@ -45,7 +50,7 @@ CASES = {
                     "tp": {"capacity_factor": 1.0, "num_experts": 5},
                     "groups": {"capacity_factor": 1.0, "moe_groups": 2}},
     "llama4_maverick": {"ep": {"capacity_factor": 1.0}},
-    "xlstm_125m": {"base": {}},
+    "xlstm_125m": {"base": {}, "rows": {"ssm_heads": 1}},
     "hymba_1_5b": {"base": {}},
 }
 PAIRS = [(a, v) for a, vs in CASES.items() for v in vs]
@@ -92,9 +97,36 @@ class Rows(S.Rows):
 
 
 MOE.Rows = Rows
+from repro_torch.models import ssm as SSM
+
+
+class LoopRows(S.Rows):
+    # keeps the first tensor a time loop takes to its rank (the loop's
+    # lead input, q / zx / x) as the loop ran on it
+
+    def local(self, x, *h):
+        out = super().local(x, *h)
+        if seen.get("loop") and seen["loop"] not in seen["loops"]:
+            seen["loops"][seen["loop"]] = out.detach().clone()
+        return out
+
+
+def in_loop(name, fn):
+    def run(*a, **kw):
+        seen["loop"] = name
+        try:
+            return fn(*a, **kw)
+        finally:
+            seen["loop"] = None
+    return run
+
+
+S.Rows = LoopRows
+for fname in ("mlstm_scan", "_slstm_scan", "ssd_chunked"):
+    setattr(SSM, fname, in_loop(fname, getattr(SSM, fname)))
 res = {}
 for name, over in cases.items():
-    seen["heads"], seen["drops"] = set(), []
+    seen["heads"], seen["drops"], seen["loops"] = set(), [], {}
     cfg = dataclasses.replace(get_config(ARCH, smoke=True), **over)
     params = S.param_shardings(torch.load(os.path.join(OUT, f"{name}_params.pt")), mesh)
     tokens = torch.load(os.path.join(OUT, "tokens.pt"))
@@ -104,7 +136,7 @@ for name, over in cases.items():
         loss, _ = loss_fn(T.tree_unflatten(params, iter(live)), batch, cfg)
         grads = torch.autograd.grad(loss, live)
     res[name] = {"loss": loss.detach().full_tensor(), "grads": [g.full_tensor() for g in grads],
-                 "heads": sorted(seen["heads"]), "drops": seen["drops"]}
+                 "heads": sorted(seen["heads"]), "drops": seen["drops"], "loops": seen["loops"]}
 if ARCH == "llama4_maverick":
     # prefill through the chunked cache attention (KV blocks of 4 over a
     # cache of 8) with its queries split over 'model' along the sequence
@@ -260,3 +292,31 @@ def test_kv_block_axis_splits_the_prefill_queries(families):
     for res in families["prefill"]:
         assert res["rows_heads"] == [(4, 4)]
         torch.testing.assert_close(res["got"], res["want"], atol=TOL, rtol=TOL)
+
+
+# the dim of the heads in each loop's lead input: q [B,H,S,d], zx [B,S,H,hd], x [B,S,H,P]
+LOOP_HEAD_DIM = {"mlstm_scan": 1, "_slstm_scan": 2, "ssd_chunked": 2}
+LOOP_PAIRS = [(a, v) for a, v in PAIRS if a in ("xlstm_125m", "hymba_1_5b")]
+
+
+@pytest.mark.parametrize("arch,name", LOOP_PAIRS)
+def test_time_loops_split_the_work_over_the_mesh(families, arch, name):
+    """Each rank's mLSTM, sLSTM and SSD loop runs on (rows x heads) of
+    the global batch x heads: over the 2x2 mesh the ranks' (row, head)
+    slices of the loop's input are pairwise distinct and number B x H in
+    all, so no slice of the work runs twice (on the 2 'model' ranks of a
+    batch shard) and none is left out."""
+    ref, ranks = families[arch][name]
+    cfg = ref["cfg"]
+    loops = {"xlstm_125m": ("mlstm_scan", "_slstm_scan"), "hymba_1_5b": ("ssd_chunked",)}[arch]
+    B, H = 8, cfg.ssm_heads
+    for loop in loops:
+        slices, shapes = [], []
+        for res in ranks:
+            x = res["loops"][loop].movedim(LOOP_HEAD_DIM[loop], 1)
+            shapes.append(tuple(x.shape[:2]))
+            slices += [x[r, h] for r in range(x.shape[0]) for h in range(x.shape[1])]
+        assert sum(r * h for r, h in shapes) == B * H, (loop, shapes)
+        for i, a in enumerate(slices):
+            for b in slices[i + 1:]:
+                assert not torch.equal(a, b), (loop, shapes)
