@@ -102,7 +102,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    xlstm-125m at train_4k, four subprocesses on the host (started first),
    each cell's per-GPU counts and three roofline terms under the H100
    constants (estimates for a 256-GPU mesh), yi's FLOPs a GPU beside PR
-   19's, and yi's analytic memory against 80 GB. Only the flash kernel
+   19's, the xlstm and llama4 cells' all-gather and all-reduce wire bytes
+   beside torch 2.13's on a host CPU (the loss is vocab-parallel), and
+   yi's analytic memory against 80 GB. Only the flash kernel
    may launch here: the pipeline's launches and ``apply``'s.
 11. the examples (``examples/torch_*.py``, each ``main()`` in-process as it
    stands, with its own assertions): the four serve examples (glm4-9b
@@ -1803,6 +1805,10 @@ NCCL_STEPS = (("yi_6b", {"num_layers": 4}, 2, PIPE_SEQ),
 DRYRUN_CELLS = (("yi-6b", "train_4k"), ("granite-moe", "train_4k"),
                 ("llama4-maverick", "train_4k"), ("xlstm-125m", "train_4k"))
 DRYRUN_OUT = "build/dryrun"
+# (all-gather, all-reduce) wire bytes a GPU of two train_4k cells on 16x16, traced on a
+# host CPU with torch 2.13.0+cpu, to sit beside this machine's torch's
+DRYRUN_WIRE_2_13 = {"xlstm-125m": (1.7019e10, 3.6408e9),
+                    "llama4-maverick": (1.3090e12, 4.0467e12)}
 DRYRUN_TIMEOUT = 600
 H100_HBM_BYTES = 80e9
 
@@ -2151,6 +2157,11 @@ def finish_dryrun(procs: list, here: str, card: str) -> None:
             f"dominant {t['dominant']}; useful FLOPs {t['useful_flops_ratio']:.3f}; analytic "
             f"memory {mem['total'] / 1e9:.2f} GB of {H100_HBM_BYTES / 1e9:.0f} GB; notes "
             f"{row['notes'][2:]}; traced in {row['compile_seconds']:.1f}s on the host ({card})")
+        if arch in DRYRUN_WIRE_2_13:
+            w, (ag, ar) = t["wire_breakdown"], DRYRUN_WIRE_2_13[arch]
+            log(f"[dryrun] {arch} {shape} wire bytes a GPU, torch {torch.__version__}: "
+                f"all-gather {w['all-gather']:.4e}, all-reduce {w['all-reduce']:.4e}; torch "
+                f"2.13.0+cpu on a host CPU: {ag:.4e}, {ar:.4e} ({card})")
         if arch == "yi-6b":
             log(f"[dryrun] yi-6b train_4k flops_per_chip {t['flops_per_chip']:.4e}, useful "
                 f"FLOPs {t['useful_flops_ratio']:.3f}; PR 19 (heads replicated over 'model', "

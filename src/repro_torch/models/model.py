@@ -21,7 +21,7 @@ from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.parallel.sharding import per_batch_shard
+from repro_torch.parallel.sharding import per_batch_shard, vocab_nll
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -201,8 +201,7 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     n_extra = 0 if extra is None else extra.shape[1]
     logits = logits[:, n_extra:]
     targets = tokens[:, 1:].long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    nll = vocab_nll(logits, targets)
     loss = torch.mean(nll)
     metrics = {"loss": loss, "aux_loss": aux,
                "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}

@@ -71,6 +71,13 @@ local tensors under an explicit layout (each a no-op for plain tensors):
   shard: torch 2.11 has no rule for the indexing gather's backward, and
   2.13's embedding rule leaves a vocab-sharded table's output in a partial
   state it cannot reduce-scatter;
+* the loss (``model.loss_fn``) is vocab-parallel (:func:`vocab_nll`):
+  logits split over 'model' along the vocab, or a Partial sum there, are
+  never gathered whole, as ``log_softmax`` would; each rank takes its
+  rows' max, sum of exponentials and target logit on its vocab shard,
+  and three all-reduces of [rows, S] over 'model' combine them (a Partial
+  sum is reduce-scattered first: over a batch axis into its rows, over
+  'model' into vocab shards);
 * ``cache_insert`` (the KV ring's scatter, ``index_put``, for which torch
   2.11 has no DTensor rule at all) writes each rank's batch shard of the
   ring (:func:`per_batch_shard`): a ring split over 'model' along time is
@@ -93,6 +100,7 @@ import re
 from typing import Any, Dict
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
 from repro_torch import tree as T
@@ -650,3 +658,68 @@ def per_head_shard(fn=None, *, seq_args: tuple = ()):
         return out
 
     return wrapped
+
+
+def _vocab_parallel(x) -> bool:
+    """Whether logits ``x`` [..., V] come split over 'model' (of more than
+    one rank) along the vocab, evenly, or as a Partial sum there."""
+    if not isinstance(x, DTensor) or "model" not in x.device_mesh.mesh_dim_names:
+        return False
+    i = x.device_mesh.mesh_dim_names.index("model")
+    m, p = x.device_mesh.size(i), x.placements[i]
+    return m > 1 and x.shape[-1] % m == 0 and (p == Shard(x.ndim - 1) or isinstance(p, Partial))
+
+
+class _VocabNLL(torch.autograd.Function):
+    """The nll of :func:`vocab_nll` on each rank's rows and vocab shard:
+    the row max and the sum of exponentials reduced over 'model', and the
+    target's logit from the rank whose shard holds it. The gradient,
+    ``(softmax - onehot) * g``, is taken on the shard and needs no
+    collective; it keeps the layout the forward worked in."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, rows):
+        mesh, v = rows.mesh, logits.ndim - 1
+        i = mesh.mesh_dim_names.index("model")
+        group = (mesh, i)
+        local = rows.local(logits, v)  # a Partial reduce-scattered into rows or vocab shards
+        t = rows.local(targets).long()
+        lo = mesh.get_coordinate()[i] * local.shape[-1]
+        hit = (t >= lo) & (t < lo + local.shape[-1])
+        idx = torch.where(hit, t - lo, 0)[..., None]
+        mx = funcol.all_reduce(local.amax(-1), "max", group)
+        e = torch.exp(local - mx[..., None])
+        total = funcol.all_reduce(e.sum(-1), "sum", group)
+        tgt = funcol.all_reduce(torch.where(hit, local.gather(-1, idx)[..., 0], 0.0), "sum",
+                                group)
+        ctx.save_for_backward(e, total, idx, hit)
+        ctx.rows, ctx.layout = rows, rows._placements(v, Shard(0))
+        nll = torch.log(total) - (tgt - mx)  # log_softmax's order: -((x - max) - log(sum))
+        return DTensor.from_local(nll, mesh, rows.rows, run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, idx, hit = ctx.saved_tensors
+        grad = e / total[..., None]
+        grad.scatter_add_(-1, idx, -hit[..., None].to(grad.dtype))
+        grad = grad * ctx.rows.local(g)[..., None]
+        return DTensor.from_local(grad, ctx.rows.mesh, ctx.layout, run_check=False), None, None
+
+
+def vocab_nll(logits, targets):
+    """Each token's negative log-likelihood [B, S] of ``targets`` [B, S]
+    under ``logits`` [B, S, V], ``-log_softmax(logits)[targets]``.
+
+    Logits split over 'model' along an even vocab, or a Partial sum there
+    (:func:`_vocab_parallel`), go vocab-parallel: each rank works on its
+    rows (:class:`Rows`, 'model' its vocab shard) and three all-reduces
+    of [rows, S] over 'model' stand for the gather of the logits that
+    ``log_softmax`` would make. A Partial sum is reduce-scattered first:
+    over a batch axis into its rows, over 'model' into vocab shards. The
+    result is split as the rows, replicated over 'model'. Other logits (a
+    plain tensor, one rank on 'model', the vocab whole over 'model' or
+    uneven there) take ``log_softmax`` and ``gather`` as they are."""
+    if _vocab_parallel(logits):
+        return _VocabNLL.apply(logits, targets, Rows(logits, skip=("model",), heads=("model",)))
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets[..., None])[..., 0]
