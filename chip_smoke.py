@@ -21,6 +21,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    PyTorch library call: each kernel and library call timed as device time
    from a CUDA graph of back-to-back calls, and as the eager loop of
    earlier runs; beside the ring, its general path and a launch floor;
+   then the xLSTM time loops (the reference's two ``lax.scan`` sites):
+   the mLSTM and sLSTM forward kernels (with the tensors they save) and
+   backward kernels against ``ref.py``'s plain forward and backward at
+   xlstm-125m's width (4 heads of 192) and phase 9's train shape (B=2 x
+   512), in bf16 and float32, and the decode step from the 512-step state;
+   each timed by graph in bf16 beside its plain version, its bound and its
+   chain floor (S x its step latency);
 4. small-input reference: the port's ``Engine`` on the Yi-6B and
    granite-moe smoke configs in float32, on the card (kernels) and on the
    CPU (plain versions), must give token-identical outputs;
@@ -67,8 +74,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    configs in float32, card against CPU: ``apply`` logits, the loss and
    every gradient, ``prefill`` + 4 ``decode_step`` logits and the final
    cache; (b) xlstm-125m and (c) hymba-1.5b at full width and depth in
-   bfloat16, each trained by the train driver (8 steps of B=2, xlstm at
-   128 tokens and lr 1e-4, hymba at 512 and lr 1e-5; the loss falls) and
+   bfloat16, each trained by the train driver (8 steps of B=2 x 512, xlstm
+   at lr 1e-4 through the scan kernels, hymba at lr 1e-5; the loss falls) and
    decoded on fresh weights (xlstm: 8 lanes,
    a 512-token prefill, 64 steps; hymba: 4 lanes, a ring of its 1,024-token
    window, a one-window prefill, 64 steps past it), each decode logit held
@@ -81,7 +88,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``chunked_cache_attention``, 32 steps, held to ``apply``. Per model:
    step ms and trained tokens/s, prefill ms, decode step ms, generated
    tokens/s, peak memory, and the ``cudaLaunchKernel`` of one profiled
-   decode step. Only the flash kernel may launch here, once a hymba layer.
+   decode step. Of the serving kernels only flash may launch here, once a
+   hymba layer; xlstm's layers launch the scan kernels, exactly as many
+   times as its layers, remat and decode steps imply.
 10. the parallel layer and the launch tooling: (a) Yi-6B at full width and
    depth in bfloat16 split into 4 stages of 8 layers and run through
    ``repro_torch.parallel.pipeline.PipelineRunner`` on 6 microbatches of
@@ -104,8 +113,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    constants (estimates for a 256-GPU mesh), yi's FLOPs a GPU beside PR
    19's, the xlstm and llama4 cells' all-gather and all-reduce wire bytes
    beside torch 2.13's on a host CPU (the loss is vocab-parallel), and
-   yi's analytic memory against 80 GB. Only the flash kernel
-   may launch here: the pipeline's launches and ``apply``'s.
+   yi's analytic memory against 80 GB. Of the serving kernels only flash
+   may launch here: the pipeline's launches and ``apply``'s; the scan
+   kernels launch as (b)'s four xlstm-125m passes imply.
 11. the examples (``examples/torch_*.py``, each ``main()`` in-process as it
    stands, with its own assertions): the four serve examples (glm4-9b
    smoke in float32 through ``Fabric``: quickstart, batched with
@@ -119,14 +129,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    then the data-pipeline demo, and ``torch_train_lm.py`` at the
    reference's CI scale (20 steps of 4 x 64 at a quarter of xlstm-125m's
    width; the loss falls) and at full published width (4 steps of 8 x 64;
-   finite losses). No kernel may launch in the last two.
+   finite losses). No serving kernel may launch in the last two; the scan
+   kernels launch as ``torch_train_lm.py``'s layers imply.
 
 Each phase's wall is printed on a line of its own (``[wall]``), and all of
 them on one line after phase 11.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the ``kernels`` JSON line (five rows: the five ``pallas_call`` sites, the
-claim kernel serving two), and the card's name and power limit come
+the ``kernels`` JSON line (five rows for the five ``pallas_call`` sites, the
+claim kernel serving two, then four for the two ``lax.scan`` sites, each
+row's ``of`` naming which), and the card's name and power limit come
 before that.
 """
 
@@ -148,6 +160,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense
+F32_FLOP_PER_S = 67e12         # H100 SXM data sheet, f32 outside the tensor cores
 TOL_BF16 = 2e-2                # atol = rtol: f32 sums in another order + bf16 rounding
 SERVED = ("yi_6b", "granite_moe")  # phase 5's models, dense then MoE
 # the attention configs the serve driver reaches, besides those of phase 5
@@ -199,9 +212,9 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -751,6 +764,189 @@ def check_attention_repairs(pa, fa, gen) -> dict:
                 f"hd={chd} page={page} pps={pps} bf16, seq_lens 3-15: max_abs_err={err:.3e} "
                 f"(atol=rtol={TOL_BF16})")
     return errs
+
+
+XL_B, XL_S = 2, 512  # xlstm-125m's train step in phase 9 (b): B x S
+XL_REL_L2 = 1e-4      # float32 kernel vs plain: the same arithmetic, sums in another order
+XL_FLOPS = {"mlstm_fwd": 4, "mlstm_bwd": 12, "slstm_fwd": 8, "slstm_bwd": 16}  # x d^2 a token
+XL_SITE = {"mlstm": "src/repro/models/ssm.py:90", "slstm": "src/repro/models/ssm.py:170"}
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _xl_hold(what: str, got: list, want: list, dtype) -> float:
+    """Each of ``got`` against ``want``: infinities (a fresh stabiliser) in
+    the same places, the rest within atol = rtol = TOL_BF16 in bf16 or a
+    relative L2 of XL_REL_L2 in float32; the largest abs error."""
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        fin = torch.isfinite(w)
+        if not (torch.equal(torch.isfinite(g), fin) and torch.equal(g[~fin], w[~fin])):
+            raise AssertionError(f"{what}: tensor {i} has its infinities elsewhere")
+        g, w = g[fin].float(), w[fin].float()
+        if dtype == torch.bfloat16:
+            err = max(err, check_close(f"{what} tensor {i}", g, w))
+            continue
+        rel = float((g - w).norm() / w.norm().clamp(min=1e-30))
+        if rel > XL_REL_L2:
+            raise AssertionError(f"{what}: tensor {i} off its plain version by a relative "
+                                 f"L2 of {rel} > {XL_REL_L2}")
+        err = max(err, max_err(g, w))
+    return err
+
+
+def xl_inputs(seed: int, dtype, B: int, S: int) -> tuple:
+    """The two recurrences' inputs as xlstm-125m's blocks make them, from
+    fresh weights at the model's init and unit-RMS activations [B, S, 768]:
+    (mLSTM q, k scaled, v, log_i, log_f and a fresh state; sLSTM zx, ix, fx,
+    ox, r and a fresh state)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks, ssm
+
+    cfg = dataclasses.replace(get_config("xlstm_125m"),
+                              dtype="float32" if dtype == torch.float32 else "bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pm = blocks.init_mlstm(cfg, gen, "cuda")["mlstm"]
+    ps = blocks.init_slstm(cfg, gen, "cuda")["slstm"]
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda").to(dtype)
+    H, D = cfg.ssm_heads, cfg.d_model
+    hd = D // H
+    q, k, v = ((x @ pm[w]).view(B, S, H, hd).transpose(1, 2) for w in ("wq", "wk", "wv"))
+    k = k / torch.tensor(hd ** 0.5, dtype=torch.float32).to(k.dtype)
+    log_i = (x @ pm["wi"]).transpose(1, 2).float()
+    log_f = torch.nn.functional.logsigmoid((x @ pm["wf"]).transpose(1, 2).float())
+    mst = ssm.mlstm_init_state(B, H, hd, "cuda")[:3]
+    pre = [(x @ ps[w]).view(B, S, H, hd) for w in ("wz", "wi", "wf", "wo")]
+    r = torch.cat([ps[w].float() for w in ("rz", "ri", "rf", "ro")], dim=-1)
+    return (q, k, v, log_i, log_f, *mst), (*pre, r, *ssm.slstm_init_state(B, H, hd, "cuda"))
+
+
+def check_xlstm(xs, seed: int) -> list:
+    """Phase 3, the xLSTM time loops (the reference's two ``lax.scan``
+    sites): each recurrence's forward kernel (with its saves) and backward
+    kernels against ``ref.py``'s plain forward-with-saves and backward (the
+    backward on the kernel's own saves) at xlstm-125m's width (4 heads of
+    192) and phase 9's train shape, B=2 x S=512, in bf16 and float32; the
+    S=1 decode step from the 512-step state. Timed by CUDA graph at B=2 x
+    512 in bf16 (the plain versions eagerly, two calls), with a bound, and a
+    chain floor: S x the step latency, (t(S) - t(1)) / (S - 1), the time a
+    call of this design spends in its S dependent steps."""
+    from repro_torch.kernels import ref
+
+    rows, worst = [], dict.fromkeys(xs.KERNELS, 0.0)
+    every = xs.CHECKPOINT_EVERY
+    for dtype in (torch.bfloat16, torch.float32):
+        errs = dict.fromkeys(xs.KERNELS, 0.0)
+        margs, sargs = xl_inputs(seed, dtype, XL_B, XL_S)
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        rnd = lambda t: torch.randn(t.shape, generator=g, device="cuda").to(t.dtype)  # noqa
+        tag = f"B={XL_B} S={XL_S} {str(dtype)[6:]}"
+        # mLSTM
+        h, C, n, m, saved = xs.mlstm_fwd(*margs, save=True)
+        want = ref.ref_mlstm_fwd_saved(*margs, every)
+        errs["mlstm_fwd"] = max(errs["mlstm_fwd"], _xl_hold(
+            f"mlstm_fwd {tag}", [h, C, n, m, *saved], [*want[:4], *want[4]], dtype))
+        cots = [rnd(t) for t in (h, C, n, m)]
+        got = xs.mlstm_bwd(*margs[:5], saved, *cots)
+        want = ref.ref_mlstm_bwd(*margs[:5], saved, *cots, every)
+        errs["mlstm_bwd"] = max(errs["mlstm_bwd"], _xl_hold(f"mlstm_bwd {tag}", got, want,
+                                                            dtype))
+        step = [t[:, :, -1:] for t in margs[:5]]
+        errs["mlstm_fwd"] = max(errs["mlstm_fwd"], _xl_hold(
+            f"mlstm_fwd decode step {str(dtype)[6:]}", list(xs.mlstm(*step, C, n, m)),
+            list(ref.ref_mlstm_scan(*step, C, n, m)), dtype))
+        # sLSTM
+        out = xs.slstm_fwd(*sargs, save=True)
+        want = ref.ref_slstm_fwd_saved(*sargs)
+        errs["slstm_fwd"] = max(errs["slstm_fwd"], _xl_hold(
+            f"slstm_fwd {tag}", [*out[:5], *out[5]], [*want[:5], *want[5]], dtype))
+        cots = [rnd(t) for t in out[:5]]
+        got = xs.slstm_bwd(sargs[4], out[5], *cots)
+        want = ref.ref_slstm_bwd(sargs[4], out[5], *cots)
+        errs["slstm_bwd"] = max(errs["slstm_bwd"], _xl_hold(f"slstm_bwd {tag}", got, want,
+                                                            dtype))
+        step = [t[:, -1:] for t in sargs[:4]]
+        errs["slstm_fwd"] = max(errs["slstm_fwd"], _xl_hold(
+            f"slstm_fwd decode step {str(dtype)[6:]}", list(xs.slstm(*step, sargs[4],
+                                                                     *out[1:5])),
+            list(ref.ref_slstm_scan(*step, sargs[4], *out[1:5])), dtype))
+        log(f"[kernels] xlstm scans {tag} and the decode step from its state, max_abs_err: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + (f" (atol=rtol={TOL_BF16})" if dtype == torch.bfloat16
+               else f" (relative L2 <= {XL_REL_L2})"))
+        worst = {k: max(v, errs[k]) for k, v in worst.items()}
+    margs, sargs = xl_inputs(seed, torch.bfloat16, XL_B, XL_S)
+    one_m, one_s = ([t[..., :1, :] if t.dim() == 4 else t[..., :1] for t in margs[:5]],
+                    [t[:, :1] for t in sargs[:4]])
+    _, _, _, _, msaved = xs.mlstm_fwd(*margs, save=True)
+    _, _, _, _, msaved1 = xs.mlstm_fwd(*one_m, *margs[5:], save=True)
+    mh = torch.zeros_like(margs[0])
+    mst = [torch.zeros_like(t) for t in margs[5:]]
+    sout = xs.slstm_fwd(*sargs, save=True)
+    sout1 = xs.slstm_fwd(*one_s, *sargs[4:], save=True)
+    sst = [torch.zeros_like(t) for t in sout[1:5]]
+    calls = {
+        "mlstm_fwd": (lambda: xs.mlstm_fwd(*margs, save=True),
+                      lambda: xs.mlstm_fwd(*one_m, *margs[5:], save=True),
+                      lambda: ref.ref_mlstm_fwd_saved(*margs, every)),
+        "mlstm_bwd": (lambda: xs.mlstm_bwd(*margs[:5], msaved, mh, *mst),
+                      lambda: xs.mlstm_bwd(*one_m, msaved1, mh[:, :, :1], *mst),
+                      lambda: ref.ref_mlstm_bwd(*margs[:5], msaved, mh, *mst, every)),
+        "slstm_fwd": (lambda: xs.slstm_fwd(*sargs, save=True),
+                      lambda: xs.slstm_fwd(*one_s, *sargs[4:], save=True),
+                      lambda: ref.ref_slstm_fwd_saved(*sargs)),
+        "slstm_bwd": (lambda: xs.slstm_bwd(sargs[4], sout[5], sout[0], *sst),
+                      lambda: xs.slstm_bwd(sargs[4], sout1[5], sout1[0], *sst),
+                      lambda: ref.ref_slstm_bwd(sargs[4], sout[5], sout[0], *sst)),
+    }
+    B, H, S, d = margs[0].shape
+    with torch.no_grad():
+        mout = xs.mlstm_fwd(*margs, save=True)
+        mgrads = xs.mlstm_bwd(*margs[:5], msaved, mh, *mst)
+        sgrads = xs.slstm_bwd(sargs[4], sout[5], sout[0], *sst)
+    moved = {"mlstm_fwd": nbytes(*margs, *mout[:4], *mout[4]),
+             "mlstm_bwd": nbytes(*margs[:5], *msaved, mh, *mst, *mgrads),
+             "slstm_fwd": nbytes(*sargs, *sout[:5], *sout[5]),
+             "slstm_bwd": nbytes(sargs[4], *sout[5], sout[0], *sst, *sgrads)}
+    for name, (kernel, one, plain) in calls.items():
+        ms, one_ms = graph_ms(kernel, 3), graph_ms(one, 20)
+        plain_ms = cuda_ms(plain, 2)
+        step_ms = (ms - one_ms) / (S - 1)
+        flops = XL_FLOPS[name] * d * d * B * H * S
+        b_ms, b_by = bound(moved[name], flops, F32_FLOP_PER_S)
+        log(f"[kernels] {name} B={B} H={H} S={S} d={d} bf16: kernel_ms={ms:.5f} (graph) "
+            f"one_step_call_ms={one_ms:.5f} step_latency_ms={step_ms:.6f} "
+            f"chain_floor_ms={S * step_ms:.5f} plain_ms={plain_ms:.5f} bound_ms={b_ms:.7f} "
+            f"({b_by}: {flops / 1e6:.1f} MFLOP at 67 TFLOP/s f32, {moved[name] / 1e6:.2f} MB)"
+            f" launches_per_call={xs.LAUNCHES_PER_CALL[name]}")
+        rows.append(dict(name=name, of="lax.scan",
+                         source=f"src/repro_torch/kernels/csrc/{name[:5]}_scan.cu",
+                         replaces=XL_SITE[name[:5]], max_abs_err=worst[name], ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         chain_floor_ms=S * step_ms))
+    return rows
+
+
+def xl_expected(cfg, fwd: int, bwd: int) -> dict:
+    """The scan kernels' launches of ``fwd`` forward and ``bwd`` backward
+    passes through ``cfg``'s layers (a remat'd training step is two
+    forward passes and one backward)."""
+    per = {kind: cfg.block_pattern.count(kind) * cfg.pattern_repeats
+           for kind in ("mlstm", "slstm")}
+    from repro_torch.kernels import xlstm_scan as xs
+
+    return {f"{kind}_{way}": per[kind] * n * xs.LAUNCHES_PER_CALL[f"{kind}_{way}"]
+            for kind in per for way, n in (("fwd", fwd), ("bwd", bwd))}
+
+
+def xl_moved(xs, before: dict) -> dict:
+    return {k: xs.launches[k] - before[k] for k in xs.KERNELS}
+
+
+def xl_add(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in set(total) | set(more)}
 
 
 # ---------------------------------------------------------------------------
@@ -1494,11 +1690,11 @@ def training(seed: int, kernels: dict, card: str) -> None:
 
 FAMILIES = ("xlstm_125m", "hymba_1_5b", "llava_next", "musicgen_large")
 FAMILY_TOL = 1e-5  # atol = rtol, card against CPU in f32: sums in another order
-# each family's train-driver run: 8 steps of B=2 x (seq, lr). xlstm-125m's
-# Python time loops make a 512-token step 29-36 s on the host; at 128
-# tokens it is a quarter of that, and at lr 1e-5 its loss then moves less
+# each family's train-driver run: 8 steps of B=2 x (seq, lr); xlstm-125m's
+# time loops run as the scan kernels, and at lr 1e-5 its loss moves less
 # than its step-to-step noise, so it trains at lr 1e-4
-FAMILY_TRAIN = {"xlstm_125m": (128, "1e-4"), "hymba_1_5b": (512, "1e-5")}
+FAMILY_TRAIN = {"xlstm_125m": (512, "1e-4"), "hymba_1_5b": (512, "1e-5")}
+TRAIN_STEPS = 8
 DECODE_NOISE = 2  # decode vs apply, in units of apply's own bf16 error (family_decode)
 
 
@@ -1582,8 +1778,8 @@ def family_train(card: str, arch: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     seq, lr = FAMILY_TRAIN[arch]
-    out = train.main(["--arch", arch, "--steps", "8", "--batch", "2", "--seq", str(seq),
-                      "--lr", lr])
+    out = train.main(["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch", "2",
+                      "--seq", str(seq), "--lr", lr])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     losses, secs = out["losses"], out["step_seconds"]
@@ -1765,28 +1961,44 @@ def family_decode(seed: int, arch: str, B: int, prompt: int, steps: int,
     return flash
 
 
-def families(seed: int, kernels: dict, card: str) -> int:
+def families(seed: int, kernels: dict, xs, card: str) -> tuple:
     """Phase 9: the smoke configs card vs CPU; xlstm-125m and hymba-1.5b
     trained and decoded at full width and depth, llava-next-mistral-7b
     decoded after its 2,880 image embeddings. Returns the flash kernel's
-    launches, which only hymba's pallas check may make."""
+    launches, which only hymba's pallas check may make, and the scan
+    kernels' (``xs``), each exactly what the xLSTM layers, remat and the
+    decode steps imply: a smoke reference makes 7 forward passes (apply,
+    the loss, the prefill, 4 decode steps) and 1 backward, a remat'd
+    training step 2 and 1, a decode run 68 forward passes (apply in bf16
+    and in f32, the prefill, 64 steps, the profiled step)."""
+    from repro_torch.configs import get_config
+
     t0 = time.perf_counter()
     before = {name: mod.launches for name, mod in kernels.items()}
+    xl0, want = dict(xs.launches), {}
     for arch in FAMILIES:
         family_reference(seed, arch)
+        want = xl_add(want, xl_expected(get_config(arch, smoke=True), 7, 1))
+    cfg = get_config("xlstm_125m")
     family_train(card, "xlstm_125m")
+    want = xl_add(want, xl_expected(cfg, TRAIN_STEPS * (1 + cfg.remat), TRAIN_STEPS))
     family_decode(seed, "xlstm_125m", B=8, prompt=512, steps=64)
+    want = xl_add(want, xl_expected(cfg, 64 + 4, 0))
     family_train(card, "hymba_1_5b")
     flash = family_decode(seed, "hymba_1_5b", B=4, prompt=1024, steps=64,
                           check_pallas=True, two_chunks=True)
     family_decode(seed, "llava_next", B=2, prompt=64, steps=32, n_extra=2880)
     after = {name: mod.launches for name, mod in kernels.items()}
     moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    log(f"[family] kernels' launches in phase 9: {moved}; phase 9 took "
-        f"{time.perf_counter() - t0:.1f}s ({card})")
+    scans = xl_moved(xs, xl0)
+    log(f"[family] kernels' launches in phase 9: {moved}; the scan kernels' {scans} "
+        f"(implied {want}); phase 9 took {time.perf_counter() - t0:.1f}s ({card})")
     if moved != ({"flash_attention": flash} if flash else {}):
         raise AssertionError(f"phase 9: a kernel launched off its path ({moved})")
-    return flash
+    if scans != want or not all(scans.values()):
+        raise AssertionError(f"phase 9: scan launches {scans}, not the {want} its layers, "
+                             f"remat and decode steps imply")
+    return flash, scans
 
 
 # ---------------------------------------------------------------------------
@@ -2170,13 +2382,19 @@ def finish_dryrun(procs: list, here: str, card: str) -> None:
                 raise AssertionError(f"yi-6b train_4k does not fit one H100: {mem['total']:.4e} B")
 
 
-def parallel_layer(seed: int, kernels: dict, card: str, here: str) -> int:
+def parallel_layer(seed: int, kernels: dict, xs, card: str, here: str) -> tuple:
     """Phase 10: the dry run started in the background, the Yi-6B
     pipeline, NCCL at world size 1, then the dry run's result. Returns the
     flash kernel's launches in the pipeline forward; besides those, only
-    the flash launches of ``apply`` it is held to may happen here."""
+    the flash launches of ``apply`` it is held to may happen here; and the
+    scan kernels' launches, those of xlstm-125m's four remat'd passes in
+    (b): the plain and the sharded loss and gradients, the plain and the
+    sharded train step."""
+    from repro_torch.configs import get_config
+
     t0 = time.perf_counter()
     before = {name: mod.launches for name, mod in kernels.items()}
+    xl0 = dict(xs.launches)
     dry = start_dryrun(here)
     try:
         flash = pipeline_yi(seed, kernels, card)
@@ -2191,7 +2409,14 @@ def parallel_layer(seed: int, kernels: dict, card: str, here: str) -> int:
         f"rest apply's to hold it); phase 10 took {time.perf_counter() - t0:.1f}s ({card})")
     if moved != {"flash_attention": 2 * flash}:
         raise AssertionError(f"phase 10: a kernel launched off its path ({moved})")
-    return flash
+    scans, want = xl_moved(xs, xl0), {}
+    for arch, over, _, _ in NCCL_STEPS:
+        cfg = dataclasses.replace(get_config(arch), **over)
+        want = xl_add(want, xl_expected(cfg, 4 * (1 + cfg.remat), 4))
+    log(f"[parallel] the scan kernels' launches in phase 10: {scans} (implied {want})")
+    if scans != want:
+        raise AssertionError(f"phase 10: scan launches {scans}, not the implied {want}")
+    return flash, scans
 
 
 # ---------------------------------------------------------------------------
@@ -2203,7 +2428,7 @@ SERVE_EXAMPLES = ("torch_quickstart", "torch_serve_batched", "torch_serve_multit
 TOL_F32 = 2e-5                 # atol = rtol in float32: sums in another order
 # the reference's documented CI scale (its loss falls), then the full
 # published width at the example's batch of 8 for a few steps at 64 tokens
-# (its Python time loops take ≈1.3 s a step there at batch 2)
+# (its time loops through the scan kernels)
 TRAIN_LM_RUNS = (["--steps", "20", "--scale", "0.25", "--batch", "4", "--seq", "64"],
                  ["--steps", "4", "--scale", "1.0", "--seq", "64"])
 
@@ -2341,9 +2566,11 @@ def serve_example(here: str, name: str, kernels: dict, card: str) -> tuple:
     return launches, errs
 
 
-def train_lm(here: str, card: str, flags: list) -> list:
+def train_lm(here: str, card: str, flags: list) -> tuple:
     """``examples/torch_train_lm.py`` on the card at ``flags``, from a
-    fresh checkpoint directory; its losses (all finite) and step seconds."""
+    fresh checkpoint directory; its losses (all finite) and the scan
+    launches its layers imply (the example trains without remat: one
+    forward and one backward pass a step)."""
     mod = load_example(here, "torch_train_lm")
     ck = os.path.join(here, "build", "phase11_train_ckpt")
     shutil.rmtree(ck, ignore_errors=True)
@@ -2369,14 +2596,17 @@ def train_lm(here: str, card: str, flags: list) -> list:
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; step s {times[0]:.3f} first, "
         f"{np.median(times[1:] or times):.3f} median after; wall {wall:.2f}s; stragglers "
         f"{tr.stragglers} ({card})")
-    return losses
+    steps = len(losses)
+    return losses, xl_expected(tr.cfg, steps * (1 + tr.cfg.remat), steps)
 
 
-def examples(here: str, kernels: dict, card: str) -> dict:
+def examples(here: str, kernels: dict, xs, card: str) -> dict:
     """Phase 11: the port's six examples on the card. Returns the serving
     kernels' launches of the serve examples (each its own counted run) and
     the largest error of their kernel calls; the pipeline demo and
-    ``torch_train_lm.py`` may launch no kernel."""
+    ``torch_train_lm.py`` may launch no serving kernel, and
+    ``torch_train_lm.py`` launches the scan kernels as its layers imply
+    (returned too)."""
     t0 = time.perf_counter()
     total = dict.fromkeys(kernels, 0)
     errs = {"paged_attention": 0.0, "flash_attention": 0.0}
@@ -2395,18 +2625,25 @@ def examples(here: str, kernels: dict, card: str) -> dict:
         f"{time.perf_counter() - t1:.2f}s")
     from repro_torch.configs import get_config
 
-    ci = train_lm(here, card, TRAIN_LM_RUNS[0])
+    xl0 = dict(xs.launches)
+    ci, want = train_lm(here, card, TRAIN_LM_RUNS[0])
     check_falls(ci, get_config("xlstm-125m").vocab_size)
-    train_lm(here, card, TRAIN_LM_RUNS[1])
+    want = xl_add(want, train_lm(here, card, TRAIN_LM_RUNS[1])[1])
     after = {name: mod.launches for name, mod in kernels.items()}
     if after != before:
         raise AssertionError(f"a serving kernel launched in the pipeline demo or in "
                              f"torch_train_lm.py ({before} -> {after})")
+    scans = xl_moved(xs, xl0)
+    log(f"[examples] the scan kernels' launches in torch_train_lm.py: {scans} (implied "
+        f"{want})")
+    if scans != want:
+        raise AssertionError(f"phase 11: torch_train_lm.py's scan launches {scans}, not "
+                             f"the implied {want}")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[examples] serving kernels' launches in phase 11: {total}; phase 11 took "
         f"{time.perf_counter() - t0:.1f}s ({card})")
-    return {"launches": total, "errs": errs}
+    return {"launches": total, "errs": errs, "scans": scans}
 
 
 def _self_device_us(evt) -> float:
@@ -2476,6 +2713,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(here, "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import cmp_claim, cmp_ring, flash_attention, paged_attention
+    from repro_torch.kernels import xlstm_scan
 
     walls = []
 
@@ -2519,6 +2757,7 @@ def main() -> int:
     repaired = check_attention_repairs(paged_attention, flash_attention, gen)
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], repaired["paged"])
     rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], repaired["flash"])
+    scan_rows = check_xlstm(xlstm_scan, args.seed)
     phase(3, "kernels", t0)
 
     # phase 4: small-input reference
@@ -2557,17 +2796,17 @@ def main() -> int:
 
     # phase 9: the SSM, hybrid and frontend families
     t0 = time.perf_counter()
-    phase9 = families(args.seed, kernels, card)
+    phase9, scans9 = families(args.seed, kernels, xlstm_scan, card)
     phase(9, "SSM, hybrid and frontend families", t0)
 
     # phase 10: the parallel layer and the launch tooling
     t0 = time.perf_counter()
-    phase10 = parallel_layer(args.seed, kernels, card, here)
+    phase10, scans10 = parallel_layer(args.seed, kernels, xlstm_scan, card, here)
     phase(10, "parallel layer and launch tooling", t0)
 
     # phase 11: the examples
     t0 = time.perf_counter()
-    phase11 = examples(here, kernels, card)
+    phase11 = examples(here, kernels, xlstm_scan, card)
     phase(11, "examples", t0)
     log("[wall] " + "; ".join(f"phase {n} {s:.1f}s" for n, _, s in walls)
         + f"; total {sum(s for *_, s in walls):.1f}s ({card})")
@@ -2584,14 +2823,24 @@ def main() -> int:
         f"; phase 9 (hymba, attention_impl='pallas'): flash {phase9}; phase 10 (the Yi-6B "
         f"pipeline forward): flash {phase10}; phase 11 (the serve examples): "
         f"{ {k: ex[k] for k in serving} }")
+    scans = xl_add(xl_add(scans9, scans10), phase11["scans"])
+    log(f"[launches] the scan kernels: phase 9 (xlstm smoke, train driver, decode) "
+        f"{scans9}; phase 10 (b) (xlstm-125m sharded and plain) {scans10}; phase 11 "
+        f"(torch_train_lm.py) {phase11['scans']}")
     for row in rows:
         row["max_abs_err"] = max(row["max_abs_err"], phase11["errs"].get(row["name"], 0.0))
-        row["route"] = "cuda"
         row["launches"] = launches[row["name"]]
-    keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+        row["of"] = "pallas_call"
+    for row in scan_rows:
+        row["launches"] = scans[row["name"]]
+    rows += scan_rows
+    for row in rows:
+        row["route"] = "cuda"
+    keys = ["name", "route", "source", "replaces", "of", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(f"{smi} (the card of every number above)")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ["chain_floor_ms"] if k in r}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

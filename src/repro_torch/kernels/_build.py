@@ -40,9 +40,16 @@ SIGNATURES = {
     "rt_paged_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
     "rt_flash_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
     "rt_cmp_claim": [_P] * 11 + [_I] * 3 + [_P],
+    "rt_mlstm_fwd": [_P] * 17 + [_I] * 6 + [_P],
+    "rt_mlstm_bwd": [_P] * 29 + [_I] * 6 + [_P],
+    "rt_slstm_fwd": [_P] * 22 + [_I] * 5 + [_P],
+    "rt_slstm_bwd": [_P] * 24 + [_I] * 5 + [_P],
     "rt_cmp_ring_max_n": [],
     "rt_paged_attention_max_rep_hd": [],
     "rt_flash_attention_max_hd": [],
+    "rt_mlstm_max_d": [],
+    "rt_mlstm_block_v": [],
+    "rt_slstm_max_hd": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None

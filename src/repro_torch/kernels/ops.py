@@ -8,6 +8,7 @@ from repro_torch.kernels import cmp_claim as _claim
 from repro_torch.kernels import cmp_ring as _ring
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import xlstm_scan as _xs
 
 
 def flash_attention(q, k, v, *, causal=True, sliding_window=0, softcap=0.0):
@@ -41,3 +42,15 @@ def claim_pool(state, cycle, retire_cycle, deque_cycle, *, k):
     """``slotpool.claim`` fused: (new_state, ids, valid, new_retire_cycle,
     new_deque_cycle) in one launch on the card."""
     return _claim.claim_pool(state, cycle, retire_cycle, deque_cycle, k=k)
+
+
+def mlstm_scan(q, k, v, log_i, log_f, C, n, m):
+    """The mLSTM recurrence over q, k (scaled), v [B, H, S, d] and the log
+    gates [B, H, S] from the state (C, n, m) -> (h [B, H, S, d], C, n, m)."""
+    return _xs.mlstm(q, k, v, log_i, log_f, C, n, m)
+
+
+def slstm_scan(zx, ix, fx, ox, r, c, n, h, m):
+    """The sLSTM recurrence over the preactivations [B, S, H, hd] and r [H,
+    hd, 4hd] from the state (c, n, h, m) -> (hs [B, S, H, hd], c, n, h, m)."""
+    return _xs.slstm(zx, ix, fx, ox, r, c, n, h, m)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.domain import AVAILABLE, CLAIMED, FREE
 
@@ -176,3 +177,233 @@ def set_drop(arr, ids, values):
     ext = torch.cat([arr, arr.new_zeros(1)])
     ext[ids.long()] = values
     return ext[:-1]
+
+
+# ---------------------------------------------------------------------------
+# the xLSTM time loops (the reference's two ``lax.scan`` sites)
+# ---------------------------------------------------------------------------
+
+
+def _gates(log_i, log_f, m):
+    """One step's stabiliser and gates from the log gates and the previous
+    stabiliser m (-inf before the first step): (m_new, i_s, f_s)."""
+    m_new = torch.maximum(log_f + m, log_i)
+    m_new = torch.where(torch.isinf(m_new), log_i, m_new)  # first step
+    return (m_new, *_gates_at(log_i, log_f, m, m_new))
+
+
+def _gates_at(log_i, log_f, m, m_new):
+    """(i_s, f_s) of a step whose stabiliser m_new is known (the backward
+    takes the saved one: the same arithmetic, so the same bits)."""
+    i_s = torch.exp(log_i - m_new)
+    f_s = torch.where(torch.isinf(m), 0.0, torch.exp(log_f + m - m_new))
+    return i_s, f_s
+
+
+def _tie(a, b):
+    """d max(a, b) / da as autograd takes it (torch.maximum and
+    jnp.maximum alike): 1 where a wins, 1/2 on a tie, else 0."""
+    return torch.where(a > b, 1.0, torch.where(a == b, 0.5, 0.0))
+
+
+def _gates_bwd(log_i, log_f, m, m_new, di, df, dm):
+    """The stabiliser chain of one step backwards: from the gradients of
+    the step's i_s and f_s (di, df) and of its m_new (dm), the gradients
+    of log_i, log_f and the previous m, following autograd through
+    :func:`_gates`: the first step's ``where``s pass nothing to the branch
+    they drop, and a tie of the ``maximum`` splits evenly."""
+    a = log_f + m
+    m_til = torch.maximum(a, log_i)
+    live = ~torch.isinf(m)
+    i_s, f_s = _gates_at(log_i, log_f, m, m_new)
+    dff = torch.where(live, df * f_s, 0.0)
+    dm = dm - di * i_s - dff
+    first = torch.isinf(m_til)
+    dli = di * i_s + torch.where(first, dm, 0.0)
+    dm_til = torch.where(first, 0.0, dm)
+    wa = _tie(a, log_i)
+    da = dm_til * wa
+    dli = dli + dm_til * (1.0 - wa)
+    return dli, dff + da, dff + da
+
+
+def mlstm_step(C, n, m, qf, kf, vf, log_i, log_f):
+    """One mLSTM step in float32: (C, n, m_new, h, n . q) after it, h
+    [B,H,d] unrounded."""
+    m_new, i_s, f_s = _gates(log_i, log_f, m)
+    C = f_s[..., None, None] * C + i_s[..., None, None] * (kf[..., :, None] * vf[..., None, :])
+    n = f_s[..., None] * n + i_s[..., None] * kf
+    num = torch.einsum("bhkv,bhk->bhv", C, qf)
+    nq = torch.einsum("bhk,bhk->bh", n, qf)
+    den = torch.maximum(torch.abs(nq), torch.exp(-m_new))
+    return C, n, m_new, num / den[..., None], nq
+
+
+def ref_mlstm_scan(q, k, v, log_i, log_f, C, n, m):
+    """The mLSTM recurrence over q, k, v [B,H,S,d] (k already scaled by
+    1/sqrt(d) in its dtype) and the log gates log_i, log_f [B,H,S] float32,
+    from the state C [B,H,d,d], n [B,H,d], m [B,H] (float32). Returns (h
+    [B,H,S,d] in q's dtype, C, n, m)."""
+    hs = []
+    for qf, kf, vf, li, lf in zip(q.float().unbind(2), k.float().unbind(2),
+                                  v.float().unbind(2), log_i.unbind(2), log_f.unbind(2)):
+        C, n, m, h, _ = mlstm_step(C, n, m, qf, kf, vf, li, lf)
+        hs.append(h.to(q.dtype))
+    return torch.stack(hs, dim=2), C, n, m
+
+
+def ref_mlstm_fwd_saved(q, k, v, log_i, log_f, C, n, m, every: int):
+    """:func:`ref_mlstm_scan` with what the backward takes, in the CUDA
+    kernel's layouts: (h, C, n, m, saved), saved = (ck [nseg,B,H,d,d], C
+    before each ``every``-th step; n_all [B,H,S+1,d] and m_all [B,H,S+1],
+    the initial n and m then each step's; nq [B,H,S], each step's n . q;
+    h32 [B,H,S,d], h unrounded)."""
+    S = q.shape[2]
+    ck, ns, ms, nqs, h32 = [], [n], [m], [], []
+    qs, ks, vs = q.float().unbind(2), k.float().unbind(2), v.float().unbind(2)
+    for t in range(S):
+        if t % every == 0:
+            ck.append(C)
+        C, n, m, h, nq = mlstm_step(C, n, m, qs[t], ks[t], vs[t], log_i[..., t],
+                                    log_f[..., t])
+        ns.append(n)
+        ms.append(m)
+        nqs.append(nq)
+        h32.append(h)
+    h32 = torch.stack(h32, dim=2)
+    saved = (torch.stack(ck), torch.stack(ns, dim=2), torch.stack(ms, dim=2),
+             torch.stack(nqs, dim=2), h32)
+    return h32.to(q.dtype), C, n, m, saved
+
+
+def ref_mlstm_bwd(q, k, v, log_i, log_f, saved, dh, dC, dn, dm, every: int):
+    """The mLSTM recurrence's backward, the CUDA kernels' algorithm in
+    plain torch: a reverse loop over segments of ``every`` steps, each
+    recomputed from its checkpoint in ``saved`` (:func:`ref_mlstm_fwd_saved`),
+    carrying dC, dn and dm. Returns the gradients of (q, k, v, log_i,
+    log_f, C, n, m), q, k, v's in their dtypes."""
+    ck, n_all, m_all, nq_all, h32 = saved
+    S = q.shape[2]
+    qs, ks, vs = q.float().unbind(2), k.float().unbind(2), v.float().unbind(2)
+    dhf = dh.float()
+    g = (dhf * h32).sum(-1)  # sum_v dh h: the denominator's gradient is -g / den
+    dq, dk, dv = (torch.zeros_like(h32) for _ in range(3))
+    dli, dlf = torch.zeros_like(log_i), torch.zeros_like(log_f)
+    for seg in reversed(range(ck.shape[0])):
+        t0, t1 = seg * every, min(S, seg * every + every)
+        C, prev = ck[seg], []
+        for t in range(t0, t1):  # C_{t-1} of each step of the segment
+            prev.append(C)
+            i_s, f_s = _gates_at(log_i[..., t], log_f[..., t], m_all[..., t], m_all[..., t + 1])
+            C = (f_s[..., None, None] * C
+                 + i_s[..., None, None] * (ks[t][..., :, None] * vs[t][..., None, :]))
+        for t in reversed(range(t0, t1)):
+            mp, mt, nq = m_all[..., t], m_all[..., t + 1], nq_all[..., t]
+            e = torch.exp(-mt)
+            den = torch.maximum(nq.abs(), e)
+            dden = -g[..., t] / den
+            ds = dden * _tie(nq.abs(), e) * torch.sign(nq)
+            dnum = dhf[..., t, :] / den[..., None]
+            dC = dC + qs[t][..., :, None] * dnum[..., None, :]
+            dn = dn + ds[..., None] * qs[t]
+            dq[..., t, :] = (torch.einsum("bhkv,bhv->bhk", C, dnum)
+                             + ds[..., None] * n_all[..., t + 1, :])
+            i_s, f_s = _gates_at(log_i[..., t], log_f[..., t], mp, mt)
+            dcv = torch.einsum("bhkv,bhv->bhk", dC, vs[t])
+            dk[..., t, :] = i_s[..., None] * (dcv + dn)
+            dv[..., t, :] = i_s[..., None] * torch.einsum("bhkv,bhk->bhv", dC, ks[t])
+            di = (ks[t] * dcv).sum(-1) + (dn * ks[t]).sum(-1)
+            df = (dC * prev[t - t0]).sum((-2, -1)) + (dn * n_all[..., t, :]).sum(-1)
+            dm = dm - e * dden * _tie(e, nq.abs())
+            dli[..., t], dlf[..., t], dm = _gates_bwd(log_i[..., t], log_f[..., t], mp, mt,
+                                                      di, df, dm)
+            dC, dn = f_s[..., None, None] * dC, f_s[..., None] * dn
+            C = prev[t - t0]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dli, dlf, dC, dn, dm
+
+
+def slstm_step(c, n, h, m, zt, it, ft, ot, r):
+    """One sLSTM step in float32 over the inputs' preactivations [B,H,hd]
+    and r [H,hd,4hd]: (c, n, h, m_new, z, o, log_i, the forget gate's mean
+    preactivation)."""
+    hd = zt.shape[-1]
+    zr, ir, fr, orr = torch.einsum("bhd,hde->bhe", h, r).split(hd, dim=-1)
+    z = torch.tanh(zt + zr)
+    log_i = torch.mean(it + ir, dim=-1)  # per-head scalar gates [B,H]
+    pre_f = torch.mean(ft + fr, dim=-1)
+    o = torch.sigmoid(ot + orr)
+    m_new, i_s, f_s = _gates(log_i, F.logsigmoid(pre_f), m)
+    c = f_s[..., None] * c + i_s[..., None] * z
+    n = f_s[..., None] * n + i_s[..., None]
+    h = o * c / torch.clamp(n, min=1.0)
+    return c, n, h, m_new, z, o, log_i, pre_f
+
+
+def ref_slstm_scan(zx, ix, fx, ox, r, c, n, h, m):
+    """The sLSTM recurrence over the input preactivations [B,S,H,hd] and
+    the recurrent matrices r [H,hd,4hd] (float32) from the state c, n, h
+    [B,H,hd] and m [B,H] (float32). Returns (h [B,S,H,hd] in zx's dtype,
+    c, n, h, m)."""
+    hs = []
+    for zt, it, ft, ot in zip(zx.float().unbind(1), ix.float().unbind(1),
+                              fx.float().unbind(1), ox.float().unbind(1)):
+        c, n, h, m, *_ = slstm_step(c, n, h, m, zt, it, ft, ot, r)
+        hs.append(h.to(zx.dtype))
+    return torch.stack(hs, dim=1), c, n, h, m
+
+
+def ref_slstm_fwd_saved(zx, ix, fx, ox, r, c, n, h, m):
+    """:func:`ref_slstm_scan` with what the backward takes, in the CUDA
+    kernel's layouts: (hs, c, n, h, m, saved), saved = (h_all, c_all, n_all
+    [B,S+1,H,hd], the initial state then each step's; z_all, o_all
+    [B,S,H,hd]; li_all, pf_all [B,S,H], log_i and the forget gate's mean
+    preactivation; m_all [B,S+1,H])."""
+    keep = {k: [v] for k, v in (("h", h), ("c", c), ("n", n), ("m", m))}
+    keep |= {k: [] for k in ("z", "o", "li", "pf")}
+    for zt, it, ft, ot in zip(zx.float().unbind(1), ix.float().unbind(1),
+                              fx.float().unbind(1), ox.float().unbind(1)):
+        c, n, h, m, z, o, li, pf = slstm_step(c, n, h, m, zt, it, ft, ot, r)
+        for key, val in (("h", h), ("c", c), ("n", n), ("m", m), ("z", z), ("o", o),
+                         ("li", li), ("pf", pf)):
+            keep[key].append(val)
+    saved = tuple(torch.stack(keep[key], dim=1)
+                  for key in ("h", "c", "n", "z", "o", "li", "pf", "m"))
+    return saved[0][:, 1:].to(zx.dtype), c, n, h, m, saved
+
+
+def ref_slstm_bwd(r, saved, dhs, dc, dn, dh, dm):
+    """The sLSTM recurrence's backward in plain torch, the CUDA kernels'
+    algorithm: a reverse loop over the states and gates in ``saved``
+    (:func:`ref_slstm_fwd_saved`), carrying dh, dc, dn and dm; dr is the
+    sum over rows and steps of h_{t-1} (x) the step's preactivation
+    gradient. Returns the gradients of (zx, ix, fx, ox, r, c, n, h, m),
+    the inputs' in dhs's dtype."""
+    h_all, c_all, n_all, z_all, o_all, li_all, pf_all, m_all = saved
+    S, hd = dhs.shape[1], dhs.shape[-1]
+    drec = []
+    for t in reversed(range(S)):
+        dht = dh + dhs[:, t].float()
+        c_t, n_t, z, o = c_all[:, t + 1], n_all[:, t + 1], z_all[:, t], o_all[:, t]
+        li, pf, mp, mt = li_all[:, t], pf_all[:, t], m_all[:, t], m_all[:, t + 1]
+        nc = torch.clamp(n_t, min=1.0)
+        gh = dht / nc
+        do = gh * c_t
+        dct = dc + gh * o
+        dnt = dn + torch.where(n_t >= 1.0, -dht * (o * c_t) / (nc * nc), 0.0)
+        lf = F.logsigmoid(pf)
+        i_s, f_s = _gates_at(li, lf, mp, mt)
+        di = (dct * z + dnt).sum(-1)
+        df = (dct * c_all[:, t] + dnt * n_all[:, t]).sum(-1)
+        dli, dlf, dm = _gates_bwd(li, lf, mp, mt, di, df, dm)
+        dpf = dlf * torch.sigmoid(-pf)
+        step = torch.cat([dct * i_s[..., None] * (1 - z * z),
+                          (dli / hd)[..., None].expand_as(z),
+                          (dpf / hd)[..., None].expand_as(z),
+                          do * (1 - o) * o], dim=-1)  # [B,H,4hd]
+        drec.append(step)
+        dh = torch.einsum("hde,bhe->bhd", r, step)
+        dc, dn = f_s[..., None] * dct, f_s[..., None] * dnt
+    drec = torch.stack(drec[::-1], dim=1)  # [B,S,H,4hd]
+    dr = torch.einsum("bshd,bshe->hde", h_all[:, :S], drec)
+    dzx, dix, dfx, dox = (g.to(dhs.dtype) for g in drec.split(hd, dim=-1))
+    return dzx, dix, dfx, dox, dr, dc, dn, dh, dm

@@ -1,0 +1,283 @@
+"""The xLSTM time loops, mLSTM and sLSTM, forward and backward: CUDA kernels
+(``csrc/mlstm_scan.cu``, ``csrc/slstm_scan.cu``) and their wrappers.
+
+Replaces the reference's two ``lax.scan`` sites, which XLA runs as one loop
+on the device each (and their gradients as reverse scans):
+``repro/models/ssm.py`` :: ``mlstm_scan`` (the scan at :90) and
+``slstm_block`` (the scan at :170). The kernels compute exactly the plain
+loops of ``ref.py`` (``ref_mlstm_scan``, ``ref_slstm_scan``), step by step,
+in float32 with each step's h cast to the input's dtype as it is written;
+they are not a chunkwise-parallel mLSTM, which would round otherwise.
+
+What bounds them: the chain of S dependent steps, not the card's rates
+(an mLSTM step is 4 d^2 FLOPs a row and head; an sLSTM step 8 hd^2 over
+its head of r, 590 KB at hd = 192, more than an SM holds). So each call
+is one launch that holds its whole time loop. The mLSTM splits C's value
+columns over CTAs (16 each), every CTA keeping its slice in registers for
+all S steps and recomputing the O(d) normaliser alike, so a step needs no
+other CTA. The sLSTM runs a cluster of 8 CTAs per head and 4 batch rows:
+each keeps the eighth of r that feeds its elements in shared memory, and
+the step's h and per-head means go round the cluster through distributed
+shared memory. See the sources for the layouts.
+
+Backward: the forward saves what the backward kernels read (the mLSTM's C
+every ``CHECKPOINT_EVERY`` steps and its O(S d) vectors; the sLSTM's
+per-step states and gates), and each backward is two launches: the
+reverse loop, then a fixed-order reduction (the mLSTM's sums over value
+blocks and its stabiliser chain; the sLSTM's dr product). No float
+atomics, so a gradient is the same bits run after run.
+
+On a CPU or ``meta`` tensor the entry points run the plain loop with
+ordinary autograd (the dry run traces on ``meta``); on a CUDA tensor they
+launch the kernels or raise. Where autograd records, the call goes through
+:class:`MLSTM` / :class:`SLSTM` (``torch.autograd.Function``s whose
+forward saves and whose backward launches the backward kernels; on CPU
+tensors they run ``ref.py``'s plain forward-with-saves and backward, which
+the tests hold to autograd); elsewhere the forward kernel runs without
+saving. ``launches`` counts kernel launches by kernel:
+``LAUNCHES_PER_CALL`` of them a call.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+KERNELS = ("mlstm_fwd", "mlstm_bwd", "slstm_fwd", "slstm_bwd")
+LAUNCHES_PER_CALL = {"mlstm_fwd": 1, "mlstm_bwd": 2, "slstm_fwd": 1, "slstm_bwd": 2}
+launches = dict.fromkeys(KERNELS, 0)
+CHECKPOINT_EVERY = 32  # the mLSTM forward saves C before every 32nd step
+
+plain_mlstm = ref.ref_mlstm_scan
+plain_slstm = ref.ref_slstm_scan
+
+
+def _on_host(t: torch.Tensor) -> bool:
+    return t.device.type in ("cpu", "meta")
+
+
+def _records(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _check(what: str, dev, tensors: dict, dtype) -> None:
+    _build.require(dev.type == "cuda", f"{what}: unsupported device {dev}")
+    _build.require(dtype in _build.DTYPE_CODES, f"{what}: dtype {dtype} not float32/bfloat16")
+    for name, (t, shape, dt) in tensors.items():
+        _build.require(t.device == dev and t.dtype == dt and tuple(t.shape) == tuple(shape),
+                       f"{what}: {name} must be {dt} {tuple(shape)} on {dev}, got "
+                       f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _c(*ts):
+    return [t.contiguous() for t in ts]
+
+
+def _empty(*shape, like, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def _mlstm_args(q, k, v, log_i, log_f, C, n, m):
+    B, H, S, d = q.shape
+    f32 = torch.float32
+    _check("mlstm", q.device, {
+        "k": (k, q.shape, q.dtype), "v": (v, q.shape, q.dtype),
+        "log_i": (log_i, (B, H, S), f32), "log_f": (log_f, (B, H, S), f32),
+        "C": (C, (B, H, d, d), f32), "n": (n, (B, H, d), f32), "m": (m, (B, H), f32)},
+        q.dtype)
+    top = _build.lib().rt_mlstm_max_d()
+    _build.require(1 <= d <= top, f"mlstm: head dim {d} not in 1..{top}")
+    return _c(q, k, v, log_i, log_f, C, n, m)
+
+
+def mlstm_fwd(q, k, v, log_i, log_f, C, n, m, *, save: bool = False):
+    """The forward kernel: (h, C, n, m, saved) with ``saved`` as
+    ``ref.ref_mlstm_fwd_saved`` gives it, or None without ``save``."""
+    q, k, v, log_i, log_f, C, n, m = _mlstm_args(q, k, v, log_i, log_f, C, n, m)
+    B, H, S, d = q.shape
+    h = torch.empty_like(q)
+    out = (torch.empty_like(C), torch.empty_like(n), torch.empty_like(m))
+    saved = None
+    if save:
+        saved = (_empty(-(-S // CHECKPOINT_EVERY), B, H, d, d, like=q),
+                 _empty(B, H, S + 1, d, like=q), _empty(B, H, S + 1, like=q),
+                 _empty(B, H, S, like=q), _empty(B, H, S, d, like=q))
+    if B * H == 0:
+        return (h, *(t.copy_(s) for t, s in zip(out, (C, n, m))), saved)
+    lib = _build.lib()
+    sv = [None] * 5 if saved is None else [t.data_ptr() for t in saved]
+    err = lib.rt_mlstm_fwd(*(t.data_ptr() for t in (q, k, v, log_i, log_f, C, n, m, h, *out)),
+                           *sv, B, H, S, d, CHECKPOINT_EVERY, _build.DTYPE_CODES[q.dtype],
+                           _build.stream_ptr(q.device))
+    _build.check(err, "mlstm_fwd")
+    launches["mlstm_fwd"] += LAUNCHES_PER_CALL["mlstm_fwd"]
+    return (h, *out, saved)
+
+
+def mlstm_bwd(q, k, v, log_i, log_f, saved, dh, dC, dn, dm):
+    """The backward kernels: the gradients of (q, k, v, log_i, log_f, C, n,
+    m) from the forward's ``saved`` and the gradients of (h, C, n, m), as
+    ``ref.ref_mlstm_bwd`` computes them."""
+    q, k, v, log_i, log_f = _c(q, k, v, log_i, log_f)
+    B, H, S, d = q.shape
+    _check("mlstm_bwd", q.device, {"dh": (dh, q.shape, q.dtype)}, q.dtype)
+    dh, dC, dn, dm = _c(dh, dC, dn, dm)
+    lib = _build.lib()
+    block_v = lib.rt_mlstm_block_v()
+    nx, threads = -(-d // block_v), -(-d // 32) * 32
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dli, dlf = torch.empty_like(log_i), torch.empty_like(log_f)
+    dC0, dn0, dm0 = torch.empty_like(dC), torch.empty_like(dn), torch.empty_like(dm)
+    if B * H == 0:
+        return dq, dk, dv, dli, dlf, dC0, dn0, dm0
+    scratch = (_empty(B * H * nx, CHECKPOINT_EVERY, threads, block_v, like=q),
+               _empty(nx, B, H, S, d, like=q), _empty(nx, B, H, S, d, like=q),
+               _empty(nx, B, H, S, like=q), _empty(nx, B, H, S, like=q),
+               _empty(B, H, S, like=q), _empty(B, H, S, like=q))
+    err = lib.rt_mlstm_bwd(*(t.data_ptr() for t in (
+        q, k, v, log_i, log_f, *saved, dh, dC, dn, dm, dq, dk, dv, dli, dlf, dC0, dn0, dm0,
+        *scratch)), B, H, S, d, CHECKPOINT_EVERY, _build.DTYPE_CODES[q.dtype],
+        _build.stream_ptr(q.device))
+    _build.check(err, "mlstm_bwd")
+    launches["mlstm_bwd"] += LAUNCHES_PER_CALL["mlstm_bwd"]
+    return dq, dk, dv, dli, dlf, dC0, dn0, dm0
+
+
+class MLSTM(torch.autograd.Function):
+    """The mLSTM recurrence with a backward of its own: the kernels on CUDA
+    tensors, ``ref.py``'s plain forward-with-saves and backward on CPU ones."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_i, log_f, C, n, m):
+        if q.is_cuda:
+            h, C, n, m, saved = mlstm_fwd(q, k, v, log_i, log_f, C, n, m, save=True)
+        else:
+            h, C, n, m, saved = ref.ref_mlstm_fwd_saved(q, k, v, log_i, log_f, C, n, m,
+                                                        CHECKPOINT_EVERY)
+        ctx.save_for_backward(q, k, v, log_i, log_f, *saved)
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        q, k, v, log_i, log_f, *saved = ctx.saved_tensors
+        if q.is_cuda:
+            grads = mlstm_bwd(q, k, v, log_i, log_f, saved, dh, dC, dn, dm)
+        else:
+            grads = ref.ref_mlstm_bwd(q, k, v, log_i, log_f, saved, dh, dC, dn, dm,
+                                      CHECKPOINT_EVERY)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def mlstm(q, k, v, log_i, log_f, C, n, m):
+    """The mLSTM recurrence: (h [B,H,S,d] in q's dtype, C, n, m). q, k, v
+    [B,H,S,d] (k scaled by 1/sqrt(d) in its dtype), log_i, log_f [B,H,S]
+    float32, the state C [B,H,d,d], n [B,H,d], m [B,H] float32."""
+    args = (q, k, v, log_i, log_f, C, n, m)
+    if _on_host(q):
+        return plain_mlstm(*args)
+    if _records(*args):
+        return MLSTM.apply(*args)
+    return mlstm_fwd(*args)[:4]
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def _slstm_args(zx, ix, fx, ox, r, c, n, h, m):
+    B, S, H, hd = zx.shape
+    f32 = torch.float32
+    _check("slstm", zx.device, {
+        "ix": (ix, zx.shape, zx.dtype), "fx": (fx, zx.shape, zx.dtype),
+        "ox": (ox, zx.shape, zx.dtype), "r": (r, (H, hd, 4 * hd), f32),
+        "c": (c, (B, H, hd), f32), "n": (n, (B, H, hd), f32), "h": (h, (B, H, hd), f32),
+        "m": (m, (B, H), f32)}, zx.dtype)
+    top = _build.lib().rt_slstm_max_hd()
+    _build.require(1 <= hd <= top, f"slstm: head dim {hd} not in 1..{top}")
+    return _c(zx, ix, fx, ox, r, c, n, h, m)
+
+
+def slstm_fwd(zx, ix, fx, ox, r, c, n, h, m, *, save: bool = False):
+    """The forward kernel: (hs, c, n, h, m, saved) with ``saved`` as
+    ``ref.ref_slstm_fwd_saved`` gives it, or None without ``save``."""
+    zx, ix, fx, ox, r, c, n, h, m = _slstm_args(zx, ix, fx, ox, r, c, n, h, m)
+    B, S, H, hd = zx.shape
+    hs = torch.empty_like(zx)
+    out = tuple(torch.empty_like(t) for t in (c, n, h, m))
+    saved = None
+    if save:
+        saved = (*(_empty(B, S + 1, H, hd, like=zx) for _ in range(3)),
+                 *(_empty(B, S, H, hd, like=zx) for _ in range(2)),
+                 *(_empty(B, S, H, like=zx) for _ in range(2)), _empty(B, S + 1, H, like=zx))
+    if B * H == 0:
+        return (hs, *(t.copy_(s) for t, s in zip(out, (c, n, h, m))), saved)
+    lib = _build.lib()
+    sv = [None] * 8 if saved is None else [t.data_ptr() for t in saved]
+    err = lib.rt_slstm_fwd(*(t.data_ptr() for t in (zx, ix, fx, ox, r, c, n, h, m, hs, *out)),
+                           *sv, B, S, H, hd, _build.DTYPE_CODES[zx.dtype],
+                           _build.stream_ptr(zx.device))
+    _build.check(err, "slstm_fwd")
+    launches["slstm_fwd"] += LAUNCHES_PER_CALL["slstm_fwd"]
+    return (hs, *out, saved)
+
+
+def slstm_bwd(r, saved, dhs, dc, dn, dh, dm):
+    """The backward kernels: the gradients of (zx, ix, fx, ox, r, c, n, h,
+    m) from the forward's ``saved`` and the gradients of (hs, c, n, h, m),
+    as ``ref.ref_slstm_bwd`` computes them."""
+    B, S, H, hd = dhs.shape
+    _check("slstm_bwd", dhs.device, {"r": (r, (H, hd, 4 * hd), torch.float32)}, dhs.dtype)
+    r, dhs, dc, dn, dh, dm = _c(r, dhs, dc, dn, dh, dm)
+    dx = tuple(torch.empty_like(dhs) for _ in range(4))
+    dr = torch.zeros_like(r)
+    d0 = tuple(torch.empty_like(t) for t in (dc, dn, dh, dm))
+    if B * H == 0:
+        return (*dx, dr, *d0)
+    drec = _empty(B, S, H, 4 * hd, like=dhs)
+    lib = _build.lib()
+    err = lib.rt_slstm_bwd(*(t.data_ptr() for t in (r, *saved, dhs, dc, dn, dh, dm, *dx, dr,
+                                                    *d0, drec)),
+                           B, S, H, hd, _build.DTYPE_CODES[dhs.dtype],
+                           _build.stream_ptr(dhs.device))
+    _build.check(err, "slstm_bwd")
+    launches["slstm_bwd"] += LAUNCHES_PER_CALL["slstm_bwd"]
+    return (*dx, dr, *d0)
+
+
+class SLSTM(torch.autograd.Function):
+    """The sLSTM recurrence with a backward of its own: the kernels on CUDA
+    tensors, ``ref.py``'s plain forward-with-saves and backward on CPU ones."""
+
+    @staticmethod
+    def forward(ctx, zx, ix, fx, ox, r, c, n, h, m):
+        fwd = slstm_fwd if zx.is_cuda else ref.ref_slstm_fwd_saved
+        kw = {"save": True} if zx.is_cuda else {}
+        hs, c, n, h, m, saved = fwd(zx, ix, fx, ox, r, c, n, h, m, **kw)
+        ctx.save_for_backward(r, *saved)
+        return hs, c, n, h, m
+
+    @staticmethod
+    def backward(ctx, dhs, dc, dn, dh, dm):
+        r, *saved = ctx.saved_tensors
+        bwd = slstm_bwd if r.is_cuda else ref.ref_slstm_bwd
+        grads = bwd(r, saved, dhs, dc, dn, dh, dm)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def slstm(zx, ix, fx, ox, r, c, n, h, m):
+    """The sLSTM recurrence: (hs [B,S,H,hd] in zx's dtype, c, n, h, m). zx,
+    ix, fx, ox [B,S,H,hd]; r [H,hd,4hd], c, n, h [B,H,hd], m [B,H] float32."""
+    args = (zx, ix, fx, ox, r, c, n, h, m)
+    if _on_host(zx):
+        return plain_slstm(*args)
+    if _records(*args):
+        return SLSTM.apply(*args)
+    return slstm_fwd(*args)[:5]

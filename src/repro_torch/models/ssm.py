@@ -5,10 +5,13 @@ rounding points (the key scale cast to the key's dtype, each step's output
 cast to the input's dtype, the SSD input cast to the model's dtype before
 the chunked scan).
 
-The time scans are Python loops over torch ops where the reference has
-``lax.scan``: one step per token for mLSTM and sLSTM, one per chunk for
-SSD. The reference's ``unroll`` (of its scans) and ``shard_axis`` (its
-mesh) have no counterpart here. On DTensors the projections stay DTensor
+The reference's two ``lax.scan`` time loops of mLSTM and sLSTM go through
+``kernels.ops`` (``kernels/xlstm_scan.py``): one CUDA launch a loop on the
+card, forward and backward, and the plain loop of ``kernels/ref.py`` (one
+step per token, ordinary autograd) on the CPU and on ``meta``. SSD's chunk
+loop is a Python loop over torch ops, one step per chunk. The reference's
+``unroll`` (of its scans) and ``shard_axis`` (its mesh) have no
+counterpart here. On DTensors the projections stay DTensor
 products, the head reshapes go through ``sharding.view``, and each scan
 runs on each rank's batch shard (``sharding.per_batch_shard``), so a
 time step costs plain-tensor ops, no DTensor dispatch. Each scan names
@@ -23,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kops
 from repro_torch.parallel.sharding import per_batch_shard, reduced, view
 
 # ---------------------------------------------------------------------------
@@ -47,22 +51,8 @@ def mlstm_scan(q, k, v, i_pre, f_pre, state=None):
                    _f32((B, H), q.device, -math.inf))
     else:
         C, n, m = state[0], state[1], state[2]
-    # the per-element casts and gates of every step, taken before the loop
-    log_fs = F.logsigmoid(f_pre.float()).unbind(2)
-    hs = []
-    for qf, kf, vf, log_i, log_f in zip(q.float().unbind(2), k.float().unbind(2),
-                                        v.float().unbind(2), i_pre.float().unbind(2), log_fs):
-        m_new = torch.maximum(log_f + m, log_i)
-        m_new = torch.where(torch.isinf(m_new), log_i, m_new)  # first step
-        i_s = torch.exp(log_i - m_new)
-        f_s = torch.where(torch.isinf(m), 0.0, torch.exp(log_f + m - m_new))
-        C = f_s[..., None, None] * C + i_s[..., None, None] * (kf[..., :, None] * vf[..., None, :])
-        n = f_s[..., None] * n + i_s[..., None] * kf
-        num = torch.einsum("bhkv,bhk->bhv", C, qf)
-        den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, qf)), torch.exp(-m_new))
-        hs.append((num / den[..., None]).to(q.dtype))
-        m = m_new
-    return torch.stack(hs, dim=2), (C, n, m, _f32((), q.device))
+    h, C, n, m = kops.mlstm_scan(q, k, v, i_pre.float(), F.logsigmoid(f_pre.float()), C, n, m)
+    return h, (C, n, m, _f32((), q.device))
 
 
 def mlstm_block(x, p: dict, *, num_heads: int, state=None):
@@ -101,26 +91,8 @@ def _slstm_scan(zx, ix, fx, ox, r, state):
     """The sLSTM recurrence over the input preactivations [B,S,H,hd] and
     the recurrent matrices r [H,hd,4hd] from ``state``; (h [B,S,H,hd] in
     the inputs' dtype, the final state)."""
-    c, n, h, m = state
-    hd = zx.shape[-1]
-    hs = []
-    for zt, it, ft, ot in zip(zx.float().unbind(1), ix.float().unbind(1),
-                              fx.float().unbind(1), ox.float().unbind(1)):
-        zr, ir, fr, orr = torch.einsum("bhd,hde->bhe", h, r).split(hd, dim=-1)
-        z = torch.tanh(zt + zr)
-        log_i = torch.mean(it + ir, dim=-1)  # per-head scalar gates [B,H]
-        log_f = F.logsigmoid(torch.mean(ft + fr, dim=-1))
-        o = torch.sigmoid(ot + orr)
-        m_new = torch.maximum(log_f + m, log_i)
-        m_new = torch.where(torch.isinf(m_new), log_i, m_new)
-        i_s = torch.exp(log_i - m_new)[..., None]
-        f_s = torch.where(torch.isinf(m), 0.0, torch.exp(log_f + m - m_new))[..., None]
-        c = f_s * c + i_s * z
-        n = f_s * n + i_s
-        h = o * c / torch.clamp(n, min=1.0)
-        m = m_new
-        hs.append(h.to(zx.dtype))
-    return torch.stack(hs, dim=1), (c, n, h, m)
+    hs, c, n, h, m = kops.slstm_scan(zx, ix, fx, ox, r, *state)
+    return hs, (c, n, h, m)
 
 
 def slstm_block(x, p: dict, *, num_heads: int, state=None):

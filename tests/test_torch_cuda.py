@@ -791,3 +791,181 @@ def test_decode_step_of_new_block_kinds_on_card_matches_cpu(dev, arch):
         assert a.is_cuda and a.dtype == b.dtype
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-5)
 
+
+
+# the xLSTM time loops (kernels/xlstm_scan.py) at xlstm-125m's widths: 4
+# heads of 192. Tolerances: atol = rtol = 2e-2 in bfloat16 (inputs and h
+# rounded to bf16 at the same points, f32 sums in another order, the
+# recurrence carrying a rounding one ulp apart), and a relative L2 of 1e-4
+# in float32 (the same arithmetic, sums over d = 192 in another order).
+XL_H, XL_D = 4, 192
+
+
+def _xl_close(got, want, dtype):
+    """Infinities (the fresh stabiliser) in the same places, the rest close."""
+    assert got.shape == want.shape and got.dtype == want.dtype and got.is_cuda
+    got, want = got.detach(), want.detach()
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], want[~fin])
+    got, want = got[fin], want[fin]
+    if dtype == "bfloat16":
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    else:
+        err = ((got.float() - want.float()).norm() / want.float().norm().clamp(min=1e-30))
+        assert float(err) <= 1e-4, float(err)
+
+
+def _mlstm_inputs(dev, dtype, B, S, carried, seed=0, d=XL_D):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    q, k, v = (rnd(B, XL_H, S, d).to(DT[dtype]) for _ in range(3))
+    k = k / torch.tensor(d ** 0.5).to(k.dtype)
+    log_i = rnd(B, XL_H, S)
+    log_f = torch.nn.functional.logsigmoid(rnd(B, XL_H, S) + 2.0)
+    if carried:
+        C, n, m = rnd(B, XL_H, d, d) * 0.1, rnd(B, XL_H, d) * 0.1, rnd(B, XL_H)
+    else:
+        C, n = torch.zeros(B, XL_H, d, d, device=dev), torch.zeros(B, XL_H, d, device=dev)
+        m = torch.full((B, XL_H), float("-inf"), device=dev)
+    return q, k, v, log_i, log_f, C, n, m
+
+
+@pytest.mark.parametrize("d", [XL_D, 40])
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("S", [1, 40, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlstm_kernels_match_plain(dev, dtype, S, carried, d):
+    """The mLSTM forward kernel against ``ref.ref_mlstm_fwd_saved`` (h, the
+    state, and every saved tensor), the backward kernels against
+    ``ref.ref_mlstm_bwd`` on the kernel's saved tensors (S past the
+    checkpoint interval, and not a multiple of it), 1 + 2 launches; at
+    xlstm-125m's head width and at 40 (a last block of 8 value columns, 64
+    threads for 40 key rows)."""
+    from repro_torch.kernels import ref, xlstm_scan as xs
+
+    args = _mlstm_inputs(dev, dtype, 2, S, carried, d=d)
+    before = dict(xs.launches)
+    h, C, n, m, saved = xs.mlstm_fwd(*args, save=True)
+    want = ref.ref_mlstm_fwd_saved(*args, xs.CHECKPOINT_EVERY)
+    for got_t, want_t in zip((h, C, n, m, *saved), (*want[:4], *want[4]), strict=True):
+        _xl_close(got_t, want_t, "float32" if got_t.dtype == torch.float32 and dtype ==
+                  "float32" else "bfloat16")
+    g = torch.Generator(device=dev).manual_seed(9)
+    dh = torch.randn(h.shape, generator=g, device=dev).to(h.dtype)
+    dC, dn, dm = (torch.randn(t.shape, generator=g, device=dev) for t in (C, n, m))
+    got = xs.mlstm_bwd(*args[:5], saved, dh, dC, dn, dm)
+    want = ref.ref_mlstm_bwd(*args[:5], saved, dh, dC, dn, dm, xs.CHECKPOINT_EVERY)
+    for a, b in zip(got, want, strict=True):
+        _xl_close(a, b, dtype)
+    assert xs.launches["mlstm_fwd"] == before["mlstm_fwd"] + 1
+    assert xs.launches["mlstm_bwd"] == before["mlstm_bwd"] + 2
+
+
+def _slstm_inputs(dev, dtype, B, S, carried, seed=0, hd=XL_D):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    xs_ = [rnd(B, S, XL_H, hd).to(DT[dtype]) for _ in range(4)]
+    r = (rnd(XL_H, hd, 4 * hd) * hd ** -0.5).to(DT[dtype]).float()
+    if carried:
+        c, h = rnd(B, XL_H, hd), rnd(B, XL_H, hd) * 0.5
+        n, m = rnd(B, XL_H, hd).abs() + 0.5, rnd(B, XL_H)
+    else:
+        c = n = h = torch.zeros(B, XL_H, hd, device=dev)
+        m = torch.full((B, XL_H), float("-inf"), device=dev)
+    return (*xs_, r, c, n, h, m)
+
+
+@pytest.mark.parametrize("hd", [XL_D, 37])
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("S", [1, 40])
+@pytest.mark.parametrize("B", [2, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_kernels_match_plain(dev, dtype, B, S, carried, hd):
+    """The sLSTM forward kernel against ``ref.ref_slstm_fwd_saved`` and the
+    backward kernels against ``ref.ref_slstm_bwd`` on the kernel's saved
+    tensors (B = 5: two clusters of rows a head, the second one part
+    empty), 1 + 2 launches; at xlstm-125m's head width and at 37 (5
+    elements a CTA, the last CTA's 3 past the head)."""
+    from repro_torch.kernels import ref, xlstm_scan as xs
+
+    args = _slstm_inputs(dev, dtype, B, S, carried, hd=hd)
+    before = dict(xs.launches)
+    out = xs.slstm_fwd(*args, save=True)
+    want = ref.ref_slstm_fwd_saved(*args)
+    for a, b in zip((*out[:5], *out[5]), (*want[:5], *want[5]), strict=True):
+        _xl_close(a, b, "float32" if a.dtype == torch.float32 and dtype == "float32"
+                  else "bfloat16")
+    g = torch.Generator(device=dev).manual_seed(9)
+    grads = [torch.randn(t.shape, generator=g, device=dev).to(t.dtype) for t in out[:5]]
+    got = xs.slstm_bwd(args[4], out[5], *grads)
+    want = ref.ref_slstm_bwd(args[4], out[5], *grads)
+    for a, b in zip(got, want, strict=True):
+        _xl_close(a, b, dtype)
+    assert xs.launches["slstm_fwd"] == before["slstm_fwd"] + 1
+    assert xs.launches["slstm_bwd"] == before["slstm_bwd"] + 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xlstm_blocks_on_card_match_plain_autograd(dev, dtype):
+    """``mlstm_block`` and ``slstm_block`` at xlstm-125m's width (d_model
+    768, 4 heads) on the card, through the kernels' autograd Functions,
+    against the same blocks on the plain loops with ordinary autograd (the
+    wrapper's own plain versions, swapped in) on the card: outputs, final
+    states and every gradient. The weights are at the model's init scale
+    (0.02-0.03): a recurrent matrix ten times larger makes the sLSTM
+    expand, and its float32 rounding then grows past 1e-4 over 70 steps
+    in either version."""
+    from repro_torch.kernels import xlstm_scan as xs
+    from repro_torch.models import ssm
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    D, B, S = 768, 2, 70
+    x = (torch.randn(B, S, D, generator=g, device=dev) * 0.5).to(DT[dtype])
+    mk = lambda *s: (torch.randn(*s, generator=g, device=dev) * 0.03).to(DT[dtype])  # noqa
+    pm = {k: mk(D, D) for k in ("wq", "wk", "wv", "wo", "ogate")}
+    pm |= {"wi": mk(D, XL_H), "wf": mk(D, XL_H)}
+    ps = {k: mk(D, D) for k in ("wz", "wi", "wf", "wo", "wout")}
+    ps |= {k: mk(XL_H, XL_D, XL_D) for k in ("rz", "ri", "rf", "ro")}
+    runs = {}
+    for how in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (x, *pm.values(), *ps.values())]
+        xx, pmm, pss = leaves[0], dict(zip(pm, leaves[1:8])), dict(zip(ps, leaves[8:]))
+        real = (xs.mlstm, xs.slstm)
+        if how == "plain":
+            xs.mlstm, xs.slstm = xs.plain_mlstm, xs.plain_slstm
+        try:
+            before = dict(xs.launches)
+            y1, st1 = ssm.mlstm_block(xx, pmm, num_heads=XL_H)
+            y2, st2 = ssm.slstm_block(y1, pss, num_heads=XL_H)
+            loss = (y2.float() ** 2).mean() + st1[0].sum() * 1e-3 + st2[2].sum() * 1e-3
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            xs.mlstm, xs.slstm = real
+        moved = {k: xs.launches[k] - before[k] for k in xs.KERNELS}
+        runs[how] = ([y2, *st1[:3], *st2], grads, moved)
+    assert runs["kernel"][2] == {"mlstm_fwd": 1, "mlstm_bwd": 2, "slstm_fwd": 1, "slstm_bwd": 2}
+    assert runs["plain"][2] == dict.fromkeys(xs.KERNELS, 0)
+    for a, b in zip(runs["kernel"][0] + list(runs["kernel"][1]),
+                    runs["plain"][0] + list(runs["plain"][1]), strict=True):
+        _xl_close(a, b, dtype)
+
+
+def test_xlstm_kernels_refuse_what_they_do_not_take(dev):
+    """No fallback: a CUDA call outside the kernels' limits raises."""
+    from repro_torch.kernels import xlstm_scan as xs
+
+    q, k, v, li, lf, C, n, m = _mlstm_inputs(dev, "float32", 1, 3, False)
+    with pytest.raises(ValueError):
+        xs.mlstm(q.half(), k.half(), v.half(), li, lf, C, n, m)
+    with pytest.raises(ValueError):
+        xs.mlstm(q, k, v, li.double(), lf, C, n, m)
+    wide = torch.zeros(1, 1, 2, 264, device=dev)
+    with pytest.raises(ValueError):
+        xs.mlstm(wide, wide, wide, li[:1, :1, :2], lf[:1, :1, :2],
+                 torch.zeros(1, 1, 264, 264, device=dev), torch.zeros(1, 1, 264, device=dev),
+                 m[:1, :1])
+    zx = torch.zeros(1, 2, 1, 264, device=dev)
+    st = torch.zeros(1, 1, 264, device=dev)
+    with pytest.raises(ValueError):
+        xs.slstm(zx, zx, zx, zx, torch.zeros(1, 264, 1056, device=dev), st, st, st,
+                 m[:1, :1])
