@@ -27,7 +27,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    xlstm-125m's width (4 heads of 192) and phase 9's train shape (B=2 x
    512), in bf16 and float32, and the decode step from the 512-step state;
    each timed by graph in bf16 beside its plain version, its bound and its
-   chain floor (S x its step latency);
+   chain floor (S x its step latency); then SSD's chunk loop (the third
+   ``lax.scan`` site) and decode step: the forward kernel (with the states
+   it saves) and backward kernels against ``ref.py``'s plain forward and
+   backward at hymba-1.5b's width (25 heads, P = 64, N = 16, chunks of
+   256) at B=2 x S=512 (phase 9's train shape), B=4 x S=1,024 (its
+   prefill) and B=2 x S=300 (a padded last chunk, a carried state), in
+   bf16 and float32, and the decode kernel from the prefill's state; each
+   timed by graph in bf16 beside its plain version and its bound;
 4. small-input reference: the port's ``Engine`` on the Yi-6B and
    granite-moe smoke configs in float32, on the card (kernels) and on the
    CPU (plain versions), must give token-identical outputs;
@@ -79,7 +86,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    decoded on fresh weights (xlstm: 8 lanes,
    a 512-token prefill, 64 steps; hymba: 4 lanes, a ring of its 1,024-token
    window, a one-window prefill, 64 steps past it), each decode logit held
-   to ``apply``'s at its position; hymba's ``apply`` through the flash
+   to ``apply``'s at its position (hymba's Mamba branch through the SSD
+   kernels: the chunked scan forward and backward, the decode step);
+   hymba's ``apply`` through the flash
    kernel (``attention_impl="pallas"``, one launch a layer) held to the
    plain attention, each launch's output held to the kernel's plain
    version on that launch's inputs (atol = rtol = 2e-2), and the reference's two-chunk prefill of 2,048 tokens
@@ -89,8 +98,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    step ms and trained tokens/s, prefill ms, decode step ms, generated
    tokens/s, peak memory, and the ``cudaLaunchKernel`` of one profiled
    decode step. Of the serving kernels only flash may launch here, once a
-   hymba layer; xlstm's layers launch the scan kernels, exactly as many
-   times as its layers, remat and decode steps imply.
+   hymba layer; xlstm's layers launch the scan kernels and hymba's the SSD
+   kernels, each exactly as many times as the layers, remat and decode
+   steps imply (no SSD kernel launches after phase 9).
 10. the parallel layer and the launch tooling: (a) Yi-6B at full width and
    depth in bfloat16 split into 4 stages of 8 layers and run through
    ``repro_torch.parallel.pipeline.PipelineRunner`` on 6 microbatches of
@@ -137,7 +147,8 @@ them on one line after phase 11.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``kernels`` JSON line (five rows for the five ``pallas_call`` sites, the
-claim kernel serving two, then four for the two ``lax.scan`` sites, each
+claim kernel serving two, then seven for the three ``lax.scan`` sites: four
+xLSTM kernels and three SSD kernels, the decode step's among them; each
 row's ``of`` naming which), and the card's name and power limit come
 before that.
 """
@@ -929,6 +940,160 @@ def check_xlstm(xs, seed: int) -> list:
     return rows
 
 
+SSD_SITE = {"ssd_fwd": "src/repro/models/ssm.py:236", "ssd_bwd": "src/repro/models/ssm.py:236",
+            "ssd_decode": "src/repro/models/ssm.py:241"}
+# (B, S, a carried state): phase 9's train step, its 1,024-token prefill (4
+# lanes), and a padded last chunk (300 = 256 + 44) from a carried state
+SSD_SHAPES = ((2, 512, False), (4, 1024, False), (2, 300, True))
+
+
+def ssd_inputs(seed: int, dtype, B: int, S: int, carried: bool) -> tuple:
+    """SSD's inputs as hymba-1.5b's Mamba branch makes them (25 heads, P =
+    64, N = 16), from fresh weights at the model's init and unit-RMS
+    activations [B, S, 1,600]: x * dt in the model's dtype, the strided b
+    and c views of the fused projection, log_a float32 and a state (zeros,
+    or a normal one x 0.1); the decode step's x * dt (float32), b, c and
+    log_a at the last position."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+
+    cfg = dataclasses.replace(get_config("hymba_1_5b"),
+                              dtype="float32" if dtype == torch.float32 else "bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pm = blocks.init_hymba(cfg, gen, "cuda")["mamba"]
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda").to(dtype)
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    xin, _, bc, dt = (x @ pm["win"]).split([H * P, H * P, 2 * H * N, H], dim=-1)
+    b, c = (t.view(B, S, H, N) for t in bc.chunk(2, dim=-1))
+    dt = torch.nn.functional.softplus(dt.float())
+    log_a = -dt * torch.exp(pm["a_log"].float())
+    x_dt = xin.float().view(B, S, H, P) * dt[..., None]
+    state = (torch.randn(B, H, P, N, generator=gen, device="cuda") * 0.1 if carried
+             else torch.zeros(B, H, P, N, device="cuda"))
+    step = (x_dt[:, -1], b[:, -1], c[:, -1], log_a[:, -1])
+    return (x_dt.to(dtype), b, c, log_a, state), step
+
+
+# FLOPs of SSD's recurrence, x P * N a token and head (a multiply-add is
+# 2), what the function needs whatever the algorithm: forward h' = a * h +
+# x (x) b (3) and y = h' . c (2); backward the state recomputed from a
+# chunk's start (3), dh += dy (x) c (2), dc, dx, db and d a (2 each), dh
+# carried back by a (1). The decode step is one forward token a lane.
+SSD_FLOPS = {"ssd_fwd": 5, "ssd_bwd": 14, "ssd_decode": 5}
+
+
+def ssd_pair_flops(S: int, chunk: int, B: int, H: int, P: int, N: int) -> dict:
+    """The FLOPs the kernels' chunked algorithm does on these shapes,
+    counting the causal pairs s <= t of each chunk (the kernels skip the
+    rest): the forward's C_t . B_s and its product with x_s a pair, and a
+    row's inter-chunk readout and state update; the backward's five pair
+    products (C . B, dy . x, dx, db, dc) and a row's six [P, N] terms. Logged
+    beside the bound, which counts the recurrence (``SSD_FLOPS``)."""
+    pairs = rows = 0
+    for t0 in range(0, S, chunk):
+        n = min(chunk, S - t0)
+        pairs, rows = pairs + n * (n + 1) // 2, rows + n
+    return {"ssd_fwd": B * H * (pairs * 2 * (N + P) + rows * 4 * P * N),
+            "ssd_bwd": B * H * (pairs * 2 * (3 * N + 2 * P) + rows * 12 * P * N)}
+
+
+def check_ssd(ss, seed: int) -> list:
+    """Phase 3, SSD's chunk loop (the reference's third ``lax.scan`` site)
+    and decode step: the forward kernel (with its saved chunk-start states)
+    and the backward kernels against ``ref.py``'s plain forward-with-saves
+    and backward (on the kernel's saves) at hymba-1.5b's width, chunks of
+    256, at each of SSD_SHAPES, in bf16 and float32; the decode kernel from
+    the prefill shape's final state. Timed by CUDA graph in bf16 at the
+    train shape (the decode at phase 9's 4 lanes; the plain versions
+    eagerly), with a bound at 3.35 TB/s or the recurrence's FLOPs
+    (``SSD_FLOPS``) at 67 TFLOP/s f32."""
+    from repro_torch.kernels import ref
+
+    worst = dict.fromkeys(ss.KERNELS, 0.0)
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    for dtype in (torch.bfloat16, torch.float32):
+        errs = dict.fromkeys(ss.KERNELS, 0.0)
+        for B, S, carried in SSD_SHAPES:
+            args, step = ssd_inputs(seed, dtype, B, S, carried)
+            chunk = min(256, S)
+            tag = f"B={B} S={S}{' carried' if carried else ''} {str(dtype)[6:]}"
+            y, h, saved = ss.ssd_fwd(*args, chunk=chunk, save=True)
+            want = ref.ref_ssd_fwd_saved(*args, chunk)
+            errs["ssd_fwd"] = max(errs["ssd_fwd"], _xl_hold(f"ssd_fwd {tag}", [y, h, saved],
+                                                            list(want), dtype))
+            dy = torch.randn(y.shape, generator=g, device="cuda").to(y.dtype)
+            dh = torch.randn(h.shape, generator=g, device="cuda")
+            got = ss.ssd_bwd(*args[:4], saved, dy, dh, chunk=chunk)
+            want = ref.ref_ssd_bwd(*args[:4], saved, dy, dh, chunk)
+            errs["ssd_bwd"] = max(errs["ssd_bwd"], _xl_hold(f"ssd_bwd {tag}", list(got),
+                                                            list(want), dtype))
+            if B == 4:
+                xt, bt, ct, lat = step
+                got = ss.decode(xt, bt, ct, lat, h)
+                want = ref.ref_ssd_decode_step(xt, bt, ct, lat, h)
+                errs["ssd_decode"] = max(errs["ssd_decode"], _xl_hold(
+                    f"ssd_decode B=4 {str(dtype)[6:]}", list(got), list(want), dtype))
+        log(f"[kernels] ssd at hymba-1.5b's width (25 heads, P=64, N=16, chunks of 256), "
+            f"{', '.join(f'B={B} S={S}' + (' carried' if c else '') for B, S, c in SSD_SHAPES)}"
+            f" {str(dtype)[6:]}, and the decode step from the B=4 state, max_abs_err: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + (f" (atol=rtol={TOL_BF16})" if dtype == torch.bfloat16
+               else f" (relative L2 <= {XL_REL_L2})"))
+        worst = {k: max(v, errs[k]) for k, v in worst.items()}
+    B, S = XL_B, XL_S
+    args, _ = ssd_inputs(seed, torch.bfloat16, B, S, False)
+    _, (xt, bt, ct, lat) = ssd_inputs(seed, torch.bfloat16, 4, 8, False)
+    _, H, P = xt.shape
+    N = bt.shape[-1]
+    st = torch.randn(4, H, P, N, generator=g, device="cuda") * 0.1
+    y, h, saved = ss.ssd_fwd(*args, chunk=256, save=True)
+    dy, dh = torch.randn_like(y), torch.randn_like(h)
+    with torch.no_grad():
+        grads = ss.ssd_bwd(*args[:4], saved, dy, dh, chunk=256)
+        dec = ss.decode(xt, bt, ct, lat, st)
+    calls = {
+        "ssd_fwd": (lambda: ss.ssd_fwd(*args, chunk=256, save=True),
+                    lambda: ref.ref_ssd_fwd_saved(*args, 256),
+                    nbytes(*args, y, h, saved)),
+        "ssd_bwd": (lambda: ss.ssd_bwd(*args[:4], saved, dy, dh, chunk=256),
+                    lambda: ref.ref_ssd_bwd(*args[:4], saved, dy, dh, 256),
+                    nbytes(*args[:4], saved, dy, dh, *grads)),
+        "ssd_decode": (lambda: ss.decode(xt, bt, ct, lat, st),
+                       lambda: ref.ref_ssd_decode_step(xt, bt, ct, lat, st),
+                       nbytes(xt, bt, ct, lat, st, *dec)),
+    }
+    pair_flops = ssd_pair_flops(S, 256, B, H, P, N)
+    rows = []
+    for name, (kernel, plain, moved) in calls.items():
+        ms, plain_ms = graph_ms(kernel, 20), cuda_ms(plain, 3)
+        tokens = 4 if name == "ssd_decode" else B * S
+        flops = SSD_FLOPS[name] * P * N * H * tokens
+        b_ms, b_by = bound(moved, flops, F32_FLOP_PER_S)
+        shape = "B=4 (one token)" if name == "ssd_decode" else f"B={B} S={S} chunk=256"
+        chunked = (f", the chunked algorithm's {pair_flops[name] / 1e6:.2f} MFLOP"
+                   if name in pair_flops else "")
+        log(f"[kernels] {name} {shape} H={H} P={P} N={N} bf16: kernel_ms={ms:.5f} (graph) "
+            f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.7f} ({b_by}: the recurrence's "
+            f"{flops / 1e6:.2f} MFLOP at 67 TFLOP/s f32, {moved / 1e6:.3f} MB{chunked}) "
+            f"launches_per_call={ss.LAUNCHES_PER_CALL[name]}")
+        rows.append(dict(name=name, of="lax.scan",
+                         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                         replaces=SSD_SITE[name], max_abs_err=worst[name], ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    return rows
+
+
+def ssd_expected(cfg, fwd: int, bwd: int, decode: int) -> dict:
+    """The SSD kernels' launches of ``fwd`` forward passes over a sequence,
+    ``bwd`` backward passes and ``decode`` decode steps through ``cfg``'s
+    hymba layers."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    per = cfg.block_pattern.count("hymba") * cfg.pattern_repeats
+    return {name: per * n * ss.LAUNCHES_PER_CALL[name]
+            for name, n in (("ssd_fwd", fwd), ("ssd_bwd", bwd), ("ssd_decode", decode))}
+
+
 def xl_expected(cfg, fwd: int, bwd: int) -> dict:
     """The scan kernels' launches of ``fwd`` forward and ``bwd`` backward
     passes through ``cfg``'s layers (a remat'd training step is two
@@ -942,6 +1107,8 @@ def xl_expected(cfg, fwd: int, bwd: int) -> dict:
 
 
 def xl_moved(xs, before: dict) -> dict:
+    """The launches of a scan module (``xlstm_scan``, ``ssd_scan``) since
+    ``before``, by kernel."""
     return {k: xs.launches[k] - before[k] for k in xs.KERNELS}
 
 
@@ -1961,44 +2128,59 @@ def family_decode(seed: int, arch: str, B: int, prompt: int, steps: int,
     return flash
 
 
-def families(seed: int, kernels: dict, xs, card: str) -> tuple:
+def families(seed: int, kernels: dict, xs, ss, card: str) -> tuple:
     """Phase 9: the smoke configs card vs CPU; xlstm-125m and hymba-1.5b
     trained and decoded at full width and depth, llava-next-mistral-7b
     decoded after its 2,880 image embeddings. Returns the flash kernel's
-    launches, which only hymba's pallas check may make, and the scan
-    kernels' (``xs``), each exactly what the xLSTM layers, remat and the
-    decode steps imply: a smoke reference makes 7 forward passes (apply,
-    the loss, the prefill, 4 decode steps) and 1 backward, a remat'd
-    training step 2 and 1, a decode run 68 forward passes (apply in bf16
-    and in f32, the prefill, 64 steps, the profiled step)."""
+    launches, which only hymba's pallas check may make, the xLSTM scan
+    kernels' (``xs``) and the SSD kernels' (``ss``), each exactly what the
+    layers, remat and decode steps imply: a smoke reference makes 7
+    forward passes (apply, the loss, the prefill, 4 decode steps) and 1
+    backward, of which SSD runs 3 over the sequence and 4 as decode steps;
+    a remat'd training step 2 forward passes and 1 backward; an xlstm
+    decode run 68 forward passes (apply in bf16 and in f32, the prefill,
+    64 steps, the profiled step); hymba's 6 over a sequence (apply in bf16
+    and in f32, the prefill, the two-chunk prefill's two, the pallas
+    apply) and 65 decode steps (64 and the profiled one)."""
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
     before = {name: mod.launches for name, mod in kernels.items()}
     xl0, want = dict(xs.launches), {}
+    ssd0, ssd_want = dict(ss.launches), {}
     for arch in FAMILIES:
         family_reference(seed, arch)
         want = xl_add(want, xl_expected(get_config(arch, smoke=True), 7, 1))
+        ssd_want = xl_add(ssd_want, ssd_expected(get_config(arch, smoke=True), 3, 1, 4))
     cfg = get_config("xlstm_125m")
     family_train(card, "xlstm_125m")
     want = xl_add(want, xl_expected(cfg, TRAIN_STEPS * (1 + cfg.remat), TRAIN_STEPS))
     family_decode(seed, "xlstm_125m", B=8, prompt=512, steps=64)
     want = xl_add(want, xl_expected(cfg, 64 + 4, 0))
+    cfg = get_config("hymba_1_5b")
     family_train(card, "hymba_1_5b")
+    ssd_want = xl_add(ssd_want, ssd_expected(cfg, TRAIN_STEPS * (1 + cfg.remat), TRAIN_STEPS,
+                                             0))
     flash = family_decode(seed, "hymba_1_5b", B=4, prompt=1024, steps=64,
                           check_pallas=True, two_chunks=True)
+    ssd_want = xl_add(ssd_want, ssd_expected(cfg, 6, 0, 64 + 1))
     family_decode(seed, "llava_next", B=2, prompt=64, steps=32, n_extra=2880)
     after = {name: mod.launches for name, mod in kernels.items()}
     moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     scans = xl_moved(xs, xl0)
+    ssd = xl_moved(ss, ssd0)
     log(f"[family] kernels' launches in phase 9: {moved}; the scan kernels' {scans} "
-        f"(implied {want}); phase 9 took {time.perf_counter() - t0:.1f}s ({card})")
+        f"(implied {want}); the SSD kernels' {ssd} (implied {ssd_want}); phase 9 took "
+        f"{time.perf_counter() - t0:.1f}s ({card})")
     if moved != ({"flash_attention": flash} if flash else {}):
         raise AssertionError(f"phase 9: a kernel launched off its path ({moved})")
     if scans != want or not all(scans.values()):
         raise AssertionError(f"phase 9: scan launches {scans}, not the {want} its layers, "
                              f"remat and decode steps imply")
-    return flash, scans
+    if ssd != ssd_want or not all(ssd.values()):
+        raise AssertionError(f"phase 9: SSD launches {ssd}, not the {ssd_want} hymba's "
+                             f"layers, remat and decode steps imply")
+    return flash, scans, ssd
 
 
 # ---------------------------------------------------------------------------
@@ -2713,7 +2895,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(here, "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import cmp_claim, cmp_ring, flash_attention, paged_attention
-    from repro_torch.kernels import xlstm_scan
+    from repro_torch.kernels import ssd_scan, xlstm_scan
 
     walls = []
 
@@ -2757,7 +2939,7 @@ def main() -> int:
     repaired = check_attention_repairs(paged_attention, flash_attention, gen)
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], repaired["paged"])
     rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], repaired["flash"])
-    scan_rows = check_xlstm(xlstm_scan, args.seed)
+    scan_rows = check_xlstm(xlstm_scan, args.seed) + check_ssd(ssd_scan, args.seed)
     phase(3, "kernels", t0)
 
     # phase 4: small-input reference
@@ -2796,7 +2978,8 @@ def main() -> int:
 
     # phase 9: the SSM, hybrid and frontend families
     t0 = time.perf_counter()
-    phase9, scans9 = families(args.seed, kernels, xlstm_scan, card)
+    phase9, scans9, ssd9 = families(args.seed, kernels, xlstm_scan, ssd_scan, card)
+    ssd_after9 = dict(ssd_scan.launches)
     phase(9, "SSM, hybrid and frontend families", t0)
 
     # phase 10: the parallel layer and the launch tooling
@@ -2808,6 +2991,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase11 = examples(here, kernels, xlstm_scan, card)
     phase(11, "examples", t0)
+    if ssd_scan.launches != ssd_after9:  # no hymba layer runs in phases 10 and 11
+        raise AssertionError(f"an SSD kernel launched after phase 9 ({ssd_after9} -> "
+                             f"{ssd_scan.launches})")
     log("[wall] " + "; ".join(f"phase {n} {s:.1f}s" for n, _, s in walls)
         + f"; total {sum(s for *_, s in walls):.1f}s ({card})")
 
@@ -2831,8 +3017,9 @@ def main() -> int:
         row["max_abs_err"] = max(row["max_abs_err"], phase11["errs"].get(row["name"], 0.0))
         row["launches"] = launches[row["name"]]
         row["of"] = "pallas_call"
+    log(f"[launches] the SSD kernels: phase 9 (hymba smoke, train driver, decode) {ssd9}")
     for row in scan_rows:
-        row["launches"] = scans[row["name"]]
+        row["launches"] = (ssd9 if row["name"].startswith("ssd") else scans)[row["name"]]
     rows += scan_rows
     for row in rows:
         row["route"] = "cuda"

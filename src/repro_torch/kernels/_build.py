@@ -44,12 +44,19 @@ SIGNATURES = {
     "rt_mlstm_bwd": [_P] * 29 + [_I] * 6 + [_P],
     "rt_slstm_fwd": [_P] * 22 + [_I] * 5 + [_P],
     "rt_slstm_bwd": [_P] * 24 + [_I] * 5 + [_P],
+    "rt_ssd_fwd": [_P] * 8 + [_I] * 7 + [_P],
+    "rt_ssd_bwd": [_P] * 15 + [_I] * 7 + [_P],
+    "rt_ssd_decode": [_P] * 7 + [_I] * 6 + [_P],
     "rt_cmp_ring_max_n": [],
     "rt_paged_attention_max_rep_hd": [],
     "rt_flash_attention_max_hd": [],
     "rt_mlstm_max_d": [],
     "rt_mlstm_block_v": [],
     "rt_slstm_max_hd": [],
+    "rt_ssd_max_chunk": [],
+    "rt_ssd_max_n": [],
+    "rt_ssd_max_decode_p": [],
+    "rt_ssd_block_p": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -145,3 +152,33 @@ def require(cond: bool, msg: str) -> None:
     what the kernel does not take."""
     if not cond:
         raise ValueError(msg)
+
+
+def on_host(t: torch.Tensor) -> bool:
+    """A tensor a wrapper hands to its plain version: on the CPU or ``meta``."""
+    return t.device.type in ("cpu", "meta")
+
+
+def records(*ts) -> bool:
+    """Whether autograd records a call on ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def check_args(what: str, dev, tensors: dict, dtype) -> None:
+    """A CUDA ``dev``, a ``dtype`` the kernels take, and each of ``tensors``
+    (name -> (tensor, shape, dtype)) as given, on ``dev``; else raise."""
+    require(dev.type == "cuda", f"{what}: unsupported device {dev}")
+    require(dtype in DTYPE_CODES, f"{what}: dtype {dtype} not float32/bfloat16")
+    for name, (t, shape, dt) in tensors.items():
+        require(t.device == dev and t.dtype == dt and tuple(t.shape) == tuple(shape),
+                f"{what}: {name} must be {dt} {tuple(shape)} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def contiguous(*ts):
+    return [t.contiguous() for t in ts]
+
+
+def empty(*shape, like, dtype=torch.float32):
+    """An uninitialised tensor on ``like``'s device (float32 by default)."""
+    return torch.empty(shape, dtype=dtype, device=like.device)

@@ -24,6 +24,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' mask value
 constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x * kLog2e)
 
+// A sum over the 32 lanes of a warp, every lane taking part. Each stage
+// adds the same two values on both lanes of a pair, so every lane ends
+// with the same bits, in an order fixed run after run.
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
 // Logit softcap, as the reference's _sdpa: c tanh(s / c) on the score s
 // already scaled by 1/sqrt(hd); c <= 0 is off.
 __device__ __forceinline__ float softcap(float s, float c) {

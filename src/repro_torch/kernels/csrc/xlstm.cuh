@@ -7,14 +7,6 @@
 
 namespace rt {
 
-// A sum over the 32 lanes of a warp, every lane taking part. Each stage
-// adds the same two values on both lanes of a pair, so every lane ends
-// with the same bits, in an order fixed run after run.
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 struct Gates {
   float m, i, f;  // the new stabiliser, i_s, f_s
 };

@@ -8,6 +8,7 @@ from repro_torch.kernels import cmp_claim as _claim
 from repro_torch.kernels import cmp_ring as _ring
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import xlstm_scan as _xs
 
 
@@ -54,3 +55,16 @@ def slstm_scan(zx, ix, fx, ox, r, c, n, h, m):
     """The sLSTM recurrence over the preactivations [B, S, H, hd] and r [H,
     hd, 4hd] from the state (c, n, h, m) -> (hs [B, S, H, hd], c, n, h, m)."""
     return _xs.slstm(zx, ix, fx, ox, r, c, n, h, m)
+
+
+def ssd_chunked(x, b, c, log_a, *, chunk, state=None):
+    """SSD's chunked scan over x [B, S, H, P], b, c [B, S, H, N] and log_a
+    [B, S, H] from the state [B, H, P, N] (zeros when None) -> (y [B, S,
+    H, P], the final state)."""
+    return _ssd.ssd_chunked(x, b, c, log_a, chunk=chunk, state=state)
+
+
+def ssd_decode(x, b, c, log_a, state):
+    """One SSD token: x [B, H, P], b, c [B, H, N], log_a [B, H] and the
+    state [B, H, P, N] -> (y [B, H, P], the new state)."""
+    return _ssd.ssd_decode(x, b, c, log_a, state)

@@ -407,3 +407,126 @@ def ref_slstm_bwd(r, saved, dhs, dc, dn, dh, dm):
     dr = torch.einsum("bshd,bshe->hde", h_all[:, :S], drec)
     dzx, dix, dfx, dox = (g.to(dhs.dtype) for g in drec.split(hd, dim=-1))
     return dzx, dix, dfx, dox, dr, dc, dn, dh, dm
+
+
+# ---------------------------------------------------------------------------
+# SSD's chunk loop and decode step (the reference's third ``lax.scan`` site)
+# ---------------------------------------------------------------------------
+
+
+def ref_ssd_chunked(x, b, c, log_a, *, chunk: int = 256, state=None, starts=None):
+    """y[t] = C[t] . h[t], h[t] = a[t] h[t-1] + B[t] (x) x[t], over x
+    [B,S,H,P], b, c [B,S,H,N], log_a [B,S,H] (<= 0), from ``state``
+    [B,H,P,N] (zeros when None). Quadratic within chunks, a loop across
+    them. Returns (y [B,S,H,P] in x's dtype, final state f32). ``starts``,
+    a list, collects the state at each chunk's start.
+
+    The intra-chunk decay exp(la_t - la_s) is taken only where s <= t: the
+    reference exponentiates every (t, s) and masks the product after, which
+    gives the same values but, once a chunk's summed decay passes ~88
+    (hymba-1.5b's 256-token chunks), an inf in the masked corner whose
+    gradient is NaN. Masking the exponent first keeps the gradient finite;
+    wherever the reference's is finite, the two agree."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    if S % chunk != 0:
+        pad = chunk - S % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, 0, 0, pad))
+        log_a = F.pad(log_a, (0, 0, 0, pad))
+    h = state if state is not None else torch.full((B, H, P, N), 0.0, dtype=torch.float32,
+                                                   device=x.device)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    ys = []
+    for xk, bk, ck, lak in zip(x.split(chunk, 1), b.split(chunk, 1), c.split(chunk, 1),
+                               log_a.split(chunk, 1)):
+        if starts is not None:
+            starts.append(h)
+        xf, bf, cf = xk.float(), bk.float(), ck.float()
+        la = torch.cumsum(lak.float(), dim=1)  # [B, c, H] inclusive
+        # intra-chunk: M[t,s] = exp(la_t - la_s) * (C_t . B_s), s <= t
+        cb = torch.einsum("bthn,bshn->bhts", cf, bf)
+        seg = (la[:, :, None, :] - la[:, None, :, :]).movedim(3, 1)  # [B, H, t, s]
+        decay = torch.exp(torch.where(causal, seg, -math.inf))
+        mat = torch.where(causal, cb * decay, 0.0)
+        y_intra = torch.einsum("bhts,bshp->bthp", mat, xf)
+        # inter-chunk: y_inter[t] = exp(la_t) * C_t . h
+        y_inter = torch.einsum("bthn,bhpn->bthp", cf, h) * torch.exp(la)[..., None]
+        # state: h' = exp(la_end) h + sum_s exp(la_end - la_s) B_s (x) x_s
+        la_end = la[:, -1, :]  # [B, H]
+        w = torch.exp(la_end[:, None, :] - la)  # [B, c, H]
+        dstate = torch.einsum("bsh,bshp,bshn->bhpn", w, xf, bf)
+        h = torch.exp(la_end)[:, :, None, None] * h + dstate
+        ys.append((y_intra + y_inter).to(x.dtype))
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
+def ref_ssd_decode_step(x, b, c, log_a, state):
+    """One-token recurrence. x [B,H,P]; b, c [B,H,N]; log_a [B,H]; state
+    [B,H,P,N] f32: the state first, then the readout. Returns (y [B,H,P]
+    in x's dtype, the new state)."""
+    a = torch.exp(log_a.float())[..., None, None]
+    state = a * state + torch.einsum("bhp,bhn->bhpn", x.float(), b.float())
+    y = torch.einsum("bhpn,bhn->bhp", state, c.float())
+    return y.to(x.dtype), state
+
+
+def ref_ssd_fwd_saved(x, b, c, log_a, state, chunk: int):
+    """:func:`ref_ssd_chunked` with what the backward takes, in the CUDA
+    kernel's layout: (y, final state, saved), saved [nc,B,H,P,N] float32
+    the state at each chunk's start."""
+    starts = []
+    y, h = ref_ssd_chunked(x, b, c, log_a, chunk=chunk, state=state, starts=starts)
+    return y, h, torch.stack(starts)
+
+
+def ref_ssd_bwd(x, b, c, log_a, saved, dy, dh, chunk: int):
+    """The backward of :func:`ref_ssd_chunked`, the CUDA kernels' algorithm
+    in plain torch: a reverse loop over chunks carrying dh, each chunk
+    recomputed from its saved start state (:func:`ref_ssd_fwd_saved`). In a
+    chunk, with E[t,s] = exp(la_t - la_s) taken where s <= t only, G = C_t .
+    B_s and D = dy_t . x_s:
+
+    * dx_s = sum_t E G dy_t + w_s B_s . dh,   db_s = sum_t E D C_t + w_s x_s . dh,
+    * dc_t = sum_s E D B_s + e_t dy_t . h,    dh_prev = e_end dh + sum_t e_t dy_t (x) C_t,
+    * d la_t = sum_s E G D (row) - sum_t' E G D (column) + e_t dy_t . (C_t . h)
+      - w_t (x_t (x) B_t) : dh, and at the chunk's last real position
+      e_end h : dh + sum_s w_s (x_s (x) B_s) : dh; d log_a is its reverse
+      cumsum within the chunk.
+
+    e_t = exp(la_t), w_s = exp(la_end - la_s). A short last chunk ends at its
+    last real position (the padded tail adds nothing). Returns the
+    gradients of (x, b, c, log_a, state), x, b, c's in their dtypes."""
+    S = x.shape[1]
+    xf, bf, cf, dyf = x.float(), b.float(), c.float(), dy.float()
+    dx, db, dc = torch.zeros_like(xf), torch.zeros_like(bf), torch.zeros_like(cf)
+    dla = torch.zeros_like(log_a, dtype=torch.float32)
+    dh = dh.float()
+    for k in reversed(range(saved.shape[0])):
+        t0, t1 = k * chunk, min(S, k * chunk + chunk)
+        xk, bk, ck, dyk = (t[:, t0:t1] for t in (xf, bf, cf, dyf))
+        h, L = saved[k], t1 - t0
+        la = torch.cumsum(log_a[:, t0:t1].float(), dim=1)  # [B, L, H]
+        causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+        seg = (la[:, :, None, :] - la[:, None, :, :]).movedim(3, 1)  # [B, H, t, s]
+        E = torch.exp(torch.where(causal, seg, -math.inf))
+        EG = E * torch.einsum("bthn,bshn->bhts", ck, bk)
+        D = torch.einsum("bthp,bshp->bhts", dyk, xk)
+        ED = E * D
+        e, e_end = torch.exp(la), torch.exp(la[:, -1])  # [B, L, H], [B, H]
+        w = torch.exp(la[:, -1:] - la)
+        dx[:, t0:t1] = (torch.einsum("bhts,bthp->bshp", EG, dyk)
+                        + w[..., None] * torch.einsum("bshn,bhpn->bshp", bk, dh))
+        db[:, t0:t1] = (torch.einsum("bhts,bthn->bshn", ED, ck)
+                        + w[..., None] * torch.einsum("bshp,bhpn->bshn", xk, dh))
+        dc[:, t0:t1] = (torch.einsum("bhts,bshn->bthn", ED, bk)
+                        + e[..., None] * torch.einsum("bthp,bhpn->bthn", dyk, h))
+        Q = EG * D
+        R = w * torch.einsum("bshp,bhpn,bshn->bsh", xk, dh, bk)
+        d = (Q.sum(-1) - Q.sum(-2)).transpose(1, 2) - R
+        d = d + e * torch.einsum("bthp,bthn,bhpn->bth", dyk, ck, h)
+        d[:, -1] += e_end * (dh * h).sum((-2, -1)) + R.sum(1)
+        dla[:, t0:t1] = d.flip(1).cumsum(1).flip(1)
+        dh = e_end[..., None, None] * dh + torch.einsum("bth,bthp,bthn->bhpn", e, dyk, ck)
+    return dx.to(x.dtype), db.to(b.dtype), dc.to(c.dtype), dla, dh

@@ -1,0 +1,188 @@
+"""SSD's chunk loop and its one-token decode step, forward and backward:
+CUDA kernels (``csrc/ssd_scan.cu``) and their wrappers.
+
+Replaces the reference's third ``lax.scan`` site, which XLA runs as one
+loop over chunks on the device (and its gradient as a reverse scan):
+``repro/models/ssm.py`` :: ``ssd_chunked`` (the scan at :236), and its
+``ssd_decode_step`` (:241). The kernels compute the plain loop of
+``ref.py`` (``ref_ssd_chunked``, ``ref_ssd_decode_step``) in float32, y
+cast to x's dtype once, the intra-chunk decay formed only where s <= t.
+
+What bounds them: neither of the card's rates (a 256-token chunk of a
+head is ~5 MFLOP on a few hundred KB) but the chain of chunks and the
+intra-chunk matrix, 256 KB of f32 a (row, head) at 256 tokens, more than
+an SM holds. So the forward is one launch: a CTA per (16 value columns,
+head, row) walks the chunks in order with its slice of the state in shared
+memory, a thread a row of the chunk, the matrix recomputed as it is used
+and never stored. The decode step is one launch, a thread a value column.
+
+Backward: the forward saves the state at each chunk's start ([nc, B, H,
+P, N] float32, nothing per token), and the backward is two launches: the
+reverse loop over chunks carrying dh (a row pass for dc and a column pass
+for dx and db, recomputed from the saved state), then a fixed-order sum
+of db, dc and d log_a's partials over the value blocks, with d log_a's
+reverse cumsum within each chunk. No float atomics, so a gradient is the
+same bits run after run.
+
+On a CPU or ``meta`` tensor the entry points run the plain loop with
+ordinary autograd (the dry run traces on ``meta``); on a CUDA tensor they
+launch the kernels or raise. Where autograd records, the chunked scan goes
+through :class:`SSD` (a ``torch.autograd.Function`` whose forward saves
+and whose backward launches the backward kernels; on CPU tensors it runs
+``ref.py``'s plain forward-with-saves and backward, which the tests hold
+to autograd); elsewhere the forward kernel runs alone. The decode kernel
+has no backward: a decode step on CUDA tensors that autograd records is
+refused (no caller differentiates one; a gradient through a token is
+``ssd_chunked`` over it). ``launches`` counts kernel launches by kernel:
+``LAUNCHES_PER_CALL`` of them a call.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+KERNELS = ("ssd_fwd", "ssd_bwd", "ssd_decode")
+LAUNCHES_PER_CALL = {"ssd_fwd": 1, "ssd_bwd": 2, "ssd_decode": 1}
+launches = dict.fromkeys(KERNELS, 0)
+
+plain_chunked = ref.ref_ssd_chunked
+plain_decode = ref.ref_ssd_decode_step
+
+
+def _chunk_args(x, b, c, log_a, state, chunk):
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    f32 = torch.float32
+    _build.check_args("ssd", x.device, {
+        "b": (b, (B, S, H, N), x.dtype), "c": (c, (B, S, H, N), x.dtype),
+        "log_a": (log_a, (B, S, H), f32), "state": (state, (B, H, P, N), f32)}, x.dtype)
+    lib = _build.lib()
+    top_l, top_n = lib.rt_ssd_max_chunk(), lib.rt_ssd_max_n()
+    _build.require(1 <= chunk <= top_l, f"ssd: chunk {chunk} not in 1..{top_l}")
+    _build.require(1 <= N <= top_n, f"ssd: state width N={N} not in 1..{top_n}")
+    return _build.contiguous(x, b, c, log_a, state)
+
+
+def ssd_fwd(x, b, c, log_a, state, *, chunk: int, save: bool = False):
+    """The forward kernel: (y, final state, saved) with ``saved`` as
+    ``ref.ref_ssd_fwd_saved`` gives it, or None without ``save``."""
+    x, b, c, log_a, state = _chunk_args(x, b, c, log_a, state, chunk)
+    B, S, H, P = x.shape
+    y, h = torch.empty_like(x), torch.empty_like(state)
+    saved = _build.empty(-(-S // chunk), B, H, P, b.shape[-1], like=x) if save else None
+    if B * S * H * P == 0:
+        return y, h.copy_(state), saved
+    err = _build.lib().rt_ssd_fwd(*(t.data_ptr() for t in (x, b, c, log_a, state, y, h)),
+                                  None if saved is None else saved.data_ptr(),
+                                  B, S, H, P, b.shape[-1], chunk, _build.DTYPE_CODES[x.dtype],
+                                  _build.stream_ptr(x.device))
+    _build.check(err, "ssd_fwd")
+    launches["ssd_fwd"] += LAUNCHES_PER_CALL["ssd_fwd"]
+    return y, h, saved
+
+
+def ssd_bwd(x, b, c, log_a, saved, dy, dh, *, chunk: int):
+    """The backward kernels: the gradients of (x, b, c, log_a, state) from
+    the forward's ``saved`` and the gradients of (y, final state), as
+    ``ref.ref_ssd_bwd`` computes them."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    x, b, c, log_a, dh = _chunk_args(x, b, c, log_a, dh, chunk)
+    _build.check_args("ssd_bwd", x.device, {
+        "dy": (dy, x.shape, x.dtype),
+        "saved": (saved, (-(-S // chunk), B, H, P, N), torch.float32)}, x.dtype)
+    dy, saved = _build.contiguous(dy, saved)
+    dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
+    dla, dh0 = torch.empty_like(log_a), torch.empty_like(dh)
+    if B * S * H * P == 0:
+        return dx, db.zero_(), dc.zero_(), dla.zero_(), dh0.copy_(dh)
+    lib = _build.lib()
+    npb = -(-P // lib.rt_ssd_block_p())
+    scratch = (_build.empty(npb, B, S, H, N, like=x), _build.empty(npb, B, S, H, N, like=x),
+               _build.empty(npb, B, S, H, like=x))
+    err = lib.rt_ssd_bwd(*(t.data_ptr() for t in (x, b, c, log_a, saved, dy, dh, dx, db, dc,
+                                                  dla, dh0, *scratch)),
+                         B, S, H, P, N, chunk, _build.DTYPE_CODES[x.dtype],
+                         _build.stream_ptr(x.device))
+    _build.check(err, "ssd_bwd")
+    launches["ssd_bwd"] += LAUNCHES_PER_CALL["ssd_bwd"]
+    return dx, db, dc, dla, dh0
+
+
+class SSD(torch.autograd.Function):
+    """SSD's chunked scan with a backward of its own: the kernels on CUDA
+    tensors, ``ref.py``'s plain forward-with-saves and backward on CPU ones."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, log_a, state, chunk):
+        if x.is_cuda:
+            y, h, saved = ssd_fwd(x, b, c, log_a, state, chunk=chunk, save=True)
+        else:
+            y, h, saved = ref.ref_ssd_fwd_saved(x, b, c, log_a, state, chunk)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, b, c, log_a, saved)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, b, c, log_a, saved = ctx.saved_tensors
+        if x.is_cuda:
+            grads = ssd_bwd(x, b, c, log_a, saved, dy, dh, chunk=ctx.chunk)
+        else:
+            grads = ref.ref_ssd_bwd(x, b, c, log_a, saved, dy, dh, ctx.chunk)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def ssd_chunked(x, b, c, log_a, *, chunk: int, state=None):
+    """SSD's chunked scan: (y [B, S, H, P] in x's dtype, final state [B, H,
+    P, N] float32) over x [B, S, H, P], b, c [B, S, H, N] (x's dtype),
+    log_a [B, S, H] float32 from ``state`` (zeros when None)."""
+    if _build.on_host(x):
+        return plain_chunked(x, b, c, log_a, chunk=chunk, state=state)
+    if state is None:
+        B, _, H, P = x.shape
+        state = torch.zeros((B, H, P, b.shape[-1]), dtype=torch.float32, device=x.device)
+    if _build.records(x, b, c, log_a, state):
+        return SSD.apply(x, b, c, log_a, state, chunk)
+    return ssd_fwd(x, b, c, log_a, state, chunk=chunk)[:2]
+
+
+def decode(x, b, c, log_a, state):
+    """The decode kernel: (y [B, H, P] in x's dtype, the new state)."""
+    B, H, P = x.shape
+    N = b.shape[-1]
+    _build.check_args("ssd_decode", x.device, {
+        "b": (b, (B, H, N), b.dtype), "c": (c, (B, H, N), b.dtype),
+        "log_a": (log_a, (B, H), torch.float32), "state": (state, (B, H, P, N), torch.float32)},
+        x.dtype)
+    _build.require(b.dtype in _build.DTYPE_CODES, f"ssd_decode: b, c dtype {b.dtype} not "
+                   "float32/bfloat16")
+    lib = _build.lib()
+    top = lib.rt_ssd_max_decode_p()
+    _build.require(1 <= P <= top, f"ssd_decode: P={P} not in 1..{top}")
+    x, b, c, log_a, state = _build.contiguous(x, b, c, log_a, state)
+    y, h = torch.empty_like(x), torch.empty_like(state)
+    if B * H * N == 0:
+        return y.zero_(), h
+    err = lib.rt_ssd_decode(*(t.data_ptr() for t in (x, b, c, log_a, state, y, h)),
+                            B, H, P, N, _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[b.dtype],
+                            _build.stream_ptr(x.device))
+    _build.check(err, "ssd_decode")
+    launches["ssd_decode"] += LAUNCHES_PER_CALL["ssd_decode"]
+    return y, h
+
+
+def ssd_decode(x, b, c, log_a, state):
+    """One token of SSD: (y [B, H, P] in x's dtype, the new state) from x
+    [B, H, P], b, c [B, H, N], log_a [B, H] float32 and the state [B, H, P,
+    N] float32. On CUDA tensors that autograd records it raises: the
+    kernel has no backward."""
+    if _build.on_host(x):
+        return plain_decode(x, b, c, log_a, state)
+    _build.require(not _build.records(x, b, c, log_a, state),
+                   "ssd_decode: the decode kernel has no backward; take a gradient "
+                   "through ssd_chunked over the token (mamba_block without decode)")
+    return decode(x, b, c, log_a, state)

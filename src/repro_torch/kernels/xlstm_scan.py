@@ -54,31 +54,6 @@ plain_mlstm = ref.ref_mlstm_scan
 plain_slstm = ref.ref_slstm_scan
 
 
-def _on_host(t: torch.Tensor) -> bool:
-    return t.device.type in ("cpu", "meta")
-
-
-def _records(*ts) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
-def _check(what: str, dev, tensors: dict, dtype) -> None:
-    _build.require(dev.type == "cuda", f"{what}: unsupported device {dev}")
-    _build.require(dtype in _build.DTYPE_CODES, f"{what}: dtype {dtype} not float32/bfloat16")
-    for name, (t, shape, dt) in tensors.items():
-        _build.require(t.device == dev and t.dtype == dt and tuple(t.shape) == tuple(shape),
-                       f"{what}: {name} must be {dt} {tuple(shape)} on {dev}, got "
-                       f"{t.dtype} {tuple(t.shape)} on {t.device}")
-
-
-def _c(*ts):
-    return [t.contiguous() for t in ts]
-
-
-def _empty(*shape, like, dtype=torch.float32):
-    return torch.empty(shape, dtype=dtype, device=like.device)
-
-
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
@@ -87,14 +62,14 @@ def _empty(*shape, like, dtype=torch.float32):
 def _mlstm_args(q, k, v, log_i, log_f, C, n, m):
     B, H, S, d = q.shape
     f32 = torch.float32
-    _check("mlstm", q.device, {
+    _build.check_args("mlstm", q.device, {
         "k": (k, q.shape, q.dtype), "v": (v, q.shape, q.dtype),
         "log_i": (log_i, (B, H, S), f32), "log_f": (log_f, (B, H, S), f32),
         "C": (C, (B, H, d, d), f32), "n": (n, (B, H, d), f32), "m": (m, (B, H), f32)},
         q.dtype)
     top = _build.lib().rt_mlstm_max_d()
     _build.require(1 <= d <= top, f"mlstm: head dim {d} not in 1..{top}")
-    return _c(q, k, v, log_i, log_f, C, n, m)
+    return _build.contiguous(q, k, v, log_i, log_f, C, n, m)
 
 
 def mlstm_fwd(q, k, v, log_i, log_f, C, n, m, *, save: bool = False):
@@ -106,9 +81,9 @@ def mlstm_fwd(q, k, v, log_i, log_f, C, n, m, *, save: bool = False):
     out = (torch.empty_like(C), torch.empty_like(n), torch.empty_like(m))
     saved = None
     if save:
-        saved = (_empty(-(-S // CHECKPOINT_EVERY), B, H, d, d, like=q),
-                 _empty(B, H, S + 1, d, like=q), _empty(B, H, S + 1, like=q),
-                 _empty(B, H, S, like=q), _empty(B, H, S, d, like=q))
+        saved = (_build.empty(-(-S // CHECKPOINT_EVERY), B, H, d, d, like=q),
+                 _build.empty(B, H, S + 1, d, like=q), _build.empty(B, H, S + 1, like=q),
+                 _build.empty(B, H, S, like=q), _build.empty(B, H, S, d, like=q))
     if B * H == 0:
         return (h, *(t.copy_(s) for t, s in zip(out, (C, n, m))), saved)
     lib = _build.lib()
@@ -125,10 +100,10 @@ def mlstm_bwd(q, k, v, log_i, log_f, saved, dh, dC, dn, dm):
     """The backward kernels: the gradients of (q, k, v, log_i, log_f, C, n,
     m) from the forward's ``saved`` and the gradients of (h, C, n, m), as
     ``ref.ref_mlstm_bwd`` computes them."""
-    q, k, v, log_i, log_f = _c(q, k, v, log_i, log_f)
+    q, k, v, log_i, log_f = _build.contiguous(q, k, v, log_i, log_f)
     B, H, S, d = q.shape
-    _check("mlstm_bwd", q.device, {"dh": (dh, q.shape, q.dtype)}, q.dtype)
-    dh, dC, dn, dm = _c(dh, dC, dn, dm)
+    _build.check_args("mlstm_bwd", q.device, {"dh": (dh, q.shape, q.dtype)}, q.dtype)
+    dh, dC, dn, dm = _build.contiguous(dh, dC, dn, dm)
     lib = _build.lib()
     block_v = lib.rt_mlstm_block_v()
     nx, threads = -(-d // block_v), -(-d // 32) * 32
@@ -137,10 +112,10 @@ def mlstm_bwd(q, k, v, log_i, log_f, saved, dh, dC, dn, dm):
     dC0, dn0, dm0 = torch.empty_like(dC), torch.empty_like(dn), torch.empty_like(dm)
     if B * H == 0:
         return dq, dk, dv, dli, dlf, dC0, dn0, dm0
-    scratch = (_empty(B * H * nx, CHECKPOINT_EVERY, threads, block_v, like=q),
-               _empty(nx, B, H, S, d, like=q), _empty(nx, B, H, S, d, like=q),
-               _empty(nx, B, H, S, like=q), _empty(nx, B, H, S, like=q),
-               _empty(B, H, S, like=q), _empty(B, H, S, like=q))
+    scratch = (_build.empty(B * H * nx, CHECKPOINT_EVERY, threads, block_v, like=q),
+               _build.empty(nx, B, H, S, d, like=q), _build.empty(nx, B, H, S, d, like=q),
+               _build.empty(nx, B, H, S, like=q), _build.empty(nx, B, H, S, like=q),
+               _build.empty(B, H, S, like=q), _build.empty(B, H, S, like=q))
     err = lib.rt_mlstm_bwd(*(t.data_ptr() for t in (
         q, k, v, log_i, log_f, *saved, dh, dC, dn, dm, dq, dk, dv, dli, dlf, dC0, dn0, dm0,
         *scratch)), B, H, S, d, CHECKPOINT_EVERY, _build.DTYPE_CODES[q.dtype],
@@ -180,9 +155,9 @@ def mlstm(q, k, v, log_i, log_f, C, n, m):
     [B,H,S,d] (k scaled by 1/sqrt(d) in its dtype), log_i, log_f [B,H,S]
     float32, the state C [B,H,d,d], n [B,H,d], m [B,H] float32."""
     args = (q, k, v, log_i, log_f, C, n, m)
-    if _on_host(q):
+    if _build.on_host(q):
         return plain_mlstm(*args)
-    if _records(*args):
+    if _build.records(*args):
         return MLSTM.apply(*args)
     return mlstm_fwd(*args)[:4]
 
@@ -195,14 +170,14 @@ def mlstm(q, k, v, log_i, log_f, C, n, m):
 def _slstm_args(zx, ix, fx, ox, r, c, n, h, m):
     B, S, H, hd = zx.shape
     f32 = torch.float32
-    _check("slstm", zx.device, {
+    _build.check_args("slstm", zx.device, {
         "ix": (ix, zx.shape, zx.dtype), "fx": (fx, zx.shape, zx.dtype),
         "ox": (ox, zx.shape, zx.dtype), "r": (r, (H, hd, 4 * hd), f32),
         "c": (c, (B, H, hd), f32), "n": (n, (B, H, hd), f32), "h": (h, (B, H, hd), f32),
         "m": (m, (B, H), f32)}, zx.dtype)
     top = _build.lib().rt_slstm_max_hd()
     _build.require(1 <= hd <= top, f"slstm: head dim {hd} not in 1..{top}")
-    return _c(zx, ix, fx, ox, r, c, n, h, m)
+    return _build.contiguous(zx, ix, fx, ox, r, c, n, h, m)
 
 
 def slstm_fwd(zx, ix, fx, ox, r, c, n, h, m, *, save: bool = False):
@@ -214,9 +189,10 @@ def slstm_fwd(zx, ix, fx, ox, r, c, n, h, m, *, save: bool = False):
     out = tuple(torch.empty_like(t) for t in (c, n, h, m))
     saved = None
     if save:
-        saved = (*(_empty(B, S + 1, H, hd, like=zx) for _ in range(3)),
-                 *(_empty(B, S, H, hd, like=zx) for _ in range(2)),
-                 *(_empty(B, S, H, like=zx) for _ in range(2)), _empty(B, S + 1, H, like=zx))
+        saved = (*(_build.empty(B, S + 1, H, hd, like=zx) for _ in range(3)),
+                 *(_build.empty(B, S, H, hd, like=zx) for _ in range(2)),
+                 *(_build.empty(B, S, H, like=zx) for _ in range(2)),
+                 _build.empty(B, S + 1, H, like=zx))
     if B * H == 0:
         return (hs, *(t.copy_(s) for t, s in zip(out, (c, n, h, m))), saved)
     lib = _build.lib()
@@ -234,14 +210,15 @@ def slstm_bwd(r, saved, dhs, dc, dn, dh, dm):
     m) from the forward's ``saved`` and the gradients of (hs, c, n, h, m),
     as ``ref.ref_slstm_bwd`` computes them."""
     B, S, H, hd = dhs.shape
-    _check("slstm_bwd", dhs.device, {"r": (r, (H, hd, 4 * hd), torch.float32)}, dhs.dtype)
-    r, dhs, dc, dn, dh, dm = _c(r, dhs, dc, dn, dh, dm)
+    _build.check_args("slstm_bwd", dhs.device, {"r": (r, (H, hd, 4 * hd), torch.float32)},
+                      dhs.dtype)
+    r, dhs, dc, dn, dh, dm = _build.contiguous(r, dhs, dc, dn, dh, dm)
     dx = tuple(torch.empty_like(dhs) for _ in range(4))
     dr = torch.zeros_like(r)
     d0 = tuple(torch.empty_like(t) for t in (dc, dn, dh, dm))
     if B * H == 0:
         return (*dx, dr, *d0)
-    drec = _empty(B, S, H, 4 * hd, like=dhs)
+    drec = _build.empty(B, S, H, 4 * hd, like=dhs)
     lib = _build.lib()
     err = lib.rt_slstm_bwd(*(t.data_ptr() for t in (r, *saved, dhs, dc, dn, dh, dm, *dx, dr,
                                                     *d0, drec)),
@@ -276,8 +253,8 @@ def slstm(zx, ix, fx, ox, r, c, n, h, m):
     """The sLSTM recurrence: (hs [B,S,H,hd] in zx's dtype, c, n, h, m). zx,
     ix, fx, ox [B,S,H,hd]; r [H,hd,4hd], c, n, h [B,H,hd], m [B,H] float32."""
     args = (zx, ix, fx, ox, r, c, n, h, m)
-    if _on_host(zx):
+    if _build.on_host(zx):
         return plain_slstm(*args)
-    if _records(*args):
+    if _build.records(*args):
         return SLSTM.apply(*args)
     return slstm_fwd(*args)[:5]

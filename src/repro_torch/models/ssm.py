@@ -5,11 +5,12 @@ rounding points (the key scale cast to the key's dtype, each step's output
 cast to the input's dtype, the SSD input cast to the model's dtype before
 the chunked scan).
 
-The reference's two ``lax.scan`` time loops of mLSTM and sLSTM go through
-``kernels.ops`` (``kernels/xlstm_scan.py``): one CUDA launch a loop on the
-card, forward and backward, and the plain loop of ``kernels/ref.py`` (one
-step per token, ordinary autograd) on the CPU and on ``meta``. SSD's chunk
-loop is a Python loop over torch ops, one step per chunk. The reference's
+The reference's three ``lax.scan`` time loops, mLSTM's, sLSTM's and SSD's
+chunk loop, go through ``kernels.ops`` (``kernels/xlstm_scan.py``,
+``kernels/ssd_scan.py``), and so does SSD's one-token decode step: CUDA
+kernels on the card, forward and backward, and the plain loops of
+``kernels/ref.py`` (a step per token or per chunk, ordinary autograd) on
+the CPU and on ``meta``. The reference's
 ``unroll`` (of its scans) and ``shard_axis`` (its mesh) have no
 counterpart here. On DTensors the projections stay DTensor
 products, the head reshapes go through ``sharding.view``, and each scan
@@ -135,47 +136,16 @@ def ssd_chunked(x, b, c, log_a, *, chunk: int = 256, state=None):
     gives the same values but, once a chunk's summed decay passes ~88
     (hymba-1.5b's 256-token chunks), an inf in the masked corner whose
     gradient is NaN. Masking the exponent first keeps the gradient finite;
-    wherever the reference's is finite, the two agree."""
-    B, S, H, P = x.shape
-    N = b.shape[-1]
-    if S % chunk != 0:
-        pad = chunk - S % chunk
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        b = F.pad(b, (0, 0, 0, 0, 0, pad))
-        c = F.pad(c, (0, 0, 0, 0, 0, pad))
-        log_a = F.pad(log_a, (0, 0, 0, pad))
-    h = state if state is not None else _f32((B, H, P, N), x.device)
-    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
-    ys = []
-    for xk, bk, ck, lak in zip(x.split(chunk, 1), b.split(chunk, 1), c.split(chunk, 1),
-                               log_a.split(chunk, 1)):
-        xf, bf, cf = xk.float(), bk.float(), ck.float()
-        la = torch.cumsum(lak.float(), dim=1)  # [B, c, H] inclusive
-        # intra-chunk: M[t,s] = exp(la_t - la_s) * (C_t . B_s), s <= t
-        cb = torch.einsum("bthn,bshn->bhts", cf, bf)
-        seg = (la[:, :, None, :] - la[:, None, :, :]).movedim(3, 1)  # [B, H, t, s]
-        decay = torch.exp(torch.where(causal, seg, -math.inf))
-        mat = torch.where(causal, cb * decay, 0.0)
-        y_intra = torch.einsum("bhts,bshp->bthp", mat, xf)
-        # inter-chunk: y_inter[t] = exp(la_t) * C_t . h
-        y_inter = torch.einsum("bthn,bhpn->bthp", cf, h) * torch.exp(la)[..., None]
-        # state: h' = exp(la_end) h + sum_s exp(la_end - la_s) B_s (x) x_s
-        la_end = la[:, -1, :]  # [B, H]
-        w = torch.exp(la_end[:, None, :] - la)  # [B, c, H]
-        dstate = torch.einsum("bsh,bshp,bshn->bhpn", w, xf, bf)
-        h = torch.exp(la_end)[:, :, None, None] * h + dstate
-        ys.append((y_intra + y_inter).to(x.dtype))
-    return torch.cat(ys, dim=1)[:, :S], h
+    wherever the reference's is finite, the two agree (``kernels/ref.py``'s
+    ``ref_ssd_chunked`` is the plain loop)."""
+    return kops.ssd_chunked(x, b, c, log_a, chunk=chunk, state=state)
 
 
 @per_batch_shard(heads=dict(x=1, b=1, c=1, log_a=1, state=1), out_heads=(1, 1))
 def ssd_decode_step(x, b, c, log_a, state):
     """One-token recurrence. x [B,H,P]; b, c [B,H,N]; log_a [B,H]; state
     [B,H,P,N] f32."""
-    a = torch.exp(log_a.float())[..., None, None]
-    state = a * state + torch.einsum("bhp,bhn->bhpn", x.float(), b.float())
-    y = torch.einsum("bhpn,bhn->bhp", state, c.float())
-    return y.to(x.dtype), state
+    return kops.ssd_decode(x, b, c, log_a, state)
 
 
 def mamba_block(x, p: dict, *, num_heads: int, ssm_state: int, chunk: int = 256,

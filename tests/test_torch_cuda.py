@@ -969,3 +969,157 @@ def test_xlstm_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         xs.slstm(zx, zx, zx, zx, torch.zeros(1, 264, 1056, device=dev), st, st, st,
                  m[:1, :1])
+
+
+# SSD's chunk loop and decode step (kernels/ssd_scan.py) at hymba-1.5b's
+# width (25 heads, P = 64, N = 16, chunks of 256) and the smoke width (4
+# heads, P = 16, N = 4). Tolerances as for the xLSTM loops: atol = rtol =
+# 2e-2 in bfloat16 (y, dx, db, dc rounded to bf16 once, f32 sums in another
+# order), a relative L2 of 1e-4 in float32.
+SSD_WIDTHS = {"hymba": (25, 64, 16), "smoke": (4, 16, 4)}
+
+
+def _ssd_inputs(dev, dtype, B, S, width, carried, seed=0):
+    H, P, N = SSD_WIDTHS[width]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    x = rnd(B, S, H, P).to(DT[dtype])
+    b, c = ((rnd(B, S, H, N) * 0.5).to(DT[dtype]) for _ in range(2))
+    log_a = -torch.nn.functional.softplus(rnd(B, S, H))
+    state = rnd(B, H, P, N) if carried else torch.zeros(B, H, P, N, device=dev)
+    return x, b, c, log_a, state
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("S,chunk", [(1, 1), (40, 16), (300, 256)])
+@pytest.mark.parametrize("width", list(SSD_WIDTHS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernels_match_plain(dev, dtype, width, S, chunk, carried):
+    """The SSD forward kernel against ``ref.ref_ssd_fwd_saved`` (y, the
+    final state and the states saved at the chunk starts) and the backward
+    kernels against ``ref.ref_ssd_bwd`` on the kernel's saves, 1 + 2
+    launches; S = 300 in chunks of 256 pads its last chunk, S = 40 in 16
+    as well."""
+    from repro_torch.kernels import ref, ssd_scan as ss
+
+    args = _ssd_inputs(dev, dtype, 2, S, width, carried)
+    before = dict(ss.launches)
+    y, h, saved = ss.ssd_fwd(*args, chunk=chunk, save=True)
+    want = ref.ref_ssd_fwd_saved(*args, chunk)
+    for a, b in zip((y, h, saved), want, strict=True):
+        _xl_close(a, b, dtype if a.dtype == DT[dtype] else "float32")
+    g = torch.Generator(device=dev).manual_seed(9)
+    dy = torch.randn(y.shape, generator=g, device=dev).to(y.dtype)
+    dh = torch.randn(h.shape, generator=g, device=dev)
+    got = ss.ssd_bwd(*args[:4], saved, dy, dh, chunk=chunk)
+    want = ref.ref_ssd_bwd(*args[:4], saved, dy, dh, chunk)
+    for a, b in zip(got, want, strict=True):
+        _xl_close(a, b, dtype)
+    assert ss.launches["ssd_fwd"] == before["ssd_fwd"] + 1
+    assert ss.launches["ssd_bwd"] == before["ssd_bwd"] + 2
+
+
+@pytest.mark.parametrize("width", list(SSD_WIDTHS))
+@pytest.mark.parametrize("x_dtype,bc_dtype", [("float32", "float32"), ("float32", "bfloat16"),
+                                              ("bfloat16", "bfloat16")])
+def test_ssd_decode_kernel_matches_plain(dev, x_dtype, bc_dtype, width):
+    """The decode kernel against ``ref.ref_ssd_decode_step``, one launch;
+    x in float32 with b, c in bf16 is the bf16 model's decode (its x is the
+    float32 x * dt)."""
+    from repro_torch.kernels import ref, ssd_scan as ss
+
+    x, b, c, log_a, state = _ssd_inputs(dev, "float32", 4, 1, width, True)
+    x = x[:, 0].to(DT[x_dtype])
+    b, c = (t[:, 0].to(DT[bc_dtype]) for t in (b, c))
+    before = ss.launches["ssd_decode"]
+    got = ss.ssd_decode(x, b, c, log_a[:, 0], state)
+    want = ref.ref_ssd_decode_step(x, b, c, log_a[:, 0], state)
+    for a, w in zip(got, want, strict=True):
+        _xl_close(a, w, x_dtype if a.dtype == DT[x_dtype] else "float32")
+    assert ss.launches["ssd_decode"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hymba_block_on_card_matches_plain_autograd(dev, dtype):
+    """One hymba-1.5b layer (attention and the Mamba branch, d_model 1,600,
+    25 SSD heads of 64) over 2 x 300 tokens on the card, the scan through
+    ``SSD``'s kernels, against the same layer on the plain loop with
+    ordinary autograd (swapped in) on the card: the output and every
+    gradient; then one decode step of the branch through the decode
+    kernel, which refuses a call that autograd records."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import blocks, ssm
+
+    cfg = dataclasses.replace(get_config("hymba_1_5b"), dtype=dtype)
+    g = torch.Generator(device=dev).manual_seed(4)
+    params = blocks.init_hymba(cfg, g, dev)
+    x = (torch.randn(2, 300, cfg.d_model, generator=g, device=dev) * 0.5).to(DT[dtype])
+    names = [("mamba", k) for k in params["mamba"]]
+    runs = {}
+    for how in ("kernel", "plain"):
+        leaves = [x.clone().requires_grad_(True)]
+        leaves += [params[a][k].clone().requires_grad_(True) for a, k in names]
+        p = dict(params) | {"mamba": dict(zip([k for _, k in names], leaves[1:]))}
+        real = ss.ssd_chunked
+        if how == "plain":
+            ss.ssd_chunked = ss.plain_chunked
+        try:
+            before = dict(ss.launches)
+            y, _, _ = blocks.apply_hymba(leaves[0], p, cfg)
+            grads = torch.autograd.grad((y.float() ** 2).mean(), leaves)
+        finally:
+            ss.ssd_chunked = real
+        moved = {k: ss.launches[k] - before[k] for k in ss.KERNELS}
+        runs[how] = ([y, *grads], moved)
+    assert runs["kernel"][1] == {"ssd_fwd": 1, "ssd_bwd": 2, "ssd_decode": 0}
+    assert runs["plain"][1] == dict.fromkeys(ss.KERNELS, 0)
+    for a, b in zip(runs["kernel"][0], runs["plain"][0], strict=True):
+        _xl_close(a, b, dtype)
+    H, P, N = SSD_WIDTHS["hymba"]
+    state = torch.randn(2, H, P, N, generator=g, device=dev)
+    xt = x[:, :1]
+    with torch.no_grad():
+        want = ssm.mamba_block(xt, params["mamba"], num_heads=H, ssm_state=N, state=state,
+                               decode=True)
+        ss.ssd_decode, real = ss.plain_decode, ss.ssd_decode
+        try:
+            plain = ssm.mamba_block(xt, params["mamba"], num_heads=H, ssm_state=N,
+                                    state=state, decode=True)
+        finally:
+            ss.ssd_decode = real
+    before = dict(ss.launches)
+    with pytest.raises(ValueError):
+        ssm.mamba_block(xt.clone().requires_grad_(True), params["mamba"], num_heads=H,
+                        ssm_state=N, state=state, decode=True)
+    assert ss.launches == before
+    for a, b in zip(want, plain, strict=True):
+        _xl_close(a, b, dtype if a.dtype == DT[dtype] else "float32")
+
+
+def test_ssd_kernels_refuse_what_they_do_not_take(dev):
+    """No fallback: a CUDA call outside the kernels' limits raises: a chunk
+    past 256, a state wider than 16, a decode past 1,024 value columns, a
+    float16 input, a float64 log_a, a tensor on the CPU."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    x, b, c, log_a, state = _ssd_inputs(dev, "float32", 1, 300, "smoke", False)
+    with pytest.raises(ValueError):
+        ss.ssd_chunked(x, b, c, log_a, chunk=257, state=state)
+    with pytest.raises(ValueError):
+        ss.ssd_chunked(x.half(), b.half(), c.half(), log_a, chunk=256, state=state)
+    with pytest.raises(ValueError):
+        ss.ssd_chunked(x, b, c, log_a.double(), chunk=256, state=state)
+    with pytest.raises(ValueError):
+        ss.ssd_chunked(x, b.cpu(), c, log_a, chunk=256, state=state)
+    wide = torch.zeros(1, 3, 4, 17, device=dev)
+    with pytest.raises(ValueError):
+        ss.ssd_chunked(x[:, :3], wide, wide, log_a[:, :3], chunk=3,
+                       state=torch.zeros(1, 4, 16, 17, device=dev))
+    xp = torch.zeros(1, 1, 1025, device=dev)
+    bp = torch.zeros(1, 1, 4, device=dev)
+    with pytest.raises(ValueError):
+        ss.ssd_decode(xp, bp, bp, torch.zeros(1, 1, device=dev),
+                      torch.zeros(1, 1, 1025, 4, device=dev))
