@@ -34,7 +34,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    256) at B=2 x S=512 (phase 9's train shape), B=4 x S=1,024 (its
    prefill) and B=2 x S=300 (a padded last chunk, a carried state), in
    bf16 and float32, and the decode kernel from the prefill's state; each
-   timed by graph in bf16 beside its plain version and its bound;
+   timed by graph in bf16 beside its plain version and its bound; then
+   ``chunked_cache_attention``'s KV-block scan (the fourth ``lax.scan``
+   site): its kernel against the plain loop at llava-next's prefill (B=2,
+   2,880 patch embeddings + 64 tokens into a ring of 2,976; bf16), at its
+   heads in float32 and at hymba-1.5b's heads and window over a wrapped
+   ring, timed by graph beside the plain loop, SDPA and its bound;
 4. small-input reference: the port's ``Engine`` on the Yi-6B and
    granite-moe smoke configs in float32, on the card (kernels) and on the
    CPU (plain versions), must give token-identical outputs;
@@ -94,13 +99,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    version on that launch's inputs (atol = rtol = 2e-2), and the reference's two-chunk prefill of 2,048 tokens
    into its ring measured; (d) llava-next-mistral-7b decoded after a
    prefill of 2,880 patch embeddings + 64 tokens through
-   ``chunked_cache_attention``, 32 steps, held to ``apply``. Per model:
-   step ms and trained tokens/s, prefill ms, decode step ms, generated
-   tokens/s, peak memory, and the ``cudaLaunchKernel`` of one profiled
-   decode step. Of the serving kernels only flash may launch here, once a
-   hymba layer; xlstm's layers launch the scan kernels and hymba's the SSD
-   kernels, each exactly as many times as the layers, remat and decode
-   steps imply (no SSD kernel launches after phase 9).
+   ``chunked_cache_attention`` (its kernel once a layer, the first launch
+   held to the plain loop on its own inputs), 32 steps, held to
+   ``apply``, and a second prefill profiled. Per model: step ms and
+   trained tokens/s, prefill ms and the prefill's own peak memory, decode
+   step ms, generated tokens/s, peak memory, and the ``cudaLaunchKernel``
+   of one profiled decode step. Of the serving kernels only flash may
+   launch here, once a hymba layer; xlstm's layers launch the scan
+   kernels, hymba's the SSD kernels and llava's prefills the cache
+   attention kernel, each exactly as many times as the layers, remat and
+   decode steps imply (no SSD or cache attention kernel launches outside
+   phase 9).
 10. the parallel layer and the launch tooling: (a) Yi-6B at full width and
    depth in bfloat16 split into 4 stages of 8 layers and run through
    ``repro_torch.parallel.pipeline.PipelineRunner`` on 6 microbatches of
@@ -147,10 +156,10 @@ them on one line after phase 11.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``kernels`` JSON line (five rows for the five ``pallas_call`` sites, the
-claim kernel serving two, then seven for the three ``lax.scan`` sites: four
-xLSTM kernels and three SSD kernels, the decode step's among them; each
-row's ``of`` naming which), and the card's name and power limit come
-before that.
+claim kernel serving two, then eight for the four ``lax.scan`` sites: four
+xLSTM kernels, three SSD kernels, the decode step's among them, and the
+cache attention kernel; each row's ``of`` naming which), and the card's
+name and power limit come before that.
 """
 
 from __future__ import annotations
@@ -1116,6 +1125,129 @@ def xl_add(total: dict, more: dict) -> dict:
     return {k: total.get(k, 0) + more.get(k, 0) for k in set(total) | set(more)}
 
 
+CACHE_SITE = "src/repro/models/layers.py:203"  # the reference's scan over KV blocks
+LLAVA_EXTRA, LLAVA_PROMPT, LLAVA_STEPS = 2880, 64, 32  # phase 9 (d)'s prefill and decode
+
+
+def ring_inputs(gen, dtype, B: int, S: int, T: int, H: int, KV: int, hd: int,
+                start: int = 0) -> tuple:
+    """q [B,S,H,hd] and a ring k, v [B,T,KV,hd] (random, from ``gen``),
+    with the positions a model's ring holds after positions 0..start+S-1
+    were written to slots p % T (slot t the latest p, -1 if none): queries
+    at start..start+S-1. ``start`` 0 and S <= T is a prefill into an empty
+    ring (llava-next's: positions follow the slots); start + S > T wraps."""
+    n = start + S
+    t = torch.arange(T, device="cuda")
+    p = n - 1 - (n - 1 - t) % T
+    k_pos = torch.where(p >= 0, p, -1).to(torch.int32).expand(B, T).contiguous()
+    q_pos = torch.arange(start, n, dtype=torch.int32, device="cuda").expand(B, S).contiguous()
+    q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, T, KV, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, T, KV, hd, generator=gen, device="cuda").to(dtype)
+    return q, k, v, q_pos, k_pos
+
+
+def ring_mask(q_pos, k_pos, window: int = 0):
+    """[B, S, T]: which slots each query sees (the plain version's mask)."""
+    mask = (k_pos[:, None, :] >= 0) & (q_pos[:, :, None] >= k_pos[:, None, :])
+    if window > 0:
+        mask &= q_pos[:, :, None] - k_pos[:, None, :] < window
+    return mask
+
+
+# the bf16 kernel against the plain loop run in float32 on its (bf16)
+# inputs: each output row's relative L2 error. Its only roundings are P's
+# and the output's to bf16 (unit roundoff 2**-8), each about 2.3e-3 a row;
+# a 64-slot tile dropped or counted twice moves a row that sees 46 tiles by
+# 0.05-0.17 (both emulated on the CPU at llava's shape)
+TOL_ROW_BF16 = 1e-2
+
+
+def row_rel_err(got: torch.Tensor, exact: torch.Tensor) -> torch.Tensor:
+    """|got - exact| / |exact| over each row of the last dim (0 where both are 0)."""
+    exact = exact.float()
+    return (got.float() - exact).norm(dim=-1) / exact.norm(dim=-1).clamp_min(1e-30)
+
+
+def check_cache_attention(ca, gen) -> dict:
+    """Phase 3, ``chunked_cache_attention``'s KV-block scan (the reference's
+    fourth ``lax.scan`` site): the kernel against its plain loop (KV blocks
+    of 1,024, as the configs set ``attn_chunk_kv``) at llava-next's
+    prefill (B 2, 2,880 patch embeddings + 64 tokens into a ring of 2,976;
+    H/KV 32/8, hd 128) in bf16; at its heads in float32 (a 300-token chunk
+    after 2,600 positions, the CUDA-core path); at hymba-1.5b's heads (25
+    over 5, hd 64) with its 1,024 window over a wrapped 1,536-slot ring in
+    bf16. In bf16 each case is also held, row by row, to the plain loop in
+    float32 on the same inputs (a relative L2 of ``TOL_ROW_BF16``): the bf16
+    loop rounds its scores to bf16, and the outputs of late rows (std ~0.03)
+    sit well inside atol. Timed at llava's shape: the kernel and SDPA (the same boolean
+    mask, ``enable_gqa``) by CUDA graph, the plain loop eagerly; the bound
+    counts the pairs this run's positions make visible, 4 hd FLOPs a pair
+    and head at 989 TFLOP/s, against q, k, v, the positions and the output
+    once at 3.35 TB/s."""
+    from repro_torch.configs import get_config
+
+    llava, hymba = get_config("llava_next"), get_config("hymba_1_5b")
+    H, KV, hd = llava.num_heads, llava.num_kv_heads, llava.resolved_head_dim
+    B, S = 2, LLAVA_EXTRA + LLAVA_PROMPT
+    T = S + LLAVA_STEPS
+    cases = [("llava-next prefill", torch.bfloat16, B, S, T, H, KV, hd, 0, 0),
+             ("llava-next heads, a chunk after 2,600", torch.float32, 1, 300, T, H, KV, hd,
+              2600, 0),
+             ("hymba-1.5b heads, wrapped ring", torch.bfloat16, 2, 200, 1536,
+              hymba.num_heads, hymba.num_kv_heads, hymba.resolved_head_dim, 2800,
+              hymba.sliding_window)]
+    err = 0.0
+    for what, dt, b, s, t, h, kv, d, start, window in cases:
+        q, k, v, q_pos, k_pos = ring_inputs(gen, dt, b, s, t, h, kv, d, start)
+        before = ca.launches
+        got = ca.cache_attention(q, k, v, q_pos, k_pos, sliding_window=window)
+        if ca.launches != before + 1:
+            raise AssertionError(f"cache_attention {what}: {ca.launches - before} launches")
+        want = ca.plain(q, k, v, q_pos, k_pos, sliding_window=window, block_k=1024)
+        tol = TOL_BF16 if dt == torch.bfloat16 else 2e-5
+        e = max_err(got, want)
+        if not torch.isfinite(got).all() or not torch.allclose(got.float(), want.float(),
+                                                               atol=tol, rtol=tol):
+            raise AssertionError(f"cache_attention {what}: kernel disagrees with its plain "
+                                 f"version (max abs err {e})")
+        err = max(err, e)
+        rows = ""
+        if dt == torch.bfloat16:
+            exact = ca.plain(q.float(), k.float(), v.float(), q_pos, k_pos,
+                             sliding_window=window, block_k=1024)
+            r = row_rel_err(got, exact)
+            if not r.max() <= TOL_ROW_BF16:
+                raise AssertionError(f"cache_attention {what}: a row {r.max().item():.3e} off "
+                                     f"the plain loop in float32 (relative L2), over "
+                                     f"{TOL_ROW_BF16}")
+            rows = (f"; against the loop in f32, row relative L2 max {r.max().item():.3e} mean "
+                    f"{r.mean().item():.3e} (tol {TOL_ROW_BF16}), max abs "
+                    f"{max_err(got, exact):.3e}; the bf16 loop's own row max "
+                    f"{row_rel_err(want, exact).max().item():.3e}")
+            del exact, r
+        log(f"[kernels] cache_attention {what}: B={b} S={s} T={t} H={h} KV={kv} hd={d} "
+            f"window={window} {str(dt)[6:]}: max_abs_err={e:.3e} (atol=rtol={tol}){rows}")
+    q, k, v, q_pos, k_pos = ring_inputs(gen, torch.bfloat16, B, S, T, H, KV, hd)
+    mask = ring_mask(q_pos, k_pos)
+    pairs = int(mask.sum())
+    ms = graph_ms(lambda: ca.cache_attention(q, k, v, q_pos, k_pos), 20)
+    plain_ms = cuda_ms(lambda: ca.plain(q, k, v, q_pos, k_pos, block_k=1024), 3)
+    qs, ks, vs = _sdpa_heads(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), H, KV)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = graph_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask[:, None], enable_gqa=True), 20)
+    moved = nbytes(q, k, v, q_pos, k_pos, q)  # the output is q's size
+    b_ms, b_by = bound(moved, 4 * hd * H * pairs)
+    log(f"[kernels] cache_attention llava-next prefill B={B} S={S} T={T} H={H} KV={KV} "
+        f"hd={hd} bf16: kernel_ms={ms:.5f} (graph) plain_ms={plain_ms:.5f} sdpa_ms={lib_ms:.5f}"
+        f" (graph, boolean mask) bound_ms={b_ms:.7f} ({b_by}: {pairs:,} visible pairs, "
+        f"{4 * hd * H * pairs / 1e9:.2f} GFLOP, {moved / 1e6:.2f} MB); one launch a call")
+    return dict(name="cache_attention", of="lax.scan",
+                source="src/repro_torch/kernels/csrc/cache_attention.cu", replaces=CACHE_SITE,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the serving path
 # ---------------------------------------------------------------------------
@@ -1972,7 +2104,7 @@ def _events_ms(fn) -> tuple:
     return out, start.elapsed_time(end)
 
 
-def family_decode(seed: int, arch: str, B: int, prompt: int, steps: int,
+def family_decode(seed: int, arch: str, B: int, prompt: int, steps: int, ca,
                   n_extra: int = 0, check_pallas: bool = False,
                   two_chunks: bool = False) -> int:
     """Phase 9 (b)-(d): fresh bf16 weights at full width and depth; a
@@ -1988,8 +2120,13 @@ def family_decode(seed: int, arch: str, B: int, prompt: int, steps: int,
     full forward through the flash kernel (``attention_impl="pallas"``) is
     held to the plain one the same way, over all positions, and each of its
     launches to the kernel's plain version on that launch's own inputs at
-    phase 3's atol = rtol = 2e-2. Returns the flash kernel's launches there
-    (0 without)."""
+    phase 3's atol = rtol = 2e-2. ``ca`` is the ``cache_attention``
+    module: the prefill's launches of its kernel are held to one a layer
+    where the prefill takes ``chunked_cache_attention`` (``n_extra``: a
+    ring longer than ``attn_chunk_kv``), else to none, and the first
+    launch's output to the plain loop on that launch's own inputs at 2e-2.
+    The prefill's own peak memory is read beside the run's. Returns the
+    flash kernel's launches there (0 without)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention
     from repro_torch.models import apply, decode_step, init_cache, init_params, prefill
@@ -2021,14 +2158,29 @@ def family_decode(seed: int, arch: str, B: int, prompt: int, steps: int,
         gc.collect()
         torch.cuda.empty_cache()
         cache = init_cache(cfg, B, n_extra + total, device="cuda")
-        chunked = []
+        chunked, kept = [], []
         real = layers.chunked_cache_attention
         layers.chunked_cache_attention = lambda *a, **k: chunked.append(1) or real(*a, **k)
+        real_ca = layers.kops.chunked_cache_attention
+
+        def keep(*a, **kw):  # the first launch keeps its inputs and output
+            out = real_ca(*a, **kw)
+            if not kept:
+                kept.append((a, kw, out))
+            return out
+
+        layers.kops.chunked_cache_attention = keep
+        ca0 = ca.launches
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         try:
             (lg, cache), prefill_ms = _events_ms(
                 lambda: prefill(params, tokens[:, :prompt], cfg, cache, extra_embeds=extra))
         finally:
             layers.chunked_cache_attention = real
+            layers.kops.chunked_cache_attention = real_ca
+        prefill_peak = torch.cuda.max_memory_allocated()
+        launched = ca.launches - ca0
         got, dec_ms = [lg], []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2044,13 +2196,15 @@ def family_decode(seed: int, arch: str, B: int, prompt: int, steps: int,
     tol = DECODE_NOISE * noise
     log(f"[family] {cfg.name} decode: {cfg.num_layers} layers d_model={cfg.d_model} "
         f"{cfg.dtype}, B={B}, prefill of {n_extra} embeds + {prompt} tokens "
-        f"({len(chunked)} chunked_cache_attention calls), {steps} decode steps; "
+        f"({len(chunked)} chunked_cache_attention calls, {launched} cache_attention kernel "
+        f"launches), {steps} decode steps; "
         f"max |decode - apply| {err:.4e} over {got.numel():,} logits, bf16 apply vs f32 "
         f"{noise:.4e}, tolerance {DECODE_NOISE}x that {tol:.4e}")
     log(f"[family] {cfg.name}: prefill {prefill_ms:.3f} ms, decode step mean "
         f"{sum(dec_ms) / steps:.3f} ms (min {min(dec_ms):.3f}, max {max(dec_ms):.3f}; CUDA "
         f"events), {B * steps / dec_wall:.2f} generated tokens/s; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        f"{max(peak, torch.cuda.max_memory_allocated()) / 1e9:.3f} GB (the prefill's own "
+        f"{prefill_peak / 1e9:.3f} GB)")
     if not torch.isfinite(got).all() or err > tol:
         raise AssertionError(f"{cfg.name}: decode differs from apply by {err} > {tol}")
     if cfg.sliding_window:  # hymba: the ring holds its window, not the sequence
@@ -2061,11 +2215,33 @@ def family_decode(seed: int, arch: str, B: int, prompt: int, steps: int,
     if n_extra and len(chunked) != cfg.num_layers:
         raise AssertionError(f"{cfg.name}: the prefill took chunked_cache_attention "
                              f"{len(chunked)} times, not once a layer")
+    if launched != len(chunked):
+        raise AssertionError(f"{cfg.name}: the prefill launched the cache_attention kernel "
+                             f"{launched} times over {len(chunked)} chunked calls")
+    if kept:
+        # the plain loop in f32 on the launch's own (bf16) inputs: in bf16 it
+        # rounds each block's scores to bf16 too, which at a model's score
+        # scale moves its output by more than the kernel's f32 scores do
+        (a, kw, out), = kept
+        with torch.no_grad():
+            exact = ca.plain(*(x.float() for x in a[:3]), *a[3:], **kw)
+            loop = max_err(ca.plain(*a, **kw), exact)
+        err0 = check_close(f"cache_attention {cfg.name} layer 0", out, exact)
+        log(f"[family] {cfg.name}: the prefill's first cache_attention launch (q "
+            f"{tuple(a[0].shape)}, ring {tuple(a[1].shape)}, block_k {kw['block_k']}) against "
+            f"the plain loop in f32 on its own inputs: max_abs_err {err0:.4e} (atol=rtol="
+            f"{TOL_BF16}); the plain loop in bf16 {loop:.4e}")
+        del kept, a, kw, out, exact
     with torch.no_grad():
         avgs = profile_steps(lambda: decode_step(params, tokens[:, -1:], cfg, cache), 1,
                              f"one {cfg.name} decode step x {B} lanes")
     log(f"[profile] cudaLaunchKernel a {cfg.name} decode step: "
         f"{sum(e.count for e in avgs if e.key == 'cudaLaunchKernel')}")
+    if n_extra:  # where a prefill's time goes: a second one, into a fresh cache
+        with torch.no_grad():
+            profile_steps(lambda: prefill(params, tokens[:, :prompt], cfg, init_cache(
+                cfg, B, n_extra + total, device="cuda"), extra_embeds=extra), 1,
+                f"one {cfg.name} prefill of {n_extra} embeds + {prompt} tokens x {B} lanes")
     flash = 0
     if two_chunks:
         # the reference's chunked prefill of a prompt twice the window into a
@@ -2128,13 +2304,15 @@ def family_decode(seed: int, arch: str, B: int, prompt: int, steps: int,
     return flash
 
 
-def families(seed: int, kernels: dict, xs, ss, card: str) -> tuple:
+def families(seed: int, kernels: dict, xs, ss, ca, card: str) -> tuple:
     """Phase 9: the smoke configs card vs CPU; xlstm-125m and hymba-1.5b
     trained and decoded at full width and depth, llava-next-mistral-7b
     decoded after its 2,880 image embeddings. Returns the flash kernel's
-    launches, which only hymba's pallas check may make, the xLSTM scan
-    kernels' (``xs``) and the SSD kernels' (``ss``), each exactly what the
-    layers, remat and decode steps imply: a smoke reference makes 7
+    launches, which only hymba's pallas check may make, the cache
+    attention kernel's (``ca``), once a layer of llava's prefill and of its
+    profiled second one and nowhere else, the xLSTM scan kernels' (``xs``)
+    and the SSD kernels' (``ss``), each exactly what the layers, remat and
+    decode steps imply: a smoke reference makes 7
     forward passes (apply, the loss, the prefill, 4 decode steps) and 1
     backward, of which SSD runs 3 over the sequence and 4 as decode steps;
     a remat'd training step 2 forward passes and 1 backward; an xlstm
@@ -2148,6 +2326,7 @@ def families(seed: int, kernels: dict, xs, ss, card: str) -> tuple:
     before = {name: mod.launches for name, mod in kernels.items()}
     xl0, want = dict(xs.launches), {}
     ssd0, ssd_want = dict(ss.launches), {}
+    ca0 = ca.launches
     for arch in FAMILIES:
         family_reference(seed, arch)
         want = xl_add(want, xl_expected(get_config(arch, smoke=True), 7, 1))
@@ -2155,21 +2334,25 @@ def families(seed: int, kernels: dict, xs, ss, card: str) -> tuple:
     cfg = get_config("xlstm_125m")
     family_train(card, "xlstm_125m")
     want = xl_add(want, xl_expected(cfg, TRAIN_STEPS * (1 + cfg.remat), TRAIN_STEPS))
-    family_decode(seed, "xlstm_125m", B=8, prompt=512, steps=64)
+    family_decode(seed, "xlstm_125m", B=8, prompt=512, steps=64, ca=ca)
     want = xl_add(want, xl_expected(cfg, 64 + 4, 0))
     cfg = get_config("hymba_1_5b")
     family_train(card, "hymba_1_5b")
     ssd_want = xl_add(ssd_want, ssd_expected(cfg, TRAIN_STEPS * (1 + cfg.remat), TRAIN_STEPS,
                                              0))
     flash = family_decode(seed, "hymba_1_5b", B=4, prompt=1024, steps=64,
-                          check_pallas=True, two_chunks=True)
+                          check_pallas=True, two_chunks=True, ca=ca)
     ssd_want = xl_add(ssd_want, ssd_expected(cfg, 6, 0, 64 + 1))
-    family_decode(seed, "llava_next", B=2, prompt=64, steps=32, n_extra=2880)
+    family_decode(seed, "llava_next", B=2, prompt=LLAVA_PROMPT, steps=LLAVA_STEPS,
+                  n_extra=LLAVA_EXTRA, ca=ca)
+    # once a layer of llava's prefill, and of the profiled second prefill
+    cached, cache_want = ca.launches - ca0, 2 * get_config("llava_next").num_layers
     after = {name: mod.launches for name, mod in kernels.items()}
     moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     scans = xl_moved(xs, xl0)
     ssd = xl_moved(ss, ssd0)
-    log(f"[family] kernels' launches in phase 9: {moved}; the scan kernels' {scans} "
+    log(f"[family] kernels' launches in phase 9: {moved}; cache_attention's {cached} "
+        f"(implied {cache_want}); the scan kernels' {scans} "
         f"(implied {want}); the SSD kernels' {ssd} (implied {ssd_want}); phase 9 took "
         f"{time.perf_counter() - t0:.1f}s ({card})")
     if moved != ({"flash_attention": flash} if flash else {}):
@@ -2180,7 +2363,10 @@ def families(seed: int, kernels: dict, xs, ss, card: str) -> tuple:
     if ssd != ssd_want or not all(ssd.values()):
         raise AssertionError(f"phase 9: SSD launches {ssd}, not the {ssd_want} hymba's "
                              f"layers, remat and decode steps imply")
-    return flash, scans, ssd
+    if cached != cache_want:
+        raise AssertionError(f"phase 9: cache_attention launched {cached} times, not once "
+                             f"a layer of llava's two prefills ({cache_want})")
+    return flash, scans, ssd, cached
 
 
 # ---------------------------------------------------------------------------
@@ -2838,6 +3024,9 @@ def _device_us(evt) -> float:
     return getattr(evt, "device_time_total", getattr(evt, "cuda_time_total", 0.0))
 
 
+KERNEL_KEYS = ("paged", "flash", "cache_bf16", "cache_scalar")  # the attention kernels
+
+
 def profile_steps(step, steps: int, what: str):
     """Run ``step`` ``steps`` times under ``torch.profiler``; print the
     device's busy share of the window and the largest device kernels and
@@ -2859,7 +3048,7 @@ def profile_steps(step, steps: int, what: str):
     log(f"[profile] {what} under the profiler: wall {wall_ms / steps:.3f} ms/step, "
         f"device busy {busy_ms / steps:.4f} ms/step, busy share {busy_ms / wall_ms:.4f}")
     # the top 8, and the port's attention kernels wherever they rank
-    for e in dev[:8] + [e for e in dev[8:] if "paged" in e.key or "flash" in e.key]:
+    for e in dev[:8] + [e for e in dev[8:] if any(n in e.key for n in KERNEL_KEYS)]:
         log(f"[profile] device {_self_device_us(e) / 1e3 / steps:9.4f} ms/step "
             f"x{e.count // steps:5d}  {e.key[:90]}")
     host = sorted((e for e in avgs if e.device_type == torch.autograd.DeviceType.CPU),
@@ -2894,8 +3083,8 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
     from repro_torch.kernels import _build
-    from repro_torch.kernels import cmp_claim, cmp_ring, flash_attention, paged_attention
-    from repro_torch.kernels import ssd_scan, xlstm_scan
+    from repro_torch.kernels import cache_attention, cmp_claim, cmp_ring, flash_attention
+    from repro_torch.kernels import paged_attention, ssd_scan, xlstm_scan
 
     walls = []
 
@@ -2940,6 +3129,8 @@ def main() -> int:
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], repaired["paged"])
     rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], repaired["flash"])
     scan_rows = check_xlstm(xlstm_scan, args.seed) + check_ssd(ssd_scan, args.seed)
+    scan_rows.append(check_cache_attention(cache_attention, gen))
+    ca_after3 = cache_attention.launches
     phase(3, "kernels", t0)
 
     # phase 4: small-input reference
@@ -2978,8 +3169,12 @@ def main() -> int:
 
     # phase 9: the SSM, hybrid and frontend families
     t0 = time.perf_counter()
-    phase9, scans9, ssd9 = families(args.seed, kernels, xlstm_scan, ssd_scan, card)
-    ssd_after9 = dict(ssd_scan.launches)
+    if cache_attention.launches != ca_after3:  # no chunked prefill runs in phases 4-8
+        raise AssertionError(f"cache_attention launched in phases 4-8 ({ca_after3} -> "
+                             f"{cache_attention.launches})")
+    phase9, scans9, ssd9, cache9 = families(args.seed, kernels, xlstm_scan, ssd_scan,
+                                            cache_attention, card)
+    ssd_after9, ca_after9 = dict(ssd_scan.launches), cache_attention.launches
     phase(9, "SSM, hybrid and frontend families", t0)
 
     # phase 10: the parallel layer and the launch tooling
@@ -2994,6 +3189,9 @@ def main() -> int:
     if ssd_scan.launches != ssd_after9:  # no hymba layer runs in phases 10 and 11
         raise AssertionError(f"an SSD kernel launched after phase 9 ({ssd_after9} -> "
                              f"{ssd_scan.launches})")
+    if cache_attention.launches != ca_after9:
+        raise AssertionError(f"cache_attention launched after phase 9 ({ca_after9} -> "
+                             f"{cache_attention.launches})")
     log("[wall] " + "; ".join(f"phase {n} {s:.1f}s" for n, _, s in walls)
         + f"; total {sum(s for *_, s in walls):.1f}s ({card})")
 
@@ -3017,9 +3215,11 @@ def main() -> int:
         row["max_abs_err"] = max(row["max_abs_err"], phase11["errs"].get(row["name"], 0.0))
         row["launches"] = launches[row["name"]]
         row["of"] = "pallas_call"
-    log(f"[launches] the SSD kernels: phase 9 (hymba smoke, train driver, decode) {ssd9}")
+    log(f"[launches] the SSD kernels: phase 9 (hymba smoke, train driver, decode) {ssd9}; "
+        f"cache_attention: phase 9 (llava-next's prefill) {cache9}")
+    scan_launches = {**scans, **ssd9, "cache_attention": cache9}
     for row in scan_rows:
-        row["launches"] = (ssd9 if row["name"].startswith("ssd") else scans)[row["name"]]
+        row["launches"] = scan_launches[row["name"]]
     rows += scan_rows
     for row in rows:
         row["route"] = "cuda"

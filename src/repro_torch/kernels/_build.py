@@ -47,6 +47,7 @@ SIGNATURES = {
     "rt_ssd_fwd": [_P] * 8 + [_I] * 7 + [_P],
     "rt_ssd_bwd": [_P] * 15 + [_I] * 7 + [_P],
     "rt_ssd_decode": [_P] * 7 + [_I] * 6 + [_P],
+    "rt_cache_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
     "rt_cmp_ring_max_n": [],
     "rt_paged_attention_max_rep_hd": [],
     "rt_flash_attention_max_hd": [],
@@ -57,6 +58,7 @@ SIGNATURES = {
     "rt_ssd_max_n": [],
     "rt_ssd_max_decode_p": [],
     "rt_ssd_block_p": [],
+    "rt_cache_attention_max_hd": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None

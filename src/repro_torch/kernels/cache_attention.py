@@ -1,0 +1,77 @@
+"""The KV-block scan of ``chunked_cache_attention``: a CUDA kernel
+(``csrc/cache_attention.cu``) and its wrapper.
+
+Replaces the reference's fourth ``lax.scan`` site, which XLA runs as one
+loop over KV blocks on the device: ``repro/models/layers.py`` ::
+``chunked_cache_attention`` (the scan at :203), the attention of a
+prefill's queries over the KV ring, forward only. Layouts are the model's:
+q [B, S, H, hd], the ring's k, v [B, T, KV, hd] read in place, q_pos [B, S]
+and k_pos [B, T] int32 (-1 an empty slot) -> [B, S, H, hd] in q's dtype;
+query head h reads KV head h % KV.
+
+What bounds it: the products, 4 hd FLOPs a visible (query, slot) pair and
+head (llava-next's 2,944-token prefill: 1.4e11 FLOPs a layer, 0.14 ms on
+the tensor cores, against 121 MB); the plain loop instead writes half a
+dozen [B, S, H, block_k] float32 tensors a block. So the kernel is flash
+attention over the ring in one launch: a CTA of 64 query rows of one head
+lists the K/V tiles of 64 slots that its rows' positions can see (from
+k_pos: a ring that wraps keeps its positions out of slot order) and walks
+them with an online softmax, nothing of S x T size leaving the SM. bfloat16
+with head_dim % 16 == 0 and 16-byte aligned rows runs on the tensor cores
+(wgmma, TMA); float32 and every other head_dim or stride on the CUDA cores.
+``block_k`` is kept for parity with the reference: it orders the plain
+version's sums and does not change the kernel's result.
+
+On a CPU or ``meta`` tensor the wrapper runs the plain loop, ``plain`` (=
+``ref.ref_chunked_cache_attention``; the dry run traces on ``meta``); on a
+CUDA tensor it launches the kernel or raises. The kernel has no backward,
+as the reference's loop has none (prefill and decode only): a CUDA call
+that autograd records is refused. ``launches`` counts kernel launches, one
+a call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import ref_chunked_cache_attention as plain
+
+launches = 0
+
+
+def cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+                    k_pos: torch.Tensor, *, sliding_window: int = 0, softcap: float = 0.0,
+                    block_k: int = 1024) -> torch.Tensor:
+    global launches
+    if _build.on_host(q):
+        return plain(q, k, v, q_pos, k_pos, sliding_window=sliding_window, softcap=softcap,
+                     block_k=block_k)
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    i32 = torch.int32
+    _build.check_args("cache_attention", q.device, {
+        "k": (k, (B, T, KV, hd), q.dtype), "v": (v, (B, T, KV, hd), q.dtype),
+        "q_pos": (q_pos, (B, S), i32), "k_pos": (k_pos, (B, T), i32)}, q.dtype)
+    _build.require(KV > 0 and H % KV == 0, f"cache_attention: H={H} not a multiple of KV={KV}")
+    _build.require(not _build.records(q, k, v),
+                   "cache_attention: the kernel has no backward (nor has the reference's "
+                   "loop: prefill and decode only); call it under torch.no_grad()")
+    lib = _build.lib()
+    top = lib.rt_cache_attention_max_hd()
+    _build.require(1 <= hd <= top, f"cache_attention: head_dim {hd} not in 1..{top}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q_pos, k_pos = _build.contiguous(q_pos, k_pos)
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    if B * S * H == 0:
+        return out
+    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    err = lib.rt_cache_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+        out.data_ptr(), ctypes.addressof(strides), B, H, KV, S, T, hd, int(sliding_window),
+        _build.DTYPE_CODES[q.dtype], float(softcap), _build.stream_ptr(q.device))
+    _build.check(err, "cache_attention")
+    launches += 1
+    return out

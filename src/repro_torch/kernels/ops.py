@@ -4,6 +4,7 @@ for CUDA tensors."""
 
 from __future__ import annotations
 
+from repro_torch.kernels import cache_attention as _ca
 from repro_torch.kernels import cmp_claim as _claim
 from repro_torch.kernels import cmp_ring as _ring
 from repro_torch.kernels import flash_attention as _fa
@@ -18,6 +19,16 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=0, softcap=0.0):
                               v.transpose(1, 2), causal=causal,
                               sliding_window=sliding_window, softcap=softcap)
     return out.transpose(1, 2)
+
+
+def chunked_cache_attention(q, k, v, q_pos, k_pos, *, sliding_window=0, softcap=0.0,
+                            block_k=1024):
+    """q [B, S, H, hd] over the ring k/v [B, T, KV, hd] at positions q_pos
+    [B, S], k_pos [B, T] (-1 empty) -> [B, S, H, hd], forward only; one
+    launch a call on the card, ``block_k`` ordering only the plain
+    version's sums."""
+    return _ca.cache_attention(q, k, v, q_pos, k_pos, sliding_window=sliding_window,
+                               softcap=softcap, block_k=block_k)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *, softcap=0.0):

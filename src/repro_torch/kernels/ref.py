@@ -530,3 +530,50 @@ def ref_ssd_bwd(x, b, c, log_a, saved, dy, dh, chunk: int):
         dla[:, t0:t1] = d.flip(1).cumsum(1).flip(1)
         dh = e_end[..., None, None] * dh + torch.einsum("bth,bthp,bthn->bhpn", e, dyk, ck)
     return dx.to(x.dtype), db.to(b.dtype), dc.to(c.dtype), dla, dh
+
+
+# ---------------------------------------------------------------------------
+# chunked_cache_attention's KV-block scan (the reference's fourth ``lax.scan`` site)
+# ---------------------------------------------------------------------------
+
+
+def ref_chunked_cache_attention(q, k, v, q_pos, k_pos, *, sliding_window: int = 0,
+                                softcap: float = 0.0, block_k: int = 1024):
+    """Online-softmax attention of q [B,S,H,hd] over the cache k, v
+    [B,T,KV,hd] in KV blocks of ``block_k``; q_pos [B,S] and k_pos [B,T]
+    absolute positions (-1 an empty slot). The cache is padded to whole
+    blocks with slots at position -1, the running max starts at -1e30 and
+    a masked probability is 0, so a row with no valid key comes out 0.
+    r-major GQA: query head h reads KV head h % KV. Returns [B,S,H,hd] in
+    q's dtype."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    pad = (-T) % block_k
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=-1)
+    qh = q.reshape(B, S, rep, KV, hd)  # r-major GQA
+    scale = 1.0 / (hd ** 0.5)
+    acc = torch.zeros((B, S, rep, KV, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((B, S, rep, KV), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, S, rep, KV), dtype=torch.float32, device=q.device)
+    for kc, vc, kp in zip(k.split(block_k, 1), v.split(block_k, 1), k_pos.split(block_k, 1)):
+        s = torch.einsum("bsrgd,btgd->bsrgt", qh, kc).float() * scale
+        if softcap > 0.0:
+            s = torch.tanh(s / softcap) * softcap
+        mask = (kp[:, None, :] >= 0) & (q_pos[:, :, None] >= kp[:, None, :])
+        if sliding_window > 0:
+            mask = mask & (q_pos[:, :, None] - kp[:, None, :] < sliding_window)
+        mask = mask[:, :, None, None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bsrgt,btgd->bsrgd", p.to(vc.dtype), vc).float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, S, H, hd).to(q.dtype)

@@ -147,45 +147,20 @@ def chunked_cache_attention(q, k, v, q_pos, k_pos, *, sliding_window: int = 0,
                             softcap: float = 0.0, block_k: int = 1024):
     """Online-softmax attention over the cache in KV blocks of ``block_k``:
     an O(S * block_k) working set instead of O(S * T), forward only (the
-    prefill path). The cache is padded to whole blocks with slots at
-    position -1, and the running max starts at -1e30, as in the reference.
-    The reference's ``unroll`` (of its scan over the blocks) has no
-    counterpart here. On DTensors it runs on each rank's batch shard and
-    heads; with ``kv_block_axis=`` a mesh axis name, the queries and the
-    running softmax state are split over that axis along the sequence and
-    each KV block is read whole, as the reference lays them out
-    (``sharding.per_head_shard``; no-op for plain tensors)."""
-    B, S, H, hd = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    rep = H // KV
-    pad = (-T) % block_k
-    if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
-        k_pos = F.pad(k_pos, (0, pad), value=-1)
-    qh = q.reshape(B, S, rep, KV, hd)  # r-major GQA (see _sdpa)
-    scale = 1.0 / (hd ** 0.5)
-    acc = torch.zeros((B, S, rep, KV, hd), dtype=torch.float32, device=q.device)
-    m = torch.full((B, S, rep, KV), -1e30, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, S, rep, KV), dtype=torch.float32, device=q.device)
-    for kc, vc, kp in zip(k.split(block_k, 1), v.split(block_k, 1), k_pos.split(block_k, 1)):
-        s = torch.einsum("bsrgd,btgd->bsrgt", qh, kc).float() * scale
-        if softcap > 0.0:
-            s = torch.tanh(s / softcap) * softcap
-        mask = (kp[:, None, :] >= 0) & (q_pos[:, :, None] >= kp[:, None, :])
-        if sliding_window > 0:
-            mask = mask & (q_pos[:, :, None] - kp[:, None, :] < sliding_window)
-        mask = mask[:, :, None, None, :]
-        s = torch.where(mask, s, -1e30)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bsrgt,btgd->bsrgd", p.to(vc.dtype), vc).float()
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    prefill path). The running max starts at -1e30 and a masked
+    probability is 0, as in the reference, so a row that sees no slot is
+    0. On CPU and ``meta`` tensors it is the reference's loop (the cache
+    padded to whole blocks with slots at position -1; its ``unroll`` has no
+    counterpart); on CUDA tensors one kernel launch over the whole ring
+    (``kernels/cache_attention.py``; ``block_k`` orders only the loop's
+    sums; no backward, as the reference's loop has none). On DTensors it runs
+    on each rank's batch shard and heads; with ``kv_block_axis=`` a mesh
+    axis name, the queries and the running softmax state are split over
+    that axis along the sequence and each KV block is read whole, as the
+    reference lays them out (``sharding.per_head_shard``; no-op for plain
+    tensors)."""
+    return kops.chunked_cache_attention(q, k, v, q_pos, k_pos, sliding_window=sliding_window,
+                                        softcap=softcap, block_k=block_k)
 
 
 def kv_chunks(seq: int, t_cache: int, block_k: int) -> int:

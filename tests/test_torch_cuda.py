@@ -1123,3 +1123,174 @@ def test_ssd_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         ss.ssd_decode(xp, bp, bp, torch.zeros(1, 1, device=dev),
                       torch.zeros(1, 1, 1025, 4, device=dev))
+
+
+# chunked_cache_attention's KV-block scan (kernels/cache_attention.py).
+# Tolerances: atol = rtol = 2e-5 in float32 (sums in another order), 2e-2 in
+# bfloat16 (the plain loop rounds each block's scores and P V to bf16).
+
+
+def _ring(rng, B, S, T, kind):
+    """Positions of a ring of T slots and of S queries: ``prefix``, a
+    prefill of S into a ring that held T // 3 positions, in slot order
+    (slots past them empty); ``wrap``, a ring written up to position N > T
+    (slot t holds the latest p = t mod T), a sixth of its slots emptied at
+    random, queries at the last S positions, and query 0 of row 0 at
+    position 0, which sees no slot (its output is 0); ``blind``, slots
+    holding positions S.. and queries at 0..S-1: no query sees a slot."""
+    if kind == "blind":
+        k_pos = np.broadcast_to(np.arange(S, S + T), (B, T)).copy()
+        q_pos = np.broadcast_to(np.arange(S), (B, S)).copy()
+    elif kind == "prefix":
+        n = min(T, T // 3 + S)
+        k_pos = np.where(np.arange(T) < n, np.arange(T), -1)
+        k_pos = np.broadcast_to(k_pos, (B, T)).copy()
+        q_pos = np.broadcast_to(np.arange(n - S, n), (B, S)).copy()
+    else:
+        N = T + T // 2 + 5
+        k_pos = np.stack([(N - 1 - (N - 1 - np.arange(T)) % T) for _ in range(B)])
+        k_pos[rng.random((B, T)) < 1 / 6] = -1
+        q_pos = np.broadcast_to(np.arange(N - S, N), (B, S)).copy()
+        q_pos[0, 0] = 0
+    return q_pos.astype(np.int32), k_pos.astype(np.int32)
+
+
+def _cache_case(dev, dtype, B, S, T, H, KV, hd, kind, seed):
+    rng = np.random.default_rng(seed)
+    q_pos, k_pos = _ring(rng, B, S, T, kind)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, H, hd, generator=g, device=dev).to(DT[dtype])
+    k = torch.randn(B, T, KV, hd, generator=g, device=dev).to(DT[dtype])
+    v = torch.randn(B, T, KV, hd, generator=g, device=dev).to(DT[dtype])
+    return q, k, v, torch.from_numpy(q_pos).to(dev), torch.from_numpy(k_pos).to(dev)
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,window,softcap,kind", [
+    (2, 100, 130, 4, 4, 0, 0.0, "prefix"),    # rep 1, ragged S and T
+    (1, 70, 200, 8, 2, 0, 30.0, "wrap"),      # rep 4, a softcap, a wrapped ring
+    (2, 130, 257, 8, 1, 48, 0.0, "wrap"),     # rep 8, a window
+    (1, 2, 150, 6, 3, 16, 5.0, "prefix"),     # S = 2, rep 2, window and softcap
+    (1, 64, 64, 10, 5, 0, 0.0, "prefix"),     # rep 2, one whole tile
+    (2, 70, 100, 8, 2, 0, 0.0, "blind")])     # no tile to walk: all zeros
+@pytest.mark.parametrize("hd", [8, 16, 64, 96, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cache_attention_kernel_matches_plain(dev, dtype, hd, B, S, T, H, KV, window, softcap,
+                                              kind):
+    """One launch a call, against the plain loop (KV blocks of 64) on the
+    same inputs; a query that sees no slot comes out 0, not NaN."""
+    from repro_torch.kernels import cache_attention as ca
+
+    q, k, v, q_pos, k_pos = _cache_case(dev, dtype, B, S, T, H, KV, hd, kind,
+                                        S + T + H + hd)
+    kw = dict(sliding_window=window, softcap=softcap)
+    before = ca.launches
+    got = ca.cache_attention(q, k, v, q_pos, k_pos, block_k=64, **kw)
+    assert ca.launches == before + 1
+    want = ca.plain(q, k, v, q_pos, k_pos, block_k=64, **kw)
+    _close(got, want, 2e-5 if dtype == "float32" else 2e-2)
+    assert torch.isfinite(got).all()
+    if kind == "wrap":
+        assert not got[0, 0].any()
+    if kind == "blind":
+        assert not got.any()
+
+
+def test_cache_attention_at_llavas_prefill(dev):
+    """llava-next-mistral-7b's prefill (B 2, 2,880 patch embeddings + 64
+    tokens into a ring of 2,976 slots; H/KV 32/8, hd 128, bf16) in one
+    launch, against the plain loop in KV blocks of 1,024; and row by row
+    against that loop in float32 on the same inputs, within a relative L2
+    of 1e-2 (P and the output rounded to bf16 give ~2.3e-3 each; a tile
+    dropped or counted twice moves a late row by 0.05 or more)."""
+    from repro_torch.kernels import cache_attention as ca
+
+    q, k, v, _, _ = _cache_case(dev, "bfloat16", 2, 2944, 2976, 32, 8, 128, "prefix", 0)
+    k_pos = torch.where(torch.arange(2976, device=dev) < 2944,
+                        torch.arange(2976, device=dev), -1).to(torch.int32).expand(2, -1)
+    q_pos = torch.arange(2944, dtype=torch.int32, device=dev).expand(2, -1)
+    before = ca.launches
+    got = ca.cache_attention(q, k, v, q_pos, k_pos, block_k=1024)
+    assert ca.launches == before + 1
+    _close(got, ca.plain(q, k, v, q_pos, k_pos, block_k=1024), 2e-2)
+    exact = ca.plain(q.float(), k.float(), v.float(), q_pos, k_pos, block_k=1024)
+    rows = (got.float() - exact).norm(dim=-1) / exact.norm(dim=-1).clamp_min(1e-30)
+    assert rows.max().item() <= 1e-2, rows.max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cache_attention_reads_strided_views(dev, dtype):
+    """q as views, read through their strides: heads out of a wider
+    tensor, the [B, H, S, hd] layout transposed, an odd element offset (off
+    the tensor cores' 16-byte rows in bf16), and a non-unit hd stride
+    (copied); the ring a view of a wider one."""
+    from repro_torch.kernels import cache_attention as ca
+
+    q, k, v, q_pos, k_pos = _cache_case(dev, dtype, 2, 90, 140, 8, 2, 64, "wrap", 3)
+    want = ca.plain(q, k, v, q_pos, k_pos, block_k=64)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    wide = torch.cat([q, q.flip(2)], dim=2)[:, :, :8]
+    flipped = q.transpose(1, 2).contiguous().transpose(1, 2)
+    odd = torch.cat([q.flatten(), q.flatten()[:1]])[1:].view_as(q)
+    odd.copy_(q)
+    cols = torch.stack([q, q], dim=-1)[..., 0]
+    kw = torch.cat([k, k], dim=2)[:, :, :2]
+    vw = torch.cat([v, v], dim=2)[:, :, :2]
+    for view in (wide, flipped, odd, cols):
+        assert not view.is_contiguous() or view.data_ptr() % 16
+        _close(ca.cache_attention(view, kw, vw, q_pos, k_pos), want, tol)
+
+
+def test_cache_attention_refuses_what_it_does_not_take(dev):
+    """No fallback: a call that autograd records, a head_dim past the
+    largest (the message names it), int64 positions, float16, a KV count
+    that does not divide H, a tensor on the CPU."""
+    from repro_torch.kernels import cache_attention as ca
+
+    q, k, v, q_pos, k_pos = _cache_case(dev, "float32", 1, 5, 70, 4, 2, 16, "prefix", 1)
+    with pytest.raises(ValueError, match="no backward"):
+        ca.cache_attention(q.clone().requires_grad_(True), k, v, q_pos, k_pos)
+    with torch.no_grad():
+        ca.cache_attention(q.clone().requires_grad_(True), k, v, q_pos, k_pos)
+    big = torch.zeros(1, 5, 4, 136, device=dev)
+    kb = torch.zeros(1, 70, 2, 136, device=dev)
+    with pytest.raises(ValueError, match="head_dim 136"):
+        ca.cache_attention(big, kb, kb, q_pos, k_pos)
+    with pytest.raises(ValueError):
+        ca.cache_attention(q, k, v, q_pos.long(), k_pos)
+    with pytest.raises(ValueError):
+        ca.cache_attention(q.half(), k.half(), v.half(), q_pos, k_pos)
+    with pytest.raises(ValueError):
+        ca.cache_attention(q[:, :, :3], k, v, q_pos, k_pos)
+    with pytest.raises(ValueError):
+        ca.cache_attention(q, k.cpu(), v, q_pos, k_pos)
+
+
+def test_llava_prefill_through_the_kernel_on_card_matches_cpu(dev):
+    """The llava-next smoke model (float32) with attn_chunk_kv 4, so its
+    prefill of 3 patch embeddings + 8 tokens into a ring of 15 takes the
+    chunked path: one launch a layer on the card, the logits and the cache
+    within 1e-5 of the CPU's (the plain loop)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cache_attention as ca
+    from repro_torch.models import init_cache, init_params, prefill
+    from repro_torch.models.frontends import vision_patch_embeds
+    from repro_torch.training import optimizer as O
+
+    cfg = dataclasses.replace(get_config("llava_next", smoke=True), attn_chunk_kv=4)
+    g = torch.Generator().manual_seed(4)
+    params = init_params(cfg, g, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=g, dtype=torch.int32)
+    extra = vision_patch_embeds(cfg, 2, 3, g, device="cpu")
+    out = {}
+    for d in ("cpu", dev):
+        p = O.tree_unflatten(params, iter([x.to(d) for x in O.tree_leaves(params)]))
+        before = ca.launches
+        with torch.no_grad():
+            lg, cache = prefill(p, tokens.to(d), cfg, init_cache(cfg, 2, 15, device=d),
+                                extra_embeds=extra.to(d))
+        assert ca.launches - before == (cfg.num_layers if d == dev else 0)
+        out[str(d)] = [lg] + O.tree_leaves(cache)
+    for a, b in zip(out[str(dev)], out["cpu"], strict=True):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-5)
