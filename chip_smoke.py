@@ -27,7 +27,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    xlstm-125m's width (4 heads of 192) and phase 9's train shape (B=2 x
    512), in bf16 and float32, and the decode step from the 512-step state;
    each timed by graph in bf16 beside its plain version, its bound and its
-   chain floor (S x its step latency); then SSD's chunk loop (the third
+   chain floor (S x its step latency, the kernel's own and not a floor of
+   the card; the mLSTM forward's steps are chunks of 32, its "step" a
+   token's share of one); then SSD's chunk loop (the third
    ``lax.scan`` site) and decode step: the forward kernel (with the states
    it saves) and backward kernels against ``ref.py``'s plain forward and
    backward at hymba-1.5b's width (25 heads, P = 64, N = 16, chunks of
@@ -852,11 +854,12 @@ def check_xlstm(xs, seed: int) -> list:
     S=1 decode step from the 512-step state. Timed by CUDA graph at B=2 x
     512 in bf16 (the plain versions eagerly, two calls), with a bound, and a
     chain floor: S x the step latency, (t(S) - t(1)) / (S - 1), the time a
-    call of this design spends in its S dependent steps."""
+    call of this design spends in its dependent steps (the chunkwise mLSTM
+    forward's are S / 32 chunks: its "step" is a token's share of one)."""
     from repro_torch.kernels import ref
 
     rows, worst = [], dict.fromkeys(xs.KERNELS, 0.0)
-    every = xs.CHECKPOINT_EVERY
+    every = xs.kernel_chunk()
     for dtype in (torch.bfloat16, torch.float32):
         errs = dict.fromkeys(xs.KERNELS, 0.0)
         margs, sargs = xl_inputs(seed, dtype, XL_B, XL_S)

@@ -40,12 +40,12 @@ SIGNATURES = {
     "rt_paged_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
     "rt_flash_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
     "rt_cmp_claim": [_P] * 11 + [_I] * 3 + [_P],
-    "rt_mlstm_fwd": [_P] * 17 + [_I] * 6 + [_P],
+    "rt_mlstm_fwd": [_P] * 17 + [_I] * 5 + [_P],
     "rt_mlstm_bwd": [_P] * 29 + [_I] * 6 + [_P],
     "rt_slstm_fwd": [_P] * 22 + [_I] * 5 + [_P],
     "rt_slstm_bwd": [_P] * 24 + [_I] * 5 + [_P],
-    "rt_ssd_fwd": [_P] * 8 + [_I] * 7 + [_P],
-    "rt_ssd_bwd": [_P] * 15 + [_I] * 7 + [_P],
+    "rt_ssd_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    "rt_ssd_bwd": [_P] * 16 + [_I] * 7 + [_P],
     "rt_ssd_decode": [_P] * 7 + [_I] * 6 + [_P],
     "rt_cache_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
     "rt_cmp_ring_max_n": [],
@@ -53,10 +53,10 @@ SIGNATURES = {
     "rt_flash_attention_max_hd": [],
     "rt_mlstm_max_d": [],
     "rt_mlstm_block_v": [],
+    "rt_mlstm_chunk": [],
     "rt_slstm_max_hd": [],
     "rt_ssd_max_chunk": [],
-    "rt_ssd_max_n": [],
-    "rt_ssd_max_decode_p": [],
+    "rt_ssd_block_n": [],
     "rt_ssd_block_p": [],
     "rt_cache_attention_max_hd": [],
 }

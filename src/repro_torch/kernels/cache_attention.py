@@ -24,10 +24,12 @@ version's sums and does not change the kernel's result.
 
 On a CPU or ``meta`` tensor the wrapper runs the plain loop, ``plain`` (=
 ``ref.ref_chunked_cache_attention``; the dry run traces on ``meta``); on a
-CUDA tensor it launches the kernel or raises. The kernel has no backward,
-as the reference's loop has none (prefill and decode only): a CUDA call
-that autograd records is refused. ``launches`` counts kernel launches, one
-a call.
+CUDA tensor it launches the kernel or raises. The reference's loop is a
+``lax.scan`` that ``jax.grad`` differentiates (XLA's reverse of its jnp
+ops; no Pallas kernel there), so a CUDA call that autograd records goes
+through :class:`CacheAttention`: the kernel forward, and a backward that
+recomputes the plain loop's vjp from the saved inputs. ``launches``
+counts kernel launches, one a call.
 """
 
 from __future__ import annotations
@@ -45,7 +47,6 @@ launches = 0
 def cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
                     k_pos: torch.Tensor, *, sliding_window: int = 0, softcap: float = 0.0,
                     block_k: int = 1024) -> torch.Tensor:
-    global launches
     if _build.on_host(q):
         return plain(q, k, v, q_pos, k_pos, sliding_window=sliding_window, softcap=softcap,
                      block_k=block_k)
@@ -56,9 +57,16 @@ def cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: to
         "k": (k, (B, T, KV, hd), q.dtype), "v": (v, (B, T, KV, hd), q.dtype),
         "q_pos": (q_pos, (B, S), i32), "k_pos": (k_pos, (B, T), i32)}, q.dtype)
     _build.require(KV > 0 and H % KV == 0, f"cache_attention: H={H} not a multiple of KV={KV}")
-    _build.require(not _build.records(q, k, v),
-                   "cache_attention: the kernel has no backward (nor has the reference's "
-                   "loop: prefill and decode only); call it under torch.no_grad()")
+    if _build.records(q, k, v):
+        return CacheAttention.apply(q, k, v, q_pos, k_pos, sliding_window, softcap, block_k)
+    return _launch(q, k, v, q_pos, k_pos, sliding_window, softcap)
+
+
+def _launch(q, k, v, q_pos, k_pos, sliding_window, softcap):
+    """The kernel on checked CUDA tensors: [B, S, H, hd] in q's dtype."""
+    global launches
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
     lib = _build.lib()
     top = lib.rt_cache_attention_max_hd()
     _build.require(1 <= hd <= top, f"cache_attention: head_dim {hd} not in 1..{top}")
@@ -75,3 +83,25 @@ def cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: to
     _build.check(err, "cache_attention")
     launches += 1
     return out
+
+
+class CacheAttention(torch.autograd.Function):
+    """The kernel forward with the plain loop's vjp as its backward,
+    recomputed from the saved inputs (the positions take no gradient)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, sliding_window, softcap, block_k):
+        ctx.save_for_backward(q, k, v, q_pos, k_pos)
+        ctx.kw = {"sliding_window": sliding_window, "softcap": softcap, "block_k": block_k}
+        with torch.no_grad():
+            return _launch(q, k, v, q_pos, k_pos, sliding_window, softcap)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, k_pos = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_(need) for t, need in zip((q, k, v),
+                                                                    ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = plain(*leaves, q_pos, k_pos, **ctx.kw)
+        grads = iter(torch.autograd.grad(out, [t for t in leaves if t.requires_grad], dout))
+        return (*(next(grads) if t.requires_grad else None for t in leaves),) + (None,) * 5

@@ -43,8 +43,9 @@
 // loading while this one computes. hd up to 64 runs as 64 (zero columns),
 // up to 128 as 128.
 //
-// Every other case (float32, hd not a multiple of 16, unaligned rows) runs
-// on the CUDA cores (cache_scalar_kernel<T>): flash's f32 kernel over the
+// Every other case (float32, hd not a multiple of 16 or past 128, unaligned
+// rows) runs on the CUDA cores (cache_scalar_kernel<T, DPER>, hd up to 16
+// DPER: 128 or 256): flash's f32 kernel over the
 // list, the mask from the positions, bf16 read into f32 and P rounded to
 // bf16 before P V as the plain version rounds it. float32 stays off the
 // tensor cores: TF32 would miss the f32 tolerance (2e-5).
@@ -59,7 +60,8 @@
 
 namespace {
 
-constexpr int kMaxHd = 128;
+constexpr int kMaxHd = 256;       // the CUDA-core kernel's; the wgmma kernel takes up to 128
+constexpr int kMaxTileHd = 128;
 constexpr int kRows = 64;        // query rows a CTA, slots a K/V tile
 constexpr int kFull = 1 << 30;   // list entry flag: every slot visible to every row
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may have
@@ -423,7 +425,6 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* q_pos, c
 // accumulator in registers.
 
 constexpr int kThreads = 256;
-constexpr int kDPer = kMaxHd / 16;  // output columns per thread
 
 template <typename T> __device__ __forceinline__ float as_v(float p);  // P as P V reads it
 template <> __device__ __forceinline__ float as_v<float>(float p) { return p; }
@@ -431,7 +432,8 @@ template <> __device__ __forceinline__ float as_v<__nv_bfloat16>(float p) {
   return __bfloat162float(__float2bfloat16_rn(p));
 }
 
-template <typename T>
+// DPER: output columns a thread (hd <= 16 DPER)
+template <typename T, int DPER>
 __global__ void __launch_bounds__(kThreads)
 cache_scalar_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ q_pos, const int* __restrict__ k_pos,
@@ -471,11 +473,11 @@ cache_scalar_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     m_s[i] = rt::kNegInf;
     l_s[i] = 0.f;
   }
-  float acc[4][kDPer];
+  float acc[4][DPER];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < kDPer; ++c) acc[a][c] = 0.f;
+    for (int c = 0; c < DPER; ++c) acc[a][c] = 0.f;
 
   for (int it = 0; it < n; ++it) {
     const int k0 = (list[it] & ~kFull) * kRows;
@@ -539,14 +541,14 @@ cache_scalar_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int a = 0; a < 4; ++a) {
       const float corr = c_s[ty + 16 * a];
 #pragma unroll
-      for (int c = 0; c < kDPer; ++c) acc[a][c] *= corr;
+      for (int c = 0; c < DPER; ++c) acc[a][c] *= corr;
     }
     for (int j = 0; j < kRows; ++j) {
       float pv[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) pv[a] = s_s[(ty + 16 * a) * (kRows + 1) + j];
 #pragma unroll
-      for (int c = 0; c < kDPer; ++c) {
+      for (int c = 0; c < DPER; ++c) {
         const int d = tx + 16 * c;
         if (d < hd) {
           const float vv = v_s[j * hd + d];
@@ -564,14 +566,14 @@ cache_scalar_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     if (q0 + i >= S) continue;
     const float inv = 1.f / fmaxf(l_s[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < kDPer; ++c) {
+    for (int c = 0; c < DPER; ++c) {
       const int d = tx + 16 * c;
       if (d < hd) ob[(q0 + i) * os.s + d] = rt::from_f<T>(acc[a][c] * inv);
     }
   }
 }
 
-template <typename T>
+template <typename T, int DPER>
 int launch_scalar(const void* q, const void* k, const void* v, const int* q_pos,
                   const int* k_pos, void* o, const Strides* st, int B, int H, int KV, int S,
                   int Tn, int hd, int window, float softcap, cudaStream_t stream) {
@@ -583,13 +585,13 @@ int launch_scalar(const void* q, const void* k, const void* v, const int* q_pos,
   static size_t attr = 0;  // the largest size set so far
   if (smem > attr) {
     const cudaError_t err = cudaFuncSetAttribute(
-        cache_scalar_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cache_scalar_kernel<T, DPER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     attr = smem;
   }
   const dim3 grid((S + kRows - 1) / kRows, H, B);
-  cache_scalar_kernel<T><<<grid, kThreads, smem, stream>>>(
+  cache_scalar_kernel<T, DPER><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_pos,
       k_pos, static_cast<T*>(o), st[0], st[1], st[2], st[3], KV, S, Tn, hd, window,
       1.0f / sqrtf(static_cast<float>(hd)), softcap);
@@ -616,15 +618,15 @@ extern "C" int rt_cache_attention(const void* q, const void* k, const void* v,
   const int* kp = static_cast<const int*>(k_pos);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kF32)
-    return launch_scalar<float>(q, k, v, qp, kp, out, st, B, H, KV, S, T, hd, window, softcap,
-                                s);
+    return (hd <= 128 ? launch_scalar<float, 8> : launch_scalar<float, 16>)(
+        q, k, v, qp, kp, out, st, B, H, KV, S, T, hd, window, softcap, s);
   if (dtype != rt::kBF16) return static_cast<int>(cudaErrorInvalidValue);
-  bool tiles = hd % 16 == 0 && T > 0;
+  bool tiles = hd % 16 == 0 && hd <= kMaxTileHd && T > 0;
   for (int i = 0; i < 9; ++i) tiles = tiles && p[i] % 8 == 0;
   for (const void* t : {q, k, v}) tiles = tiles && reinterpret_cast<uintptr_t>(t) % 16 == 0;
   if (!tiles)
-    return launch_scalar<__nv_bfloat16>(q, k, v, qp, kp, out, st, B, H, KV, S, T, hd, window,
-                                        softcap, s);
+    return (hd <= 128 ? launch_scalar<__nv_bfloat16, 8> : launch_scalar<__nv_bfloat16, 16>)(
+        q, k, v, qp, kp, out, st, B, H, KV, S, T, hd, window, softcap, s);
   return (hd <= 64 ? launch_bf16<64> : launch_bf16<128>)(q, k, v, qp, kp, out, st, B, H, KV, S,
                                                          T, hd, window, softcap, s);
 }

@@ -13,25 +13,16 @@
 //   h = o c / max(n, 1),
 // in float32, each h cast to zx's dtype as it is written.
 //
-// What bounds it: the chain of S dependent steps. A step is 8 hd^2 FLOPs a
-// (b, h) (hd = 192: 0.3 MFLOP), and it reads all of r's head, 4 hd^2 f32
-// (590 KB at hd = 192): more than one SM's shared memory, and streamed
-// from L2 every step it is what a step waits for.
-// Design: a thread-block cluster of kNC = 8 CTAs per (head, kRows batch
-// rows). CTA c owns elements [c E, (c + 1) E) of the head (E = hd / 8, 24
-// at hd = 192) and keeps the 4 E columns of r that feed them ([z | i | f |
-// o] of its elements; 74 KB at hd = 192) in shared memory for all S steps,
-// so no step reads r from memory. A step: thread (row, column) of 4 E
-// columns forms that column of h r from the full h in shared memory;
-// thread (row, element) forms z, o and its share of the two per-head
-// means, one warp a row; the shares go to every CTA of the cluster
-// (distributed shared memory) and a cluster barrier; every CTA sums them
-// in the same order, so all hold the same gates, and each writes its
-// elements' h into every CTA's copy of h; a second cluster barrier.
+// What bounds it: the chain of S dependent steps (h feeds every gate
+// through r). A step is 8 hd^2 FLOPs a (b, h) (hd = 192: 0.3 MFLOP) and
+// reads all of r's head, 4 hd^2 f32 (590 KB at hd = 192): more than one
+// SM's shared memory. So a step's time is its latency: the forward (below,
+// before slstm_fwd_kernel) holds r in the registers of a cluster's CTAs
+// and pays one cluster barrier a step.
 // Backward: the forward saves each step's c, n, h, z, o, log_i, the forget
 // preactivation's mean and m. The same clusters step back carrying dh,
-// dc, dn and dm: a step's per-head sums go round the cluster as in the
-// forward, each CTA's four gradients of its elements (drec_t, also saved)
+// dc, dn and dm: a step's per-head sums go round the cluster through
+// distributed shared memory, each CTA's four gradients of its elements (drec_t, also saved)
 // meet its own columns of r, and the partial dh_{t-1} = r drec_t of its
 // columns goes to the CTA that owns each element, which sums the kNC
 // shares in order. A second launch forms dr = sum over rows and steps of
@@ -46,7 +37,7 @@ namespace {
 
 using rt::Gates;
 
-constexpr int kRows = 4;         // batch rows a cluster takes
+constexpr int kRows = 4;         // batch rows a cluster takes at most
 constexpr int kNC = 8;           // CTAs a cluster: each E = ceil(hd / 8) elements
 constexpr int kMaxHd = 256;      // E <= 32: a warp a row in the element role
 constexpr int kMaxThreads = kRows * 4 * (kMaxHd / kNC);
@@ -58,7 +49,7 @@ struct Fwd {
   void* hs;
   float *c, *n, *h, *m;
   float *h_all, *c_all, *n_all, *z_all, *o_all, *li_all, *pf_all, *m_all;  // null: not saved
-  int B, S, H, hd;
+  int B, S, H, hd, G;  // G: batch rows a cluster takes
 };
 
 struct Bwd {
@@ -70,9 +61,8 @@ struct Bwd {
   int B, S, H, hd;
 };
 
-// A CTA's shape: E elements, CW = 4 E columns of r (row stride CW + 1 in
-// shared memory: the backward reads r's slice by rows, the forward by
-// columns, both without bank conflicts).
+// A backward CTA's shape: E elements, CW = 4 E columns of r (row stride CW +
+// 1 in shared memory: read by rows without bank conflicts).
 struct Shape {
   int E, CW, ld;
 };
@@ -109,122 +99,228 @@ __device__ void load_r(float* Rs, const float* R, int c, int hd, Shape sh) {
   }
 }
 
-template <typename T>
-__global__ void __cluster_dims__(kNC, 1, 1) __launch_bounds__(kMaxThreads)
+// The forward: a cluster of kNC CTAs a (head, up to kRows batch rows), the
+// rows a cluster takes 2 or kRows (B up to 2, or more). CTA c owns
+// elements [c E, (c + 1) E) (E = ceil(hd / kNC)) and the 2 E columns of r
+// that feed their z and o, kept in registers: matvec thread (column j, part
+// kp) holds r[kp NI + i, j] for i < NI, so r is read from memory once and
+// every row's step reads it from registers. The per-head means need no
+// columns of r: mean(ix + h r_i) = mean(ix) + h . wi, wi = r_i summed over
+// its columns (so wf), formed at the start (each CTA an eighth, shared
+// through distributed shared memory); so every CTA computes the gates
+// itself, in the same order and with the same bits, from the whole h it
+// holds. The gates have warps of their own, one a batch row (lane el its
+// element c E + el), beside the matvec warps. A step: the matvec warps dot
+// their columns with h over their NI-th of hd (no chain longer than NI),
+// every row, the kKP parts summed by shuffles; meanwhile the gate warps sum
+// their row's gate means and form its gates; one __syncthreads; lane el of
+// gate warp r forms the element's z, o, c, n, h and stores h into every
+// CTA's next h buffer (distributed shared memory, double-buffered); then
+// one cluster barrier, arrive before the step's output stores and the next
+// step's input loads, wait after them.
+constexpr int kKP = 8;          // lanes a column of the matvec: hd split in kKP parts
+constexpr int kLanePer = kMaxHd / 32;        // elements of a row a lane sums
+constexpr unsigned kFull = 0xffffffffu;
+// NI: the elements of h a matvec thread takes (24 up to hd = 192, else 32).
+// A row of h in shared memory is kKP blocks of NI floats, each padded to NI
+// + 4 (element dd at (dd / NI) (NI + 4) + dd % NI), zero past hd, as is r's
+// part in a thread's registers: the step's loops have fixed trip counts and
+// no branch, so their loads issue together, and part kp reads its block as
+// float4s with no bank conflict.
+template <int NI>
+struct HRow {
+  static constexpr int kBlk = NI + 4, kLen = kKP * kBlk;
+  static constexpr int kThreads = 2 * NI * kKP + 32 * kRows;  // matvec + gate warps, at most
+  __device__ static int at(int dd) { return dd / NI * kBlk + dd % NI; }
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// G: the batch rows a cluster takes (2 or kRows); NI as above
+template <typename T, int G, int NI>
+__global__ void __cluster_dims__(kNC, 1, 1) __launch_bounds__(HRow<NI>::kThreads)
     slstm_fwd_kernel(Fwd p) {
+  using Row = HRow<NI>;
   cg::cluster_group cluster = cg::this_cluster();
   const int c = static_cast<int>(cluster.block_rank());
   const int hh = blockIdx.z, hd = p.hd, S = p.S, H = p.H, tid = threadIdx.x;
-  const Shape sh = shape(hd);
-  const int hdp = kNC * sh.E;  // a row of h in shared memory
-  const Role x = role(c, sh.E, hd, p.B);
+  const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  const int E = (hd + kNC - 1) / kNC, cols = 2 * E, hdp = kMaxHd;  // hdp: wsum's rows
+  const int mw = (cols * kKP + 31) / 32;  // matvec warps; the gate warps follow
+  const int b0 = blockIdx.y * G, rows = min(G, p.B - b0);
   const bool save = p.h_all != nullptr;
-  extern __shared__ float smem[];
-  float* Rs = smem;                           // [hd][ld]
-  float* hs = Rs + hd * sh.ld;                // [kRows][hdp], the whole h
-  float* rec = hs + kRows * hdp;              // [kRows][CW], this CTA's columns of h r
-  float* part = rec + kRows * sh.CW;          // [kNC][kRows][2], the means' shares
+  extern __shared__ __align__(16) float fsm[];
+  float* hbuf = fsm;                         // [2][G][Row::kLen]: h_{t-1}, double-buffered
+  float* rec = hbuf + 2 * G * Row::kLen;     // [G][cols]: the columns' h r
+  float* wsum = rec + G * cols;              // [2][hdp]: r_i, r_f summed over their columns
+  const float* R = p.r + static_cast<long>(hh) * hd * 4 * hd;
 
-  load_r(Rs, p.r + static_cast<long>(hh) * hd * 4 * hd, c, hd, sh);
-  for (int i = tid; i < kRows * hdp; i += blockDim.x) {  // the rows' whole h
-    const int r = i / hdp, e = i % hdp, b = blockIdx.y * kRows + r;
-    hs[i] = e < hd && b < p.B ? p.h0[(static_cast<long>(b) * H + hh) * hd + e] : 0.f;
+  // matvec role: column j (z of element c E + j, then o of c E + j - E), part
+  // kp: h's elements kp NI .. kp NI + NI - 1
+  const int j = tid / kKP, kp = tid % kKP;
+  const int ej = c * E + (j < E ? j : j - E);
+  const bool mv = warp < mw && j < cols && ej < hd;
+  float rr[NI];
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int dd = kp * NI + i;
+    rr[i] = mv && dd < hd ? R[static_cast<long>(dd) * 4 * hd + (j < E ? 0 : 3 * hd) + ej] : 0.f;
   }
-  float cc = 0.f, n = 0.f, m = 0.f;
-  const long si = (static_cast<long>(x.b) * H + hh) * hd + x.e;  // state [B,H,hd]
-  if (x.on) {
+  for (int i = tid; i < 2 * G * Row::kLen + G * cols + 2 * hdp; i += blockDim.x) fsm[i] = 0.f;
+  cluster.sync();  // every CTA's shared memory zeroed before the peers write wsum
+  // wi, wf: row dd of r_i or r_f summed over its columns; CTA c sums its
+  // eighth of the 2 hd rows and stores each sum into every CTA's wsum
+  const int U = (2 * hd + kNC - 1) / kNC;
+  for (int u = c * U + warp; u < min(2 * hd, (c + 1) * U); u += nw) {
+    const int g = u / hd, dd = u % hd;
+    const float* row = R + static_cast<long>(dd) * 4 * hd + (1 + g) * hd;
+    float a = 0.f;
+    for (int e = lane; e < hd; e += 32) a += row[e];
+    a = rt::warp_sum(a);
+    if (lane < kNC) cluster.map_shared_rank(wsum, lane)[g * hdp + dd] = a;
+  }
+  for (int i = tid; i < rows * hd; i += blockDim.x) {  // the rows' whole h
+    const int r = i / hd, e = i % hd;
+    hbuf[r * Row::kLen + Row::at(e)] = p.h0[(static_cast<long>(b0 + r) * H + hh) * hd + e];
+  }
+
+  // gate role: warp mw + r is batch row b0 + r, lane el its element c E + el
+  const int er = warp - mw, el = lane, e = c * E + el;
+  const bool gw = er >= 0 && er < rows, on = gw && el < E && e < hd;
+  const long si = (static_cast<long>(b0 + er) * H + hh) * hd + e;  // state [B,H,hd]
+  float cc = 0.f, n = 0.f, m = 0.f, hv = 0.f;
+  if (gw) m = p.m0[static_cast<long>(b0 + er) * H + hh];
+  if (on) {
     cc = p.c0[si];
     n = p.n0[si];
-    m = p.m0[static_cast<long>(x.b) * H + hh];
+    hv = p.h0[si];
     if (save) {
-      const long a0 = (static_cast<long>(x.b) * (S + 1) * H + hh) * hd + x.e;
-      p.h_all[a0] = p.h0[si];
+      const long a0 = (static_cast<long>(b0 + er) * (S + 1) * H + hh) * hd + e;
+      p.h_all[a0] = hv;
       p.c_all[a0] = cc;
       p.n_all[a0] = n;
-      if (x.e == 0) p.m_all[static_cast<long>(x.b) * (S + 1) * H + hh] = m;
+      if (e == 0) p.m_all[static_cast<long>(b0 + er) * (S + 1) * H + hh] = m;
     }
   }
-  float hv = x.on ? p.h0[si] : 0.f;
-  cluster.sync();  // every CTA running before the first remote store
-  const int mr = tid / sh.CW, mj = tid % sh.CW;  // matvec role: (row, column)
-  const int rows = min(kRows, p.B - static_cast<int>(blockIdx.y) * kRows);
-  // the step's inputs, loaded a step ahead: [B,S,H,hd] at (b, t, h, e)
-  auto load = [&](float* in, int t) {
-    if (!x.on || t >= S) return;
-    const long xi = ((static_cast<long>(x.b) * S + t) * H + hh) * hd + x.e;
-    in[0] = rt::to_f(static_cast<const T*>(p.zx)[xi]);
-    in[1] = rt::to_f(static_cast<const T*>(p.ix)[xi]);
-    in[2] = rt::to_f(static_cast<const T*>(p.fx)[xi]);
-    in[3] = rt::to_f(static_cast<const T*>(p.ox)[xi]);
+  // a step's inputs, loaded in the previous step's barrier slack in their
+  // own type (no register of a load is read before the next step): z's and
+  // o's preactivation of the element, and this lane's share of the row's ix
+  // and fx
+  const T zero = rt::from_f<T>(0.f);
+  T nz = zero, no = zero, ni[kLanePer], nf[kLanePer];
+#pragma unroll
+  for (int i = 0; i < kLanePer; ++i) ni[i] = nf[i] = zero;
+  auto load = [&](int t) {
+    const long xb = ((static_cast<long>(b0 + er) * S + t) * H + hh) * hd;  // [B,S,H,hd]
+    if (on) {
+      nz = static_cast<const T*>(p.zx)[xb + e];
+      no = static_cast<const T*>(p.ox)[xb + e];
+    }
+#pragma unroll
+    for (int i = 0; i < kLanePer; ++i) {
+      const int ee = lane + 32 * i;
+      if (ee < hd) {
+        ni[i] = static_cast<const T*>(p.ix)[xb + ee];
+        nf[i] = static_cast<const T*>(p.fx)[xb + ee];
+      }
+    }
   };
-  float nxt[4] = {};
-  load(nxt, 0);
+  if (gw && S > 0) load(0);
+  cluster.sync();  // wsum and h set in every CTA before the first step
   for (int t = 0; t < S; ++t) {
-    const long xi = ((static_cast<long>(x.b) * S + t) * H + hh) * hd + x.e;  // [B,S,H,hd]
-    const float zt = nxt[0], it = nxt[1], ft = nxt[2], ot = nxt[3];
-    load(nxt, t + 1);
-    if (mr < rows) {
-      const float* hr = hs + mr * hdp;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int dd = 0; dd < hd; ++dd) acc += hr[dd] * Rs[dd * sh.ld + mj];
-      rec[mr * sh.CW + mj] = acc;
-    }
-    __syncthreads();
-    float z = 0.f, o = 0.f, pi = 0.f, pf = 0.f;
-    if (x.on) {
-      const float* rr = rec + x.r * sh.CW + x.el;
-      z = tanhf(zt + rr[0]);
-      pi = it + rr[sh.E];
-      pf = ft + rr[2 * sh.E];
-      o = rt::sigmoid(ot + rr[3 * sh.E]);
-    }
-    if (x.r < kRows) {
-      pi = rt::warp_sum(pi);
-      pf = rt::warp_sum(pf);
-      if (x.el < kNC) {  // lane q sends this CTA's shares to CTA q
-        float* dst = cluster.map_shared_rank(part, x.el) + (c * kRows + x.r) * 2;
-        dst[0] = pi;
-        dst[1] = pf;
+    const float* hb = hbuf + (t & 1) * G * Row::kLen;
+    float* hn = hbuf + ((t + 1) & 1) * G * Row::kLen;
+    Gates g{};
+    float zt = 0.f, ot = 0.f, li = 0.f, pfm = 0.f;
+    if (warp < mw) {
+      float acc[G] = {};
+#pragma unroll
+      for (int i = 0; i < NI; i += 4)
+#pragma unroll
+        for (int r = 0; r < G; ++r) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(hb + r * Row::kLen + kp * Row::kBlk + i);
+          acc[r] = fmaf(x.x, rr[i], acc[r]);
+          acc[r] = fmaf(x.y, rr[i + 1], acc[r]);
+          acc[r] = fmaf(x.z, rr[i + 2], acc[r]);
+          acc[r] = fmaf(x.w, rr[i + 3], acc[r]);
+        }
+#pragma unroll
+      for (int r = 0; r < G; ++r) {
+        float a = acc[r];
+        a += __shfl_xor_sync(kFull, a, 1);
+        a += __shfl_xor_sync(kFull, a, 2);
+        a += __shfl_xor_sync(kFull, a, 4);
+        if (mv && kp == 0 && r < rows) rec[r * cols + j] = a;
       }
-    }
-    cluster.sync();
-    if (x.on) {
-      float s_i = 0.f, s_f = 0.f;
-      for (int q = 0; q < kNC; ++q) {
-        s_i += part[(q * kRows + x.r) * 2];
-        s_f += part[(q * kRows + x.r) * 2 + 1];
+    } else if (gw) {  // the row's sums of h r_i + ix and h r_f + fx, and its gates
+      float a = 0.f, f = 0.f;
+#pragma unroll
+      for (int i = 0; i < kLanePer; ++i) {
+        const int dd = lane + 32 * i;
+        if (dd < hd) {
+          const float x = hb[er * Row::kLen + Row::at(dd)];
+          a = fmaf(x, wsum[dd], a);
+          f = fmaf(x, wsum[hdp + dd], f);
+        }
       }
-      const float li = s_i / hd, pfm = s_f / hd;
-      const Gates g = rt::gates(li, rt::log_sigmoid(pfm), m);
+      zt = rt::to_f(nz);
+      ot = rt::to_f(no);
+#pragma unroll
+      for (int i = 0; i < kLanePer; ++i) {
+        a += rt::to_f(ni[i]);
+        f += rt::to_f(nf[i]);
+      }
+      li = rt::warp_sum(a) / hd;
+      pfm = rt::warp_sum(f) / hd;
+      g = rt::gates(li, rt::log_sigmoid(pfm), m);
+    }
+    __syncthreads();  // rec complete
+    float z = 0.f, o = 0.f;
+    if (on) {
+      z = tanhf(zt + rec[er * cols + el]);
+      o = rt::sigmoid(ot + rec[er * cols + E + el]);
       cc = g.f * cc + g.i * z;
       n = g.f * n + g.i;
       hv = o * cc / fmaxf(n, 1.f);
-      for (int q = 0; q < kNC; ++q) cluster.map_shared_rank(hs, q)[x.r * hdp + x.e] = hv;
+      const int at = er * Row::kLen + Row::at(e);
+      for (int q = 0; q < kNC; ++q) cluster.map_shared_rank(hn, q)[at] = hv;
+    }
+    cluster_arrive();  // h_t is out; the peers' reads of hn ended a barrier ago
+    if (on) {
+      const long xi = ((static_cast<long>(b0 + er) * S + t) * H + hh) * hd + e;  // [B,S,H,hd]
       static_cast<T*>(p.hs)[xi] = rt::from_f<T>(hv);
       if (save) {
-        const long a = ((static_cast<long>(x.b) * (S + 1) + t + 1) * H + hh) * hd + x.e;
+        const long a = ((static_cast<long>(b0 + er) * (S + 1) + t + 1) * H + hh) * hd + e;
         p.h_all[a] = hv;
         p.c_all[a] = cc;
         p.n_all[a] = n;
         p.z_all[xi] = z;
         p.o_all[xi] = o;
-        if (x.e == 0) {
-          const long gi = (static_cast<long>(x.b) * S + t) * H + hh;
+        if (e == 0) {
+          const long gi = (static_cast<long>(b0 + er) * S + t) * H + hh;
           p.li_all[gi] = li;
           p.pf_all[gi] = pfm;
-          p.m_all[(static_cast<long>(x.b) * (S + 1) + t + 1) * H + hh] = g.m;
+          p.m_all[(static_cast<long>(b0 + er) * (S + 1) + t + 1) * H + hh] = g.m;
         }
       }
-      m = g.m;
     }
-    cluster.sync();
+    if (gw) {
+      m = g.m;
+      if (t + 1 < S) load(t + 1);
+    }
+    cluster_wait();  // every CTA's h_t in hn
   }
-  if (x.on) {
+  if (on) {
     p.c[si] = cc;
     p.n[si] = n;
     p.h[si] = hv;
-    if (x.e == 0) p.m[static_cast<long>(x.b) * H + hh] = m;
+    if (e == 0) p.m[static_cast<long>(b0 + er) * H + hh] = m;
   }
 }
 
@@ -406,11 +502,6 @@ int threads_for(int hd) {
   return ((n > kRows * 32 ? n : kRows * 32) + 31) / 32 * 32;
 }
 
-size_t fwd_smem(int hd) {
-  const Shape sh = shape(hd);
-  return sizeof(float) * (hd * sh.ld + kRows * kNC * sh.E + kRows * sh.CW + kNC * kRows * 2);
-}
-
 size_t bwd_smem(int hd) {
   const Shape sh = shape(hd);
   return sizeof(float) * (hd * sh.ld + kRows * sh.CW + kNC * kRows * sh.E + kNC * kRows * 2);
@@ -429,7 +520,7 @@ cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
   return err;
 }
 
-size_t fwd_allowed[2] = {0, 0}, bwd_allowed[2] = {0, 0};  // by dtype code
+size_t bwd_allowed[2] = {0, 0};  // by dtype code
 
 }  // namespace
 
@@ -444,22 +535,27 @@ extern "C" int rt_slstm_fwd(const void* zx, const void* ix, const void* fx, cons
   if (hd < 1 || hd > kMaxHd) return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* a) { return static_cast<const float*>(a); };
   auto w = [](void* a) { return static_cast<float*>(a); };
+  const int G = B <= 2 ? 2 : kRows, E = (hd + kNC - 1) / kNC;
   Fwd p{zx, ix, fx, ox, f(r), f(c0), f(n0), f(h0), f(m0), hs, w(c), w(n), w(h), w(m),
         w(h_all), w(c_all), w(n_all), w(z_all), w(o_all), w(li_all), w(pf_all), w(m_all),
-        B, S, H, hd};
-  const dim3 grid(kNC, (B + kRows - 1) / kRows, H);
-  const size_t bytes = fwd_smem(hd);
+        B, S, H, hd, G};
+  const dim3 grid(kNC, (B + G - 1) / G, H);
+  const int threads = (2 * E * kKP + 31) / 32 * 32 + 32 * G;
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == rt::kBF16) {
-    err = allow_smem(slstm_fwd_kernel<__nv_bfloat16>, bytes, fwd_allowed[1]);
-    if (err == cudaSuccess)
-      slstm_fwd_kernel<__nv_bfloat16><<<grid, threads_for(hd), bytes, st>>>(p);
-  } else {
-    err = allow_smem(slstm_fwd_kernel<float>, bytes, fwd_allowed[0]);
-    if (err == cudaSuccess) slstm_fwd_kernel<float><<<grid, threads_for(hd), bytes, st>>>(p);
-  }
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  auto launch = [&](auto kernel, int blk_len) {
+    const size_t bytes = sizeof(float) * (2 * G * blk_len + G * 2 * E + 2 * kMaxHd);
+    kernel<<<grid, threads, bytes, st>>>(p);
+  };
+  const bool bf = dtype == rt::kBF16, narrow = hd <= 24 * kKP;
+#define RT_SLSTM_FWD(TT, GG)                                                    \
+  (narrow ? launch(slstm_fwd_kernel<TT, GG, 24>, HRow<24>::kLen)                \
+          : launch(slstm_fwd_kernel<TT, GG, 32>, HRow<32>::kLen))
+  if (G == 2)
+    bf ? RT_SLSTM_FWD(__nv_bfloat16, 2) : RT_SLSTM_FWD(float, 2);
+  else
+    bf ? RT_SLSTM_FWD(__nv_bfloat16, 4) : RT_SLSTM_FWD(float, 4);
+#undef RT_SLSTM_FWD
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Both launches of the backward; drec [B, S, H, 4hd] float32 is the

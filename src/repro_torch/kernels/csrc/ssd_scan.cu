@@ -26,9 +26,11 @@
 // memory, C_t in the row's registers. The state slices of a (b, h) are
 // independent, so no CTA waits on another. No tensor cores: the f32 path
 // must hold a relative L2 of 1e-4, which TF32 or bf16 MMA would miss.
-// N <= kN = 16 (hymba's 16): a row of B or C is 16 registers, zero past N.
-// A second build for N <= 64 added a minute of nvcc and spilled; it is not
-// taken.
+// The state width N runs in tiles of kN = 16 (hymba's 16), a CTA a tile: a
+// row of B or C is 16 registers, zero past N. y (and dx) sum over n, so with
+// more than one tile each CTA writes its partial in float32 and a second
+// launch (the backward's reduction) sums the tiles in order; a second
+// build for N <= 64 instead added a minute of nvcc and spilled.
 // Backward: the forward saves the state at each chunk's start, [nc,B,H,P,N]
 // f32; nothing per token. One CTA per the same (block, head, row) walks
 // the chunks backwards carrying its slice of dh, recomputing la, the
@@ -39,9 +41,9 @@
 // launch sums them over the value blocks in a fixed order, casts, and
 // takes d log_a as the reverse cumsum of d la within each chunk. No
 // atomics: a gradient is the same bits run after run.
-// Decode: a CTA per (b, h), a thread per value column p: state' = exp(log_a)
-// state + x_p b, then y_p = state' . c (the reference's order), the state
-// written to a new tensor.
+// Decode: a thread per (b, h, value column p), the columns of a (b, h) over
+// ceil(P / 1,024) CTAs: state' = exp(log_a) state + x_p b, then y_p =
+// state' . c (the reference's order), the state written to a new tensor.
 #include "common.cuh"
 
 namespace {
@@ -50,7 +52,7 @@ constexpr int kThreads = 256;
 constexpr int kMaxChunk = kThreads;  // a thread a row of the chunk
 constexpr int kPB = 16;              // value columns (state rows) a CTA keeps
 constexpr int kN = 16;               // state width: a row of B or C in a thread's registers
-constexpr int kMaxDecodeP = 1024;    // the decode's CTA: a thread a value column
+constexpr int kDecodeThreads = 1024;  // the decode's CTA: a thread a value column
 constexpr int kMaxDevices = 64;
 
 struct Fwd {
@@ -58,7 +60,8 @@ struct Fwd {
   const float *log_a, *h0;
   void* y;
   float *hT, *saved;  // saved null: nothing saved
-  int B, S, H, P, N, L, npb;
+  float* ypart;       // [nt,B,S,H,P]: y by state tile when nt > 1
+  int B, S, H, P, N, L, npb, nt;
 };
 
 struct Bwd {
@@ -66,8 +69,9 @@ struct Bwd {
   const float *log_a, *saved, *dhT;
   void *dx, *db, *dc;
   float *dla, *dh0;
-  float *db_part, *dc_part, *dla_part;  // [npb,B,S,H,N], [npb,B,S,H,N], [npb,B,S,H]
-  int B, S, H, P, N, L, npb;
+  float *db_part, *dc_part, *dla_part;  // [npb,B,S,H,N], [npb,B,S,H,N], [nt,npb,B,S,H]
+  float* dx_part;                       // [nt,B,S,H,P]: dx by state tile when nt > 1
+  int B, S, H, P, N, L, npb, nt;
 };
 
 struct Dec {
@@ -78,15 +82,15 @@ struct Dec {
   int P, N;
 };
 
-// The CTA's (value block, head, row) from a flat grid.
+// The CTA's (value block, state tile, head, row) from a flat grid.
 struct Cta {
-  int blk, h, b, p0;
+  int blk, tile, h, b, p0, n0;
 };
 
-__device__ __forceinline__ Cta cta_of(int npb, int H) {
+__device__ __forceinline__ Cta cta_of(int npb, int nt, int H) {
   const int i = blockIdx.x;
-  const int blk = i % npb;
-  return {blk, (i / npb) % H, i / (npb * H), blk * kPB};
+  const int blk = i % npb, tile = (i / npb) % nt;
+  return {blk, tile, (i / (npb * nt)) % H, i / (npb * nt * H), blk * kPB, tile * kN};
 }
 
 // The inclusive cumsum of the chunk's log_a in place, in order (one thread:
@@ -114,7 +118,9 @@ constexpr int fwd_floats(int L) {
   return L * kN + L * kPB + 2 * L + kPB * kN;  // B rows, x columns, la, w, state slice
 }
 
-template <typename T>
+// kTiles: N past kN, a state tile a CTA (else the one tile starts at 0 and y
+// is written as it is)
+template <typename T, bool kTiles>
 __global__ void __launch_bounds__(kThreads) ssd_fwd_kernel(Fwd p) {
   constexpr int kPer = (kPB * kN + kThreads - 1) / kThreads;  // state elements a thread
   extern __shared__ float sm[];
@@ -124,7 +130,8 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd_kernel(Fwd p) {
   float* sLa = sX + L * kPB;    // [L]
   float* sW = sLa + L;          // [L] exp(la_end - la_s)
   float* sH = sW + L;           // [kPB][kN]
-  const Cta q = cta_of(p.npb, p.H);
+  const Cta q = cta_of(p.npb, p.nt, p.H);
+  const int n0 = kTiles ? q.n0 : 0;
   const T* x = static_cast<const T*>(p.x);
   const T* bm = static_cast<const T*>(p.b);
   const T* cm = static_cast<const T*>(p.c);
@@ -133,7 +140,8 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd_kernel(Fwd p) {
   const long hb = (static_cast<long>(q.b) * p.H + q.h) * PN;  // this (b, h) in [B,H,P,N]
   for (int e = tid; e < kPB * kN; e += kThreads) {
     const int j = e / kN, n = e % kN;
-    sH[e] = q.p0 + j < p.P && n < p.N ? p.h0[hb + static_cast<long>(q.p0 + j) * p.N + n] : 0.f;
+    sH[e] = q.p0 + j < p.P && n0 + n < p.N
+                ? p.h0[hb + static_cast<long>(q.p0 + j) * p.N + n0 + n] : 0.f;
   }
   const int nc = (p.S + L - 1) / L;
   for (int k = 0; k < nc; ++k) {
@@ -143,7 +151,8 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd_kernel(Fwd p) {
       float* sv = p.saved + static_cast<long>(k) * p.B * p.H * PN + hb;
       for (int e = tid; e < kPB * kN; e += kThreads) {
         const int j = e / kN, n = e % kN;
-        if (q.p0 + j < p.P && n < p.N) sv[static_cast<long>(q.p0 + j) * p.N + n] = sH[e];
+        if (q.p0 + j < p.P && n0 + n < p.N)
+          sv[static_cast<long>(q.p0 + j) * p.N + n0 + n] = sH[e];
       }
     }
     const int t = tid;
@@ -153,8 +162,8 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd_kernel(Fwd p) {
       const bool live = t < Lk;
 #pragma unroll
       for (int n = 0; n < kN; ++n) {
-        const long i = (row * p.H + q.h) * p.N + n;
-        const bool in = live && n < p.N;
+        const long i = (row * p.H + q.h) * p.N + n0 + n;
+        const bool in = live && n0 + n < p.N;
         sB[t * kN + n] = in ? at(bm, i) : 0.f;
         cr[n] = in ? at(cm, i) : 0.f;
       }
@@ -192,7 +201,12 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd_kernel(Fwd p) {
         float ch = 0.f;
 #pragma unroll
         for (int n = 0; n < kN; ++n) ch = fmaf(cr[n], sH[j * kN + n], ch);
-        if (q.p0 + j < p.P) y[(row * p.H + q.h) * p.P + q.p0 + j] = rt::from_f<T>(acc[j] + ch * et);
+        if (q.p0 + j >= p.P) continue;
+        const long o = (row * p.H + q.h) * p.P + q.p0 + j;
+        if constexpr (kTiles)
+          p.ypart[static_cast<long>(q.tile) * p.B * p.S * p.H * p.P + o] = acc[j] + ch * et;
+        else
+          y[o] = rt::from_f<T>(acc[j] + ch * et);
       }
     }
     __syncthreads();  // every read of sH for y done, sW written
@@ -219,7 +233,21 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd_kernel(Fwd p) {
   __syncthreads();
   for (int e = tid; e < kPB * kN; e += kThreads) {
     const int j = e / kN, n = e % kN;
-    if (q.p0 + j < p.P && n < p.N) p.hT[hb + static_cast<long>(q.p0 + j) * p.N + n] = sH[e];
+    if (q.p0 + j < p.P && n0 + n < p.N)
+      p.hT[hb + static_cast<long>(q.p0 + j) * p.N + n0 + n] = sH[e];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// y = the sum of the state tiles' partials, in tile order (nt > 1 only)
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_fwd_reduce_kernel(Fwd p) {
+  const long total = static_cast<long>(p.B) * p.S * p.H * p.P;
+  for (long i = blockIdx.x * static_cast<long>(kThreads) + threadIdx.x; i < total;
+       i += static_cast<long>(gridDim.x) * kThreads) {
+    float a = 0.f;
+    for (int t = 0; t < p.nt; ++t) a += p.ypart[t * total + i];
+    static_cast<T*>(p.y)[i] = rt::from_f<T>(a);
   }
 }
 
@@ -248,7 +276,7 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(Bwd p) {
   float* sR = sD + L;           // [L] w_s (x_s (x) B_s) : dh
   float* sH = sR + L;           // [kPB][kN] the chunk's start state
   float* sG = sH + kPB * kN;    // [kPB][kN] dh, carried
-  const Cta q = cta_of(p.npb, p.H);
+  const Cta q = cta_of(p.npb, p.nt, p.H);
   const T* x = static_cast<const T*>(p.x);
   const T* bm = static_cast<const T*>(p.b);
   const T* cm = static_cast<const T*>(p.c);
@@ -256,10 +284,13 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(Bwd p) {
   T* dx = static_cast<T*>(p.dx);
   const long PN = static_cast<long>(p.P) * p.N;
   const long hb = (static_cast<long>(q.b) * p.H + q.h) * PN;
-  const long part = static_cast<long>(q.blk) * p.B * p.S * p.H;  // this block's partials
+  const long rows = static_cast<long>(p.B) * p.S * p.H;
+  const long part = q.blk * rows;                                // db's, dc's partials
+  const long lpart = (static_cast<long>(q.tile) * p.npb + q.blk) * rows;  // d la's
   for (int e = tid; e < kPB * kN; e += kThreads) {
     const int j = e / kN, n = e % kN;
-    sG[e] = q.p0 + j < p.P && n < p.N ? p.dhT[hb + static_cast<long>(q.p0 + j) * p.N + n] : 0.f;
+    sG[e] = q.p0 + j < p.P && q.n0 + n < p.N
+                ? p.dhT[hb + static_cast<long>(q.p0 + j) * p.N + q.n0 + n] : 0.f;
   }
   const int nc = (p.S + L - 1) / L;
   for (int k = nc - 1; k >= 0; --k) {
@@ -268,7 +299,8 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(Bwd p) {
     const float* sv = p.saved + static_cast<long>(k) * p.B * p.H * PN + hb;
     for (int e = tid; e < kPB * kN; e += kThreads) {
       const int j = e / kN, n = e % kN;
-      sH[e] = q.p0 + j < p.P && n < p.N ? sv[static_cast<long>(q.p0 + j) * p.N + n] : 0.f;
+      sH[e] = q.p0 + j < p.P && q.n0 + n < p.N
+                  ? sv[static_cast<long>(q.p0 + j) * p.N + q.n0 + n] : 0.f;
     }
     const int t = tid;
     const long row = static_cast<long>(q.b) * p.S + t0 + t;
@@ -276,8 +308,8 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(Bwd p) {
       const bool live = t < Lk;
 #pragma unroll
       for (int n = 0; n < kN; ++n) {
-        const long i = (row * p.H + q.h) * p.N + n;
-        const bool in = live && n < p.N;
+        const long i = (row * p.H + q.h) * p.N + q.n0 + n;
+        const bool in = live && q.n0 + n < p.N;
         sB[t * kN + n] = in ? at(bm, i) : 0.f;
         sC[t * kN + n] = in ? at(cm, i) : 0.f;
       }
@@ -330,14 +362,14 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(Bwd p) {
       // (= e_t dy_t . y_inter's C_t . h) into d la_t
       const float et = sE[t];
       float cu = 0.f;
-      float* dcp = p.dc_part + (part + row * p.H + q.h) * p.N;
+      float* dcp = p.dc_part + (part + row * p.H + q.h) * p.N + q.n0;
 #pragma unroll
       for (int n = 0; n < kN; ++n) {
         float u = 0.f;
 #pragma unroll
         for (int j = 0; j < kPB; ++j) u = fmaf(dyr[j], sH[j * kN + n], u);
         cu = fmaf(cr[n], u, cu);
-        if (n < p.N) dcp[n] = fmaf(et, u, dcr[n]);
+        if (q.n0 + n < p.N) dcp[n] = fmaf(et, u, dcr[n]);
       }
       drow = fmaf(et, cu, drow);
 
@@ -383,15 +415,20 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(Bwd p) {
         for (int n = 0; n < kN; ++n) v = fmaf(br[n], sG[j * kN + n], v);
         dxr[j] = fmaf(ws, v, dxr[j]);
         r = fmaf(xr[j], v, r);
-        if (q.p0 + j < p.P) dx[(row * p.H + q.h) * p.P + q.p0 + j] = rt::from_f<T>(dxr[j]);
+        if (q.p0 + j >= p.P) continue;
+        const long o = (row * p.H + q.h) * p.P + q.p0 + j;
+        if (p.nt == 1)
+          dx[o] = rt::from_f<T>(dxr[j]);
+        else
+          p.dx_part[q.tile * rows * p.P + o] = dxr[j];
       }
-      float* dbp = p.db_part + (part + row * p.H + q.h) * p.N;
+      float* dbp = p.db_part + (part + row * p.H + q.h) * p.N + q.n0;
 #pragma unroll
       for (int n = 0; n < kN; ++n) {
         float v = 0.f;
 #pragma unroll
         for (int j = 0; j < kPB; ++j) v = fmaf(xr[j], sG[j * kN + n], v);
-        if (n < p.N) dbp[n] = fmaf(ws, v, dbr[n]);
+        if (q.n0 + n < p.N) dbp[n] = fmaf(ws, v, dbr[n]);
       }
       r *= ws;
       sR[s] = r;
@@ -426,18 +463,20 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kernel(Bwd p) {
       const int e = tid + i * kThreads;
       if (e < kPB * kN) sG[e] = nd[i];
     }
-    if (t < Lk) p.dla_part[part + row * p.H + q.h] = sD[t];
+    if (t < Lk) p.dla_part[lpart + row * p.H + q.h] = sD[t];
   }
   __syncthreads();
   for (int e = tid; e < kPB * kN; e += kThreads) {
     const int j = e / kN, n = e % kN;
-    if (q.p0 + j < p.P && n < p.N) p.dh0[hb + static_cast<long>(q.p0 + j) * p.N + n] = sG[e];
+    if (q.p0 + j < p.P && q.n0 + n < p.N)
+      p.dh0[hb + static_cast<long>(q.p0 + j) * p.N + q.n0 + n] = sG[e];
   }
 }
 
 // The second launch: a CTA per (chunk, head, row) sums db, dc and d la over
-// the value blocks in block order, casts db and dc, and writes d log_a,
-// the reverse cumsum of d la within the chunk.
+// the value blocks (d la also over the state tiles) in order, casts db and
+// dc, and writes d log_a, the reverse cumsum of d la within the chunk; with
+// more than one state tile, dx is the sum of its tiles' partials.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ssd_bwd_reduce_kernel(Bwd p) {
   __shared__ float sD[kMaxChunk];
@@ -459,10 +498,18 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_reduce_kernel(Bwd p) {
     db[i] = rt::from_f<T>(sb);
     dc[i] = rt::from_f<T>(sc);
   }
+  if (p.nt > 1) {
+    for (int e = threadIdx.x; e < Lk * p.P; e += kThreads) {
+      const long i = (first + static_cast<long>(e / p.P) * p.H) * p.P + e % p.P;
+      float a = 0.f;
+      for (int j = 0; j < p.nt; ++j) a += p.dx_part[j * rows * p.P + i];
+      static_cast<T*>(p.dx)[i] = rt::from_f<T>(a);
+    }
+  }
   for (int t = threadIdx.x; t < Lk; t += kThreads) {
     const long i = first + static_cast<long>(t) * p.H;
     float s = 0.f;
-    for (int j = 0; j < p.npb; ++j) s += p.dla_part[j * rows + i];
+    for (int j = 0; j < p.npb * p.nt; ++j) s += p.dla_part[j * rows + i];
     sD[t] = s;
   }
   __syncthreads();
@@ -481,7 +528,7 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_reduce_kernel(Bwd p) {
 
 template <typename TX, typename TB>
 __global__ void ssd_decode_kernel(Dec p) {
-  const int j = threadIdx.x;
+  const int j = blockIdx.y * blockDim.x + threadIdx.x;
   if (j >= p.P) return;
   const long bh = blockIdx.x;
   const TX* x = static_cast<const TX*>(p.x);
@@ -505,7 +552,15 @@ static_assert(fwd_floats(kMaxChunk) * sizeof(float) <= kDefaultSmem, "forward pa
 template <typename T>
 int launch_fwd(const Fwd& p, cudaStream_t st) {
   const int smem = fwd_floats(p.L) * static_cast<int>(sizeof(float));
-  ssd_fwd_kernel<T><<<p.B * p.H * p.npb, kThreads, smem, st>>>(p);
+  if (p.nt == 1) {
+    ssd_fwd_kernel<T, false><<<p.B * p.H * p.npb, kThreads, smem, st>>>(p);
+  } else {
+    ssd_fwd_kernel<T, true><<<p.B * p.H * p.npb * p.nt, kThreads, smem, st>>>(p);
+    const long total = static_cast<long>(p.B) * p.S * p.H * p.P;
+    const long grid = (total + kThreads - 1) / kThreads;
+    ssd_fwd_reduce_kernel<T><<<static_cast<int>(grid < 65536 ? grid : 65536), kThreads, 0,
+                               st>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -523,15 +578,15 @@ int launch_bwd(const Bwd& p, cudaStream_t st) {
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int smem = bwd_floats(p.L) * static_cast<int>(sizeof(float));
-  ssd_bwd_kernel<T><<<p.B * p.H * p.npb, kThreads, smem, st>>>(p);
+  ssd_bwd_kernel<T><<<p.B * p.H * p.npb * p.nt, kThreads, smem, st>>>(p);
   const int nc = (p.S + p.L - 1) / p.L;
   ssd_bwd_reduce_kernel<T><<<p.B * p.H * nc, kThreads, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool shape_ok(int B, int S, int H, int P, int N, int L) {
-  const long ctas = static_cast<long>(B) * H * ((P + kPB - 1) / kPB);
-  return B >= 1 && S >= 1 && H >= 1 && P >= 1 && N >= 1 && N <= kN && L >= 1 &&
+  const long ctas = static_cast<long>(B) * H * ((P + kPB - 1) / kPB) * ((N + kN - 1) / kN);
+  return B >= 1 && S >= 1 && H >= 1 && P >= 1 && N >= 1 && L >= 1 &&
          L <= kMaxChunk && ctas <= 0x7fffffffL &&
          static_cast<long>(B) * H * ((S + L - 1) / L) <= 0x7fffffffL;
 }
@@ -539,20 +594,22 @@ bool shape_ok(int B, int S, int H, int P, int N, int L) {
 }  // namespace
 
 extern "C" int rt_ssd_max_chunk() { return kMaxChunk; }
-extern "C" int rt_ssd_max_n() { return kN; }
-extern "C" int rt_ssd_max_decode_p() { return kMaxDecodeP; }
+extern "C" int rt_ssd_block_n() { return kN; }
 extern "C" int rt_ssd_block_p() { return kPB; }
 
 // y [B,S,H,P] in x's dtype, hT [B,H,P,N] f32 and, unless null, saved
 // [nc,B,H,P,N] f32 (the state at each chunk's start) from x, b, c, log_a
-// and h0, in chunks of L.
+// and h0, in chunks of L. ypart [nt,B,S,H,P] f32 (the wrapper's scratch,
+// nt = ceil(N / rt_ssd_block_n())) when nt > 1, else null.
 extern "C" int rt_ssd_fwd(const void* x, const void* b, const void* c, const void* log_a,
-                          const void* h0, void* y, void* hT, void* saved, int B, int S, int H,
-                          int P, int N, int L, int dtype, void* stream) {
-  if (!shape_ok(B, S, H, P, N, L)) return static_cast<int>(cudaErrorInvalidValue);
+                          const void* h0, void* y, void* hT, void* saved, void* ypart, int B,
+                          int S, int H, int P, int N, int L, int dtype, void* stream) {
+  const int nt = (N + kN - 1) / kN;
+  if (!shape_ok(B, S, H, P, N, L) || (nt > 1) != (ypart != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   Fwd p{x, b, c, static_cast<const float*>(log_a), static_cast<const float*>(h0), y,
-        static_cast<float*>(hT), static_cast<float*>(saved), B, S, H, P, N, L,
-        (P + kPB - 1) / kPB};
+        static_cast<float*>(hT), static_cast<float*>(saved), static_cast<float*>(ypart), B, S, H,
+        P, N, L, (P + kPB - 1) / kPB, nt};
   auto st = static_cast<cudaStream_t>(stream);
   return dtype == rt::kBF16 ? launch_fwd<__nv_bfloat16>(p, st) : launch_fwd<float>(p, st);
 }
@@ -560,17 +617,20 @@ extern "C" int rt_ssd_fwd(const void* x, const void* b, const void* c, const voi
 // Both launches of the backward: dx, db, dc (the inputs' dtype), dla, dh0
 // (f32) from the forward's inputs, its saved states and the gradients dy,
 // dhT. Scratch (f32, the wrapper's): db_part, dc_part [npb,B,S,H,N],
-// dla_part [npb,B,S,H], npb = ceil(P / rt_ssd_block_p()).
+// dla_part [nt,npb,B,S,H], npb = ceil(P / rt_ssd_block_p()), nt = ceil(N /
+// rt_ssd_block_n()); dx_part [nt,B,S,H,P] when nt > 1, else null.
 extern "C" int rt_ssd_bwd(const void* x, const void* b, const void* c, const void* log_a,
                           const void* saved, const void* dy, const void* dhT, void* dx,
                           void* db, void* dc, void* dla, void* dh0, void* db_part,
-                          void* dc_part, void* dla_part, int B, int S, int H, int P, int N,
-                          int L, int dtype, void* stream) {
-  if (!shape_ok(B, S, H, P, N, L)) return static_cast<int>(cudaErrorInvalidValue);
+                          void* dc_part, void* dla_part, void* dx_part, int B, int S, int H,
+                          int P, int N, int L, int dtype, void* stream) {
+  const int nt = (N + kN - 1) / kN;
+  if (!shape_ok(B, S, H, P, N, L) || (nt > 1) != (dx_part != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* a) { return static_cast<const float*>(a); };
   auto w = [](void* a) { return static_cast<float*>(a); };
   Bwd p{x, b, c, dy, f(log_a), f(saved), f(dhT), dx, db, dc, w(dla), w(dh0), w(db_part),
-        w(dc_part), w(dla_part), B, S, H, P, N, L, (P + kPB - 1) / kPB};
+        w(dc_part), w(dla_part), w(dx_part), B, S, H, P, N, L, (P + kPB - 1) / kPB, nt};
   auto st = static_cast<cudaStream_t>(stream);
   return dtype == rt::kBF16 ? launch_bwd<__nv_bfloat16>(p, st) : launch_bwd<float>(p, st);
 }
@@ -580,14 +640,14 @@ extern "C" int rt_ssd_bwd(const void* x, const void* b, const void* c, const voi
 extern "C" int rt_ssd_decode(const void* x, const void* b, const void* c, const void* log_a,
                              const void* h0, void* y, void* h, int B, int H, int P, int N,
                              int x_dtype, int bc_dtype, void* stream) {
-  if (B < 1 || H < 1 || P < 1 || P > kMaxDecodeP || N < 1 ||
-      static_cast<long>(B) * H > 0x7fffffffL)
+  if (B < 1 || H < 1 || P < 1 || N < 1 || static_cast<long>(B) * H > 0x7fffffffL ||
+      (P + kDecodeThreads - 1) / kDecodeThreads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Dec p{x, b, c, static_cast<const float*>(log_a), static_cast<const float*>(h0), y,
         static_cast<float*>(h), P, N};
   auto st = static_cast<cudaStream_t>(stream);
-  const int threads = (P + 31) / 32 * 32;
-  const int grid = B * H;
+  const int threads = P < kDecodeThreads ? (P + 31) / 32 * 32 : kDecodeThreads;
+  const dim3 grid(B * H, (P + threads - 1) / threads);
   const bool xb = x_dtype == rt::kBF16, bb = bc_dtype == rt::kBF16;
   if (xb && bb)
     ssd_decode_kernel<__nv_bfloat16, __nv_bfloat16><<<grid, threads, 0, st>>>(p);

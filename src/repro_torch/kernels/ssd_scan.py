@@ -12,15 +12,18 @@ What bounds them: neither of the card's rates (a 256-token chunk of a
 head is ~5 MFLOP on a few hundred KB) but the chain of chunks and the
 intra-chunk matrix, 256 KB of f32 a (row, head) at 256 tokens, more than
 an SM holds. So the forward is one launch: a CTA per (16 value columns,
-head, row) walks the chunks in order with its slice of the state in shared
-memory, a thread a row of the chunk, the matrix recomputed as it is used
-and never stored. The decode step is one launch, a thread a value column.
+16 state columns, head, row) walks the chunks in order with its slice of
+the state in shared memory, a thread a row of the chunk, the matrix
+recomputed as it is used and never stored; past N = 16 the state tiles'
+partial y are summed by a second launch. The decode step is one launch, a
+thread a value column.
 
 Backward: the forward saves the state at each chunk's start ([nc, B, H,
 P, N] float32, nothing per token), and the backward is two launches: the
 reverse loop over chunks carrying dh (a row pass for dc and a column pass
 for dx and db, recomputed from the saved state), then a fixed-order sum
-of db, dc and d log_a's partials over the value blocks, with d log_a's
+of db, dc and d log_a's partials over the value blocks (and of dx's and d
+log_a's over the state tiles past N = 16), with d log_a's
 reverse cumsum within each chunk. No float atomics, so a gradient is the
 same bits run after run.
 
@@ -30,11 +33,12 @@ launch the kernels or raise. Where autograd records, the chunked scan goes
 through :class:`SSD` (a ``torch.autograd.Function`` whose forward saves
 and whose backward launches the backward kernels; on CPU tensors it runs
 ``ref.py``'s plain forward-with-saves and backward, which the tests hold
-to autograd); elsewhere the forward kernel runs alone. The decode kernel
-has no backward: a decode step on CUDA tensors that autograd records is
-refused (no caller differentiates one; a gradient through a token is
-``ssd_chunked`` over it). ``launches`` counts kernel launches by kernel:
-``LAUNCHES_PER_CALL`` of them a call.
+to autograd); elsewhere the forward kernel runs alone. The reference's
+``ssd_decode_step`` is plain jnp that ``jax.grad`` differentiates (no
+Pallas kernel), so a decode step on CUDA tensors that autograd records
+goes through :class:`SSDDecode`: the decode kernel forward, and a backward
+that recomputes the plain step's vjp from the saved inputs. ``launches``
+counts kernel launches by kernel: ``LAUNCHES_PER_CALL`` of them a call.
 """
 
 from __future__ import annotations
@@ -59,11 +63,15 @@ def _chunk_args(x, b, c, log_a, state, chunk):
     _build.check_args("ssd", x.device, {
         "b": (b, (B, S, H, N), x.dtype), "c": (c, (B, S, H, N), x.dtype),
         "log_a": (log_a, (B, S, H), f32), "state": (state, (B, H, P, N), f32)}, x.dtype)
-    lib = _build.lib()
-    top_l, top_n = lib.rt_ssd_max_chunk(), lib.rt_ssd_max_n()
-    _build.require(1 <= chunk <= top_l, f"ssd: chunk {chunk} not in 1..{top_l}")
-    _build.require(1 <= N <= top_n, f"ssd: state width N={N} not in 1..{top_n}")
+    top = _build.lib().rt_ssd_max_chunk()
+    _build.require(1 <= chunk <= top, f"ssd: chunk {chunk} not in 1..{top}")
+    _build.require(N >= 1, "ssd: state width N=0")
     return _build.contiguous(x, b, c, log_a, state)
+
+
+def _tiles(N: int) -> int:
+    """The state tiles of width rt_ssd_block_n() the kernels split N into."""
+    return -(-N // _build.lib().rt_ssd_block_n())
 
 
 def ssd_fwd(x, b, c, log_a, state, *, chunk: int, save: bool = False):
@@ -75,12 +83,14 @@ def ssd_fwd(x, b, c, log_a, state, *, chunk: int, save: bool = False):
     saved = _build.empty(-(-S // chunk), B, H, P, b.shape[-1], like=x) if save else None
     if B * S * H * P == 0:
         return y, h.copy_(state), saved
+    nt = _tiles(b.shape[-1])
+    ypart = _build.empty(nt, B, S, H, P, like=x) if nt > 1 else None
     err = _build.lib().rt_ssd_fwd(*(t.data_ptr() for t in (x, b, c, log_a, state, y, h)),
-                                  None if saved is None else saved.data_ptr(),
+                                  *(None if t is None else t.data_ptr() for t in (saved, ypart)),
                                   B, S, H, P, b.shape[-1], chunk, _build.DTYPE_CODES[x.dtype],
                                   _build.stream_ptr(x.device))
     _build.check(err, "ssd_fwd")
-    launches["ssd_fwd"] += LAUNCHES_PER_CALL["ssd_fwd"]
+    launches["ssd_fwd"] += LAUNCHES_PER_CALL["ssd_fwd"] + (nt > 1)  # + the tiles' sum
     return y, h, saved
 
 
@@ -100,11 +110,13 @@ def ssd_bwd(x, b, c, log_a, saved, dy, dh, *, chunk: int):
     if B * S * H * P == 0:
         return dx, db.zero_(), dc.zero_(), dla.zero_(), dh0.copy_(dh)
     lib = _build.lib()
-    npb = -(-P // lib.rt_ssd_block_p())
+    npb, nt = -(-P // lib.rt_ssd_block_p()), _tiles(N)
     scratch = (_build.empty(npb, B, S, H, N, like=x), _build.empty(npb, B, S, H, N, like=x),
-               _build.empty(npb, B, S, H, like=x))
+               _build.empty(nt * npb, B, S, H, like=x))
+    dx_part = _build.empty(nt, B, S, H, P, like=x) if nt > 1 else None
     err = lib.rt_ssd_bwd(*(t.data_ptr() for t in (x, b, c, log_a, saved, dy, dh, dx, db, dc,
                                                   dla, dh0, *scratch)),
+                         None if dx_part is None else dx_part.data_ptr(),
                          B, S, H, P, N, chunk, _build.DTYPE_CODES[x.dtype],
                          _build.stream_ptr(x.device))
     _build.check(err, "ssd_bwd")
@@ -139,12 +151,18 @@ class SSD(torch.autograd.Function):
 def ssd_chunked(x, b, c, log_a, *, chunk: int, state=None):
     """SSD's chunked scan: (y [B, S, H, P] in x's dtype, final state [B, H,
     P, N] float32) over x [B, S, H, P], b, c [B, S, H, N] (x's dtype),
-    log_a [B, S, H] float32 from ``state`` (zeros when None)."""
+    log_a [B, S, H] float32 from ``state`` (zeros when None). The chunk
+    orders the sums only: the recurrence is exact at any chunk, so on the
+    card a chunk past the kernels' 256 runs as the fewest equal sub-chunks
+    of at most 256 (the padded tail adds nothing to y or the state)."""
     if _build.on_host(x):
         return plain_chunked(x, b, c, log_a, chunk=chunk, state=state)
     if state is None:
         B, _, H, P = x.shape
         state = torch.zeros((B, H, P, b.shape[-1]), dtype=torch.float32, device=x.device)
+    top = _build.lib().rt_ssd_max_chunk()
+    if chunk > top:  # the fewest equal sub-chunks the kernels take
+        chunk = -(-chunk // -(-chunk // top))
     if _build.records(x, b, c, log_a, state):
         return SSD.apply(x, b, c, log_a, state, chunk)
     return ssd_fwd(x, b, c, log_a, state, chunk=chunk)[:2]
@@ -161,8 +179,6 @@ def decode(x, b, c, log_a, state):
     _build.require(b.dtype in _build.DTYPE_CODES, f"ssd_decode: b, c dtype {b.dtype} not "
                    "float32/bfloat16")
     lib = _build.lib()
-    top = lib.rt_ssd_max_decode_p()
-    _build.require(1 <= P <= top, f"ssd_decode: P={P} not in 1..{top}")
     x, b, c, log_a, state = _build.contiguous(x, b, c, log_a, state)
     y, h = torch.empty_like(x), torch.empty_like(state)
     if B * H * N == 0:
@@ -175,14 +191,33 @@ def decode(x, b, c, log_a, state):
     return y, h
 
 
+class SSDDecode(torch.autograd.Function):
+    """The decode kernel forward with the plain step's vjp as its backward,
+    recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, log_a, state):
+        ctx.save_for_backward(x, b, c, log_a, state)
+        with torch.no_grad():
+            return decode(x, b, c, log_a, state)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            outs = plain_decode(*leaves)
+        grads = iter(torch.autograd.grad(outs, [t for t in leaves if t.requires_grad],
+                                         (dy, dh), allow_unused=True))
+        return tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+
 def ssd_decode(x, b, c, log_a, state):
     """One token of SSD: (y [B, H, P] in x's dtype, the new state) from x
     [B, H, P], b, c [B, H, N], log_a [B, H] float32 and the state [B, H, P,
-    N] float32. On CUDA tensors that autograd records it raises: the
-    kernel has no backward."""
+    N] float32."""
     if _build.on_host(x):
         return plain_decode(x, b, c, log_a, state)
-    _build.require(not _build.records(x, b, c, log_a, state),
-                   "ssd_decode: the decode kernel has no backward; take a gradient "
-                   "through ssd_chunked over the token (mamba_block without decode)")
+    if _build.records(x, b, c, log_a, state):
+        return SSDDecode.apply(x, b, c, log_a, state)
     return decode(x, b, c, log_a, state)

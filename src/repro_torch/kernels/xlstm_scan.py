@@ -4,24 +4,32 @@
 Replaces the reference's two ``lax.scan`` sites, which XLA runs as one loop
 on the device each (and their gradients as reverse scans):
 ``repro/models/ssm.py`` :: ``mlstm_scan`` (the scan at :90) and
-``slstm_block`` (the scan at :170). The kernels compute exactly the plain
-loops of ``ref.py`` (``ref_mlstm_scan``, ``ref_slstm_scan``), step by step,
-in float32 with each step's h cast to the input's dtype as it is written;
-they are not a chunkwise-parallel mLSTM, which would round otherwise.
+``slstm_block`` (the scan at :170). The kernels compute the plain loops
+of ``ref.py`` (``ref_mlstm_scan``, ``ref_slstm_scan``) in float32, each h
+cast to the input's dtype as it is written, within the plain loops'
+tolerances (float32: a relative L2 of 1e-4; bf16: 2e-2 + 2e-2 |plain|),
+not bit for bit.
 
-What bounds them: the chain of S dependent steps, not the card's rates
-(an mLSTM step is 4 d^2 FLOPs a row and head; an sLSTM step 8 hd^2 over
-its head of r, 590 KB at hd = 192, more than an SM holds). So each call
-is one launch that holds its whole time loop. The mLSTM splits C's value
-columns over CTAs (16 each), every CTA keeping its slice in registers for
-all S steps and recomputing the O(d) normaliser alike, so a step needs no
-other CTA. The sLSTM runs a cluster of 8 CTAs per head and 4 batch rows:
-each keeps the eighth of r that feeds its elements in shared memory, and
-the step's h and per-head means go round the cluster through distributed
-shared memory. See the sources for the layouts.
+The mLSTM forward is chunkwise parallel: the stabiliser m is a max-plus
+recurrence of the gates alone and the state update is linear, so the
+kernel runs S / ``kernel_chunk()`` chunks (of 32), each a warp's scan for
+m and the in-chunk weights, then the chunk's products (Q K^T, P V, Q C0,
+K^T (w V)) on the tensor cores in bf16, the float32 operands as two bf16
+parts (hi + lo), or on the CUDA cores in float32. Its value columns are
+split over CTAs (32 each), every CTA keeping its slice of C in mma
+accumulators and recomputing the O(chunk) chain alike, so no CTA waits on
+another. The chunk is the checkpoint interval, so each chunk's entry
+state is the checkpoint the backward reads. The sLSTM's chain is real (h
+feeds the gates through r): a cluster of 8 CTAs a head and up to 4 batch
+rows keeps the z and o columns of r in registers, every CTA forms the two
+per-head gate means itself from the whole h it holds (mean(ix + h r_i) =
+mean(ix) + h . w_i, w_i = r_i summed over its columns), and a step's h goes
+round the cluster through distributed shared memory into a
+double-buffered h: one cluster barrier a step. See the sources for the
+layouts.
 
 Backward: the forward saves what the backward kernels read (the mLSTM's C
-every ``CHECKPOINT_EVERY`` steps and its O(S d) vectors; the sLSTM's
+every ``kernel_chunk()`` steps and its O(S d) vectors; the sLSTM's
 per-step states and gates), and each backward is two launches: the
 reverse loop, then a fixed-order reduction (the mLSTM's sums over value
 blocks and its stabiliser chain; the sLSTM's dr product). No float
@@ -48,7 +56,18 @@ from repro_torch.kernels import ref
 KERNELS = ("mlstm_fwd", "mlstm_bwd", "slstm_fwd", "slstm_bwd")
 LAUNCHES_PER_CALL = {"mlstm_fwd": 1, "mlstm_bwd": 2, "slstm_fwd": 1, "slstm_bwd": 2}
 launches = dict.fromkeys(KERNELS, 0)
-CHECKPOINT_EVERY = 32  # the mLSTM forward saves C before every 32nd step
+# The plain path's checkpoint interval (CPU and ``meta`` tensors). On the
+# card the interval is the forward kernel's chunk, whose entry states it
+# saves for the backward, and the library reports it: ``kernel_chunk()``.
+CHECKPOINT_EVERY = 32
+
+
+def kernel_chunk() -> int:
+    """The mLSTM forward kernel's chunk (32: the chunk's products on whole
+    m16n8k16 tiles, and the backward's segment scratch, B H ceil(d / 16) x
+    32 x threads x 16 floats, 38 MB at xlstm-125m's 2 x 512, inside the
+    card's 50 MB of L2), the checkpoint interval of the saves it writes."""
+    return _build.lib().rt_mlstm_chunk()
 
 plain_mlstm = ref.ref_mlstm_scan
 plain_slstm = ref.ref_slstm_scan
@@ -81,7 +100,7 @@ def mlstm_fwd(q, k, v, log_i, log_f, C, n, m, *, save: bool = False):
     out = (torch.empty_like(C), torch.empty_like(n), torch.empty_like(m))
     saved = None
     if save:
-        saved = (_build.empty(-(-S // CHECKPOINT_EVERY), B, H, d, d, like=q),
+        saved = (_build.empty(-(-S // kernel_chunk()), B, H, d, d, like=q),
                  _build.empty(B, H, S + 1, d, like=q), _build.empty(B, H, S + 1, like=q),
                  _build.empty(B, H, S, like=q), _build.empty(B, H, S, d, like=q))
     if B * H == 0:
@@ -89,7 +108,7 @@ def mlstm_fwd(q, k, v, log_i, log_f, C, n, m, *, save: bool = False):
     lib = _build.lib()
     sv = [None] * 5 if saved is None else [t.data_ptr() for t in saved]
     err = lib.rt_mlstm_fwd(*(t.data_ptr() for t in (q, k, v, log_i, log_f, C, n, m, h, *out)),
-                           *sv, B, H, S, d, CHECKPOINT_EVERY, _build.DTYPE_CODES[q.dtype],
+                           *sv, B, H, S, d, _build.DTYPE_CODES[q.dtype],
                            _build.stream_ptr(q.device))
     _build.check(err, "mlstm_fwd")
     launches["mlstm_fwd"] += LAUNCHES_PER_CALL["mlstm_fwd"]
@@ -112,13 +131,14 @@ def mlstm_bwd(q, k, v, log_i, log_f, saved, dh, dC, dn, dm):
     dC0, dn0, dm0 = torch.empty_like(dC), torch.empty_like(dn), torch.empty_like(dm)
     if B * H == 0:
         return dq, dk, dv, dli, dlf, dC0, dn0, dm0
-    scratch = (_build.empty(B * H * nx, CHECKPOINT_EVERY, threads, block_v, like=q),
+    every = lib.rt_mlstm_chunk()
+    scratch = (_build.empty(B * H * nx, every, threads, block_v, like=q),
                _build.empty(nx, B, H, S, d, like=q), _build.empty(nx, B, H, S, d, like=q),
                _build.empty(nx, B, H, S, like=q), _build.empty(nx, B, H, S, like=q),
                _build.empty(B, H, S, like=q), _build.empty(B, H, S, like=q))
     err = lib.rt_mlstm_bwd(*(t.data_ptr() for t in (
         q, k, v, log_i, log_f, *saved, dh, dC, dn, dm, dq, dk, dv, dli, dlf, dC0, dn0, dm0,
-        *scratch)), B, H, S, d, CHECKPOINT_EVERY, _build.DTYPE_CODES[q.dtype],
+        *scratch)), B, H, S, d, every, _build.DTYPE_CODES[q.dtype],
         _build.stream_ptr(q.device))
     _build.check(err, "mlstm_bwd")
     launches["mlstm_bwd"] += LAUNCHES_PER_CALL["mlstm_bwd"]

@@ -158,3 +158,28 @@ def test_llava_prefill_through_the_chunked_path_matches_jax(monkeypatch):
     for a, b in zip(leaves, jleaves):
         np.testing.assert_allclose(np.asarray(a, np.float32), np.asarray(b, np.float32),
                                    atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["rep2-ragged-ring", "rep4-wrapped", "window-softcap"])
+def test_cache_attention_gradient_matches_jax_vjp(case):
+    """The reference's loop is a ``lax.scan`` that ``jax.grad`` goes through
+    (XLA's reverse of its jnp ops). The port's plain loop, which the
+    wrapper runs on the CPU and ``CacheAttention``'s backward recomputes on
+    the card, with torch autograd against ``jax.vjp`` of
+    ``chunked_cache_attention``: the gradients of q, k and v in float32
+    (a wrapped ring's query that sees no slot takes none)."""
+    B, S, T, H, KV, hd, block_k, window, softcap, kind = CASES[case]
+    q, k, v, q_pos, k_pos = _inputs(len(case) + T + 1, B, S, T, H, KV, hd, kind)
+    kw = dict(sliding_window=window, softcap=softcap, block_k=block_k)
+    dout = np.random.default_rng(T).standard_normal((B, S, H, hd)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: JL.chunked_cache_attention(
+        a, b, c, jnp.asarray(q_pos), jnp.asarray(k_pos), **kw), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = ca.cache_attention(*leaves, *map(torch.from_numpy, (q_pos, k_pos)), **kw)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dout))
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=TOL["float32"],
+                                   rtol=TOL["float32"])
+    if kind == "wrap":
+        assert not got[0][0, 0].any()

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core import slotpool
 from repro_torch.kernels import cmp_claim, cmp_ring, flash_attention, paged_attention
+from torch_xlstm_cases import EXTREME_CASES, check_rows, extreme_case
 
 pytestmark = pytest.mark.cuda
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -815,13 +816,19 @@ def _xl_close(got, want, dtype):
         assert float(err) <= 1e-4, float(err)
 
 
-def _mlstm_inputs(dev, dtype, B, S, carried, seed=0, d=XL_D):
+def _mlstm_inputs(dev, dtype, B, S, carried, seed=0, d=XL_D, extreme=False):
+    """q, k (scaled), v, the log gates and a state; ``extreme``: a fifth of
+    the gates at their extremes, log_i +-30 and f_pre -30 or +30."""
     g = torch.Generator(device=dev).manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
     q, k, v = (rnd(B, XL_H, S, d).to(DT[dtype]) for _ in range(3))
     k = k / torch.tensor(d ** 0.5).to(k.dtype)
-    log_i = rnd(B, XL_H, S)
-    log_f = torch.nn.functional.logsigmoid(rnd(B, XL_H, S) + 2.0)
+    log_i, f_pre = rnd(B, XL_H, S), rnd(B, XL_H, S) + 2.0
+    if extreme:
+        u, w = (torch.rand(B, XL_H, S, generator=g, device=dev) for _ in range(2))
+        log_i = torch.where(u < 0.1, 30.0, torch.where(u > 0.9, -30.0, log_i))
+        f_pre = torch.where(w < 0.1, -30.0, torch.where(w > 0.9, 30.0, f_pre))
+    log_f = torch.nn.functional.logsigmoid(f_pre)
     if carried:
         C, n, m = rnd(B, XL_H, d, d) * 0.1, rnd(B, XL_H, d) * 0.1, rnd(B, XL_H)
     else:
@@ -830,41 +837,77 @@ def _mlstm_inputs(dev, dtype, B, S, carried, seed=0, d=XL_D):
     return q, k, v, log_i, log_f, C, n, m
 
 
-@pytest.mark.parametrize("d", [XL_D, 40])
-@pytest.mark.parametrize("carried", [False, True])
-@pytest.mark.parametrize("S", [1, 40, 100])
+# (B, S, carried, d, extreme): at B = 2 every S of one step, past the chunk
+# of 32 and not a multiple of it, fresh and carried, at both widths; then
+# B = 1, 3, 5 and the extreme gates
+MLSTM_CASES = [(2, S, carried, d, False) for d in (XL_D, 40) for carried in (False, True)
+               for S in (1, 40, 100)]
+MLSTM_CASES += [(1, 37, True, XL_D, False), (3, 70, False, XL_D, False),
+                (5, 33, True, XL_D, False), (5, 96, False, 40, False),
+                (2, 100, False, XL_D, True), (3, 45, True, XL_D, True), (1, 1, True, XL_D, True)]
+
+
+@pytest.mark.parametrize("B,S,carried,d,extreme", MLSTM_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_mlstm_kernels_match_plain(dev, dtype, S, carried, d):
-    """The mLSTM forward kernel against ``ref.ref_mlstm_fwd_saved`` (h, the
-    state, and every saved tensor), the backward kernels against
-    ``ref.ref_mlstm_bwd`` on the kernel's saved tensors (S past the
-    checkpoint interval, and not a multiple of it), 1 + 2 launches; at
-    xlstm-125m's head width and at 40 (a last block of 8 value columns, 64
-    threads for 40 key rows)."""
+def test_mlstm_kernels_match_plain(dev, dtype, B, S, carried, d, extreme):
+    """The chunkwise mLSTM forward kernel against ``ref.ref_mlstm_fwd_saved``
+    (h, the state, and every saved tensor), the backward kernels against
+    ``ref.ref_mlstm_bwd`` on the forward kernel's saves, 1 + 2 launches:
+    S of one step, past the chunk and not a multiple of it; B = 1, 2, 3, 5;
+    at xlstm-125m's head width and at 40 (a last block of 8 value columns);
+    gates at their extremes (float32's h there: row by row to the float64
+    loop, ``torch_xlstm_rows.py``)."""
     from repro_torch.kernels import ref, xlstm_scan as xs
 
-    args = _mlstm_inputs(dev, dtype, 2, S, carried, d=d)
+    args = _mlstm_inputs(dev, dtype, B, S, carried, d=d, extreme=extreme)
     before = dict(xs.launches)
     h, C, n, m, saved = xs.mlstm_fwd(*args, save=True)
-    want = ref.ref_mlstm_fwd_saved(*args, xs.CHECKPOINT_EVERY)
-    for got_t, want_t in zip((h, C, n, m, *saved), (*want[:4], *want[4]), strict=True):
+    want = ref.ref_mlstm_fwd_saved(*args, xs.kernel_chunk())
+    apart = extreme and dtype == "float32"
+    for i, (got_t, want_t) in enumerate(zip((h, C, n, m, *saved), (*want[:4], *want[4]),
+                                            strict=True)):
+        if apart and i in (0, 8):  # h and its float32 save
+            continue
         _xl_close(got_t, want_t, "float32" if got_t.dtype == torch.float32 and dtype ==
                   "float32" else "bfloat16")
+    if apart:
+        check_rows(args, saved[4], want[4][4])
     g = torch.Generator(device=dev).manual_seed(9)
     dh = torch.randn(h.shape, generator=g, device=dev).to(h.dtype)
     dC, dn, dm = (torch.randn(t.shape, generator=g, device=dev) for t in (C, n, m))
     got = xs.mlstm_bwd(*args[:5], saved, dh, dC, dn, dm)
-    want = ref.ref_mlstm_bwd(*args[:5], saved, dh, dC, dn, dm, xs.CHECKPOINT_EVERY)
+    want = ref.ref_mlstm_bwd(*args[:5], saved, dh, dC, dn, dm, xs.kernel_chunk())
     for a, b in zip(got, want, strict=True):
         _xl_close(a, b, dtype)
     assert xs.launches["mlstm_fwd"] == before["mlstm_fwd"] + 1
     assert xs.launches["mlstm_bwd"] == before["mlstm_bwd"] + 2
 
 
-def _slstm_inputs(dev, dtype, B, S, carried, seed=0, hd=XL_D):
+@pytest.mark.parametrize("S,carried", EXTREME_CASES)
+def test_mlstm_kernel_on_ill_conditioned_rows(dev, S, carried):
+    """The float32 forward kernel on the CPU tests' extreme cases (2 x 4
+    heads of 16), whose h has rows so ill-conditioned that the float32
+    plain loop is more than 1e-4 of the row off float64 (on the CPU, as
+    those tests find them): h held by the row check with its looser branch
+    run (``torch_xlstm_cases.py``), everything else to the plain loop."""
+    from repro_torch.kernels import xlstm_scan as xs
+
+    args, want = extreme_case(S, carried)
+    h, C, n, m, saved = xs.mlstm_fwd(*(a.to(dev) for a in args), save=True)
+    assert check_rows(args, saved[4].cpu(), want[4][4]) > 0
+    for got_t, want_t in zip((C, n, m, *saved[:4]), (*want[1:4], *want[4][:4]), strict=True):
+        _xl_close(got_t, want_t.to(dev), "float32")
+
+
+def _slstm_inputs(dev, dtype, B, S, carried, seed=0, hd=XL_D, extreme=False):
+    """zx, ix, fx, ox, r and a state; ``extreme``: ix and fx scaled by 30,
+    so the gate means reach +-30."""
     g = torch.Generator(device=dev).manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
-    xs_ = [rnd(B, S, XL_H, hd).to(DT[dtype]) for _ in range(4)]
+    xs_ = [rnd(B, S, XL_H, hd) for _ in range(4)]
+    if extreme:
+        xs_[1], xs_[2] = xs_[1] * 30, xs_[2] * 30
+    xs_ = [t.to(DT[dtype]) for t in xs_]
     r = (rnd(XL_H, hd, 4 * hd) * hd ** -0.5).to(DT[dtype]).float()
     if carried:
         c, h = rnd(B, XL_H, hd), rnd(B, XL_H, hd) * 0.5
@@ -875,20 +918,21 @@ def _slstm_inputs(dev, dtype, B, S, carried, seed=0, hd=XL_D):
     return (*xs_, r, c, n, h, m)
 
 
+@pytest.mark.parametrize("extreme", [False, True])
 @pytest.mark.parametrize("hd", [XL_D, 37])
 @pytest.mark.parametrize("carried", [False, True])
 @pytest.mark.parametrize("S", [1, 40])
-@pytest.mark.parametrize("B", [2, 5])
+@pytest.mark.parametrize("B", [1, 2, 3, 5])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_slstm_kernels_match_plain(dev, dtype, B, S, carried, hd):
+def test_slstm_kernels_match_plain(dev, dtype, B, S, carried, hd, extreme):
     """The sLSTM forward kernel against ``ref.ref_slstm_fwd_saved`` and the
-    backward kernels against ``ref.ref_slstm_bwd`` on the kernel's saved
-    tensors (B = 5: two clusters of rows a head, the second one part
-    empty), 1 + 2 launches; at xlstm-125m's head width and at 37 (5
-    elements a CTA, the last CTA's 3 past the head)."""
+    backward kernels against ``ref.ref_slstm_bwd`` on the forward kernel's
+    saves, 1 + 2 launches: B = 1, 2, 3 (one cluster of rows a head) and 5
+    (two, the second of one row); at xlstm-125m's head width and at 37 (5
+    elements a CTA, the last CTA's 3 past the head); gate means at +-30."""
     from repro_torch.kernels import ref, xlstm_scan as xs
 
-    args = _slstm_inputs(dev, dtype, B, S, carried, hd=hd)
+    args = _slstm_inputs(dev, dtype, B, S, carried, hd=hd, extreme=extreme)
     before = dict(xs.launches)
     out = xs.slstm_fwd(*args, save=True)
     want = ref.ref_slstm_fwd_saved(*args)
@@ -1046,7 +1090,7 @@ def test_hymba_block_on_card_matches_plain_autograd(dev, dtype):
     ``SSD``'s kernels, against the same layer on the plain loop with
     ordinary autograd (swapped in) on the card: the output and every
     gradient; then one decode step of the branch through the decode
-    kernel, which refuses a call that autograd records."""
+    kernel, also with autograd recording (``SSDDecode``)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1091,38 +1135,138 @@ def test_hymba_block_on_card_matches_plain_autograd(dev, dtype):
         finally:
             ss.ssd_decode = real
     before = dict(ss.launches)
-    with pytest.raises(ValueError):
-        ssm.mamba_block(xt.clone().requires_grad_(True), params["mamba"], num_heads=H,
-                        ssm_state=N, state=state, decode=True)
-    assert ss.launches == before
+    xg = xt.clone().requires_grad_(True)
+    got = ssm.mamba_block(xg, params["mamba"], num_heads=H, ssm_state=N, state=state,
+                          decode=True)
+    assert ss.launches["ssd_decode"] == before["ssd_decode"] + 1
+    (dx,) = torch.autograd.grad((got[0].float() ** 2).mean(), xg)
+    assert torch.isfinite(dx).all() and dx.abs().sum() > 0
     for a, b in zip(want, plain, strict=True):
         _xl_close(a, b, dtype if a.dtype == DT[dtype] else "float32")
+    for a, b in zip(got, want, strict=True):
+        _xl_close(a.detach(), b, dtype if a.dtype == DT[dtype] else "float32")
 
 
 def test_ssd_kernels_refuse_what_they_do_not_take(dev):
-    """No fallback: a CUDA call outside the kernels' limits raises: a chunk
-    past 256, a state wider than 16, a decode past 1,024 value columns, a
-    float16 input, a float64 log_a, a tensor on the CPU."""
+    """No fallback: a CUDA call outside the kernels' limits raises: a
+    float16 input, a float64 log_a, a tensor on the CPU, a state of width
+    0. A chunk past 256, a state wider than 16 and a decode past 1,024
+    value columns run (below)."""
     from repro_torch.kernels import ssd_scan as ss
 
     x, b, c, log_a, state = _ssd_inputs(dev, "float32", 1, 300, "smoke", False)
-    with pytest.raises(ValueError):
-        ss.ssd_chunked(x, b, c, log_a, chunk=257, state=state)
     with pytest.raises(ValueError):
         ss.ssd_chunked(x.half(), b.half(), c.half(), log_a, chunk=256, state=state)
     with pytest.raises(ValueError):
         ss.ssd_chunked(x, b, c, log_a.double(), chunk=256, state=state)
     with pytest.raises(ValueError):
         ss.ssd_chunked(x, b.cpu(), c, log_a, chunk=256, state=state)
-    wide = torch.zeros(1, 3, 4, 17, device=dev)
+    empty = torch.zeros(1, 3, 4, 0, device=dev)
     with pytest.raises(ValueError):
-        ss.ssd_chunked(x[:, :3], wide, wide, log_a[:, :3], chunk=3,
-                       state=torch.zeros(1, 4, 16, 17, device=dev))
-    xp = torch.zeros(1, 1, 1025, device=dev)
-    bp = torch.zeros(1, 1, 4, device=dev)
-    with pytest.raises(ValueError):
-        ss.ssd_decode(xp, bp, bp, torch.zeros(1, 1, device=dev),
-                      torch.zeros(1, 1, 1025, 4, device=dev))
+        ss.ssd_chunked(x[:, :3], empty, empty, log_a[:, :3], chunk=3,
+                       state=torch.zeros(1, 4, 16, 0, device=dev))
+
+
+@pytest.mark.parametrize("N,S,chunk", [(17, 40, 16), (64, 300, 256), (40, 70, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_states_wider_than_16(dev, dtype, N, S, chunk):
+    """A state wider than the kernels' tile of 16 runs as ceil(N / 16)
+    tiles: the forward kernel (+ the tiles' sum, 2 launches) against
+    ``ref.ref_ssd_fwd_saved`` and the backward kernels against
+    ``ref.ref_ssd_bwd`` on its saves, at 8 heads of P = 24 (a value block
+    of 8 past 16), from a carried state."""
+    from repro_torch.kernels import ref, ssd_scan as ss
+
+    g = torch.Generator(device=dev).manual_seed(N)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    x = rnd(2, S, 8, 24).to(DT[dtype])
+    b, c = ((rnd(2, S, 8, N) * 0.3).to(DT[dtype]) for _ in range(2))
+    log_a = -torch.nn.functional.softplus(rnd(2, S, 8))
+    args = (x, b, c, log_a, rnd(2, 8, 24, N))
+    before = dict(ss.launches)
+    y, h, saved = ss.ssd_fwd(*args, chunk=chunk, save=True)
+    for a, w in zip((y, h, saved), ref.ref_ssd_fwd_saved(*args, chunk), strict=True):
+        _xl_close(a, w, dtype if a.dtype == DT[dtype] else "float32")
+    dy = rnd(*y.shape).to(y.dtype)
+    dh = rnd(*h.shape)
+    got = ss.ssd_bwd(*args[:4], saved, dy, dh, chunk=chunk)
+    for a, w in zip(got, ref.ref_ssd_bwd(*args[:4], saved, dy, dh, chunk), strict=True):
+        _xl_close(a, w, dtype)
+    assert ss.launches["ssd_fwd"] == before["ssd_fwd"] + 2
+    assert ss.launches["ssd_bwd"] == before["ssd_bwd"] + 2
+
+
+@pytest.mark.parametrize("S,chunk", [(600, 257), (600, 300), (700, 512), (300, 1000)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunks_past_256_run_as_sub_chunks(dev, dtype, S, chunk):
+    """A chunk past the kernels' 256 runs as equal sub-chunks of at most
+    256 (the same function: the recurrence is exact at any chunk): y, the
+    final state and every gradient through ``SSD`` against the plain loop
+    at the asked chunk with ordinary autograd, at hymba's width."""
+    from repro_torch.kernels import ref, ssd_scan as ss
+
+    args = _ssd_inputs(dev, dtype, 2, S, "hymba", True)
+    runs = []
+    for fn in (ss.ssd_chunked, ref.ref_ssd_chunked):
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        before = dict(ss.launches)
+        y, h = fn(*leaves[:4], chunk=chunk, state=leaves[4])
+        g = torch.Generator(device=dev).manual_seed(5)
+        dy = torch.randn(y.shape, generator=g, device=dev).to(y.dtype)
+        grads = torch.autograd.grad((y.float() * dy.float()).sum() + h.sum(), leaves)
+        runs.append(([y, h, *grads], {k: ss.launches[k] - before[k] for k in ss.KERNELS}))
+    assert runs[0][1] == {"ssd_fwd": 1, "ssd_bwd": 2, "ssd_decode": 0}
+    assert runs[1][1] == dict.fromkeys(ss.KERNELS, 0)
+    for a, b in zip(runs[0][0], runs[1][0], strict=True):
+        _xl_close(a, b, dtype if a.dtype == DT[dtype] else "float32")
+
+
+@pytest.mark.parametrize("P", [1025, 2500])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_decode_past_1024_columns(dev, dtype, P):
+    """The decode step with more value columns than a CTA has threads: the
+    columns over ceil(P / 1,024) CTAs, one launch, against the plain step."""
+    from repro_torch.kernels import ref, ssd_scan as ss
+
+    g = torch.Generator(device=dev).manual_seed(P)
+    x = torch.randn(3, 2, P, generator=g, device=dev).to(DT[dtype])
+    b, c = (torch.randn(3, 2, 16, generator=g, device=dev).to(DT[dtype]) for _ in range(2))
+    log_a = -torch.rand(3, 2, generator=g, device=dev)
+    state = torch.randn(3, 2, P, 16, generator=g, device=dev)
+    before = ss.launches["ssd_decode"]
+    got = ss.ssd_decode(x, b, c, log_a, state)
+    assert ss.launches["ssd_decode"] == before + 1
+    for a, w in zip(got, ref.ref_ssd_decode_step(x, b, c, log_a, state), strict=True):
+        _xl_close(a, w, dtype if a.dtype == DT[dtype] else "float32")
+
+
+@pytest.mark.parametrize("x_dtype,bc_dtype", [("float32", "float32"), ("float32", "bfloat16"),
+                                              ("bfloat16", "bfloat16")])
+def test_ssd_decode_function_gradients_match_plain_autograd(dev, x_dtype, bc_dtype):
+    """A decode step that autograd records runs the kernel forward (one
+    launch) and ``SSDDecode``'s backward, the plain step's vjp: y and the
+    state against the plain step, every input's gradient equal to the
+    plain step's autograd on the card."""
+    from repro_torch.kernels import ref, ssd_scan as ss
+
+    x, b, c, log_a, state = _ssd_inputs(dev, "float32", 4, 1, "hymba", True)
+    inputs = (x[:, 0].to(DT[x_dtype]), b[:, 0].to(DT[bc_dtype]), c[:, 0].to(DT[bc_dtype]),
+              log_a[:, 0], state)
+    g = torch.Generator(device=dev).manual_seed(2)
+    runs = []
+    for fn in (ss.ssd_decode, ref.ref_ssd_decode_step):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        before = ss.launches["ssd_decode"]
+        y, h = fn(*leaves)
+        cot = [torch.randn(t.shape, generator=g.manual_seed(2), device=dev).to(t.dtype)
+               for t in (y, h)]
+        grads = torch.autograd.grad((y * cot[0]).float().sum() + (h * cot[1]).sum(), leaves)
+        runs.append(([y, h], grads, ss.launches["ssd_decode"] - before))
+    assert [r[2] for r in runs] == [1, 0]
+    for a, w in zip(runs[0][0], runs[1][0], strict=True):
+        _xl_close(a, w, x_dtype if a.dtype == DT[x_dtype] else "float32")
+    for a, w in zip(runs[0][1], runs[1][1], strict=True):
+        _xl_close(a, w, "bfloat16" if a.dtype == torch.bfloat16 else "float32")
 
 
 # chunked_cache_attention's KV-block scan (kernels/cache_attention.py).
@@ -1241,19 +1385,15 @@ def test_cache_attention_reads_strided_views(dev, dtype):
 
 
 def test_cache_attention_refuses_what_it_does_not_take(dev):
-    """No fallback: a call that autograd records, a head_dim past the
-    largest (the message names it), int64 positions, float16, a KV count
-    that does not divide H, a tensor on the CPU."""
+    """No fallback: a head_dim past the largest, 256 (the message names
+    it), int64 positions, float16, a KV count that does not divide H, a
+    tensor on the CPU. A call that autograd records runs (below)."""
     from repro_torch.kernels import cache_attention as ca
 
     q, k, v, q_pos, k_pos = _cache_case(dev, "float32", 1, 5, 70, 4, 2, 16, "prefix", 1)
-    with pytest.raises(ValueError, match="no backward"):
-        ca.cache_attention(q.clone().requires_grad_(True), k, v, q_pos, k_pos)
-    with torch.no_grad():
-        ca.cache_attention(q.clone().requires_grad_(True), k, v, q_pos, k_pos)
-    big = torch.zeros(1, 5, 4, 136, device=dev)
-    kb = torch.zeros(1, 70, 2, 136, device=dev)
-    with pytest.raises(ValueError, match="head_dim 136"):
+    big = torch.zeros(1, 5, 4, 264, device=dev)
+    kb = torch.zeros(1, 70, 2, 264, device=dev)
+    with pytest.raises(ValueError, match="head_dim 264"):
         ca.cache_attention(big, kb, kb, q_pos, k_pos)
     with pytest.raises(ValueError):
         ca.cache_attention(q, k, v, q_pos.long(), k_pos)
@@ -1263,6 +1403,49 @@ def test_cache_attention_refuses_what_it_does_not_take(dev):
         ca.cache_attention(q[:, :, :3], k, v, q_pos, k_pos)
     with pytest.raises(ValueError):
         ca.cache_attention(q, k.cpu(), v, q_pos, k_pos)
+
+
+@pytest.mark.parametrize("hd", [136, 192, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cache_attention_heads_past_128(dev, dtype, hd):
+    """Heads wider than the wgmma kernel's 128 run on the CUDA cores (up to
+    256), one launch, against the plain loop: a wrapped ring with a window
+    and a softcap, and a prefix."""
+    from repro_torch.kernels import cache_attention as ca
+
+    for B, S, T, H, KV, window, softcap, kind in ((1, 70, 200, 8, 2, 48, 30.0, "wrap"),
+                                                  (2, 100, 130, 4, 4, 0, 0.0, "prefix")):
+        q, k, v, q_pos, k_pos = _cache_case(dev, dtype, B, S, T, H, KV, hd, kind, hd + S)
+        kw = dict(sliding_window=window, softcap=softcap)
+        before = ca.launches
+        got = ca.cache_attention(q, k, v, q_pos, k_pos, block_k=64, **kw)
+        assert ca.launches == before + 1
+        _close(got, ca.plain(q, k, v, q_pos, k_pos, block_k=64, **kw),
+               2e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cache_attention_function_gradients_match_plain_autograd(dev, dtype):
+    """A call that autograd records runs the kernel forward (one launch)
+    and ``CacheAttention``'s backward, the plain loop's vjp: the output
+    against the plain loop, the gradients of q, k and v equal to the plain
+    loop's autograd on the card (a wrapped ring, GQA, a window)."""
+    from repro_torch.kernels import cache_attention as ca
+
+    args = _cache_case(dev, dtype, 2, 40, 90, 8, 2, 64, "wrap", 7)
+    kw = dict(sliding_window=30, softcap=0.0, block_k=32)
+    g = torch.Generator(device=dev).manual_seed(1)
+    dout = torch.randn(args[0].shape, generator=g, device=dev).to(args[0].dtype)
+    runs = []
+    for fn in (ca.cache_attention, ca.plain):
+        leaves = [t.clone().requires_grad_(True) for t in args[:3]]
+        before = ca.launches
+        out = fn(*leaves, *args[3:], **kw)
+        runs.append((out, torch.autograd.grad(out, leaves, dout), ca.launches - before))
+    assert [r[2] for r in runs] == [1, 0]
+    _close(runs[0][0].detach(), runs[1][0].detach(), 2e-5 if dtype == "float32" else 2e-2)
+    for a, b in zip(runs[0][1], runs[1][1], strict=True):
+        assert torch.equal(a, b)
 
 
 def test_llava_prefill_through_the_kernel_on_card_matches_cpu(dev):

@@ -9,8 +9,9 @@ S), from a zero state and a carried one:
   reference's ``ssd_chunked`` on the same numpy inputs;
 * the long chunk whose decay overflows the reference's gradient: the
   backward finite and equal to the plain loop's autograd (1e-4);
-* the decode step against the reference's ``ssd_decode_step``, and a
-  one-token chunk through ``SSD`` (the route for its gradient) against it;
+* the decode step against the reference's ``ssd_decode_step``, its
+  gradient against ``jax.vjp`` of it, and a one-token chunk through
+  ``SSD`` against it;
 * CPU and ``meta`` tensors reach the plain loop, and launch nothing.
 
 Tolerance 1e-5 (atol = rtol): float32 sums in another order, as in
@@ -158,11 +159,28 @@ def test_decode_step_matches_jax(carried):
     _close(tst, jst)
 
 
+@pytest.mark.parametrize("carried", [False, True])
+def test_decode_step_gradient_matches_jax_vjp(carried):
+    """The reference's ``ssd_decode_step`` is plain jnp that ``jax.grad``
+    differentiates. The port's plain step (the wrapper's path on the CPU,
+    and what ``SSDDecode``'s backward recomputes on the card) with torch
+    autograd against ``jax.vjp`` of it: every input's gradient."""
+    rng = np.random.default_rng(40 + carried)
+    x, b, c, log_a, state = _inputs(rng, 1, carried)
+    arrays = [a[:, 0] for a in (x, b, c, log_a)] + [state]
+    out_j, vjp = jax.vjp(JS.ssd_decode_step, *map(jnp.asarray, arrays))
+    cots = [_rand(rng, *o.shape) for o in out_j]
+    want = vjp(tuple(map(jnp.asarray, cots)))
+    leaves = [_leaf(a) for a in arrays]
+    got = _grads(ss.ssd_decode(*leaves), leaves, [torch.from_numpy(c) for c in cots])
+    for a, b in zip(got, want, strict=True):
+        _close(a, b)
+
+
 def test_decode_as_one_token_chunk_matches_decode_step():
-    """A gradient through one token goes through ``SSD`` over a one-token
-    chunk (the decode kernel has none): on the CPU that gives the decode
-    step's y and state, and its gradients are autograd's of the plain
-    decode step."""
+    """``SSD`` over a one-token chunk is the decode step: on the CPU it
+    gives the decode step's y and state, and its gradients are autograd's
+    of the plain decode step."""
     rng = np.random.default_rng(30)
     x, b, c, log_a, state = _inputs(rng, 1, True)
     runs = []

@@ -27,14 +27,11 @@ from repro.models import ssm as JS
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import xlstm_scan as xs
 from repro_torch.models import ssm as TS
+from torch_xlstm_cases import (B, D, EXTREME_CASES, FACTOR, H, L, MLSTM_SEQS, REL,
+                               check_rows, extreme_case, mlstm_case, mlstm_np, rand, rows)
 
 TOL = 1e-5
-B, H, D = 2, 4, 16
 SEQS = [1, 7, 40]
-
-
-def _rand(rng, *shape, scale=1.0):
-    return (rng.standard_normal(shape) * scale).astype(np.float32)
 
 
 def _close(got, want):
@@ -44,18 +41,6 @@ def _close(got, want):
 
 def _leaf(a):
     return torch.from_numpy(np.array(a)).requires_grad_(True)
-
-
-def _mlstm_np(rng, S, carried):
-    q, k, v = (_rand(rng, B, H, S, D) for _ in range(3))
-    i_pre, f_pre = _rand(rng, B, H, S), _rand(rng, B, H, S) + 1.0
-    if carried:
-        state = (_rand(rng, B, H, D, D, scale=0.3), _rand(rng, B, H, D, scale=0.3),
-                 _rand(rng, B, H))
-    else:
-        state = (np.zeros((B, H, D, D), np.float32), np.zeros((B, H, D), np.float32),
-                 np.full((B, H), -np.inf, np.float32))
-    return (q, k, v, i_pre, f_pre), state
 
 
 def _grads(out, leaves, cots):
@@ -71,12 +56,12 @@ def test_mlstm_plain_backward_matches_autograd(S, carried, every):
     checkpoints, against autograd of ``ref_mlstm_scan``: every input's
     gradient, the state's included."""
     rng = np.random.default_rng(S * 10 + carried)
-    (q, k, v, i_pre, f_pre), state = _mlstm_np(rng, S, carried)
+    (q, k, v, i_pre, f_pre), state = mlstm_np(rng, S, carried)
     leaves = [_leaf(a) for a in (q, k / math.sqrt(D), v, i_pre)]
     leaves.append(_leaf(F.logsigmoid(torch.from_numpy(f_pre)).numpy()))
     leaves += [_leaf(a) for a in state]
     out = ref.ref_mlstm_scan(*leaves)
-    cots = [torch.from_numpy(_rand(rng, *o.shape)) for o in out]
+    cots = [torch.from_numpy(rand(rng, *o.shape)) for o in out]
     want = _grads(out, leaves, cots)
     with torch.no_grad():
         *fwd, saved = ref.ref_mlstm_fwd_saved(*leaves, every)
@@ -94,7 +79,7 @@ def test_mlstm_checkpoints_are_the_plain_loops_states():
     before every K-th step, n and m after every step, n . q and h in
     float32 (K = 3 < S = 40, not dividing it)."""
     rng = np.random.default_rng(5)
-    (q, k, v, i_pre, f_pre), state = _mlstm_np(rng, 40, True)
+    (q, k, v, i_pre, f_pre), state = mlstm_np(rng, 40, True)
     args = [torch.from_numpy(a) for a in (q, k, v, i_pre, f_pre, *state)]
     args[4] = F.logsigmoid(args[4])
     _, _, _, _, (ck, n_all, m_all, nq_all, h32) = ref.ref_mlstm_fwd_saved(*args, 3)
@@ -125,9 +110,9 @@ def test_mlstm_function_backward_matches_jax_vjp(S, carried, monkeypatch):
     carried state."""
     monkeypatch.setattr(xs, "mlstm", xs.MLSTM.apply)
     rng = np.random.default_rng(S * 10 + carried + 100)
-    inputs, state = _mlstm_np(rng, S, carried)
+    inputs, state = mlstm_np(rng, S, carried)
     out_j, vjp = jax.vjp(_jax_mlstm, *(jnp.asarray(a) for a in (*inputs, *state)))
-    cots = [_rand(rng, *o.shape) for o in out_j]
+    cots = [rand(rng, *o.shape) for o in out_j]
     want = vjp(tuple(jnp.asarray(c) for c in cots))
     leaves = [_leaf(a) for a in (*inputs, *state)]
     h, (C, n, m, _) = TS.mlstm_scan(*leaves[:5], tuple(leaves[5:]))
@@ -144,13 +129,13 @@ def test_mlstm_function_backward_matches_jax_vjp(S, carried, monkeypatch):
 
 def _slstm_np(rng, S, carried):
     D_model = H * D
-    x = _rand(rng, B, S, D_model)
-    p = {k: _rand(rng, D_model, D_model, scale=D_model ** -0.5)
+    x = rand(rng, B, S, D_model)
+    p = {k: rand(rng, D_model, D_model, scale=D_model ** -0.5)
          for k in ("wz", "wi", "wf", "wo", "wout")}
-    p |= {k: _rand(rng, H, D, D, scale=D ** -0.5) for k in ("rz", "ri", "rf", "ro")}
+    p |= {k: rand(rng, H, D, D, scale=D ** -0.5) for k in ("rz", "ri", "rf", "ro")}
     if carried:
-        state = (_rand(rng, B, H, D), np.abs(_rand(rng, B, H, D)) + 0.5,
-                 _rand(rng, B, H, D, scale=0.5), _rand(rng, B, H))
+        state = (rand(rng, B, H, D), np.abs(rand(rng, B, H, D)) + 0.5,
+                 rand(rng, B, H, D, scale=0.5), rand(rng, B, H))
     else:
         z = np.zeros((B, H, D), np.float32)
         state = (z, z, z, np.full((B, H), -np.inf, np.float32))
@@ -164,10 +149,10 @@ def test_slstm_plain_backward_matches_autograd(S, carried):
     gradients of the four preactivations, r and the state."""
     rng = np.random.default_rng(S * 10 + carried + 200)
     _, _, state = _slstm_np(rng, S, carried)
-    leaves = [_leaf(_rand(rng, B, S, H, D)) for _ in range(4)]
-    leaves += [_leaf(_rand(rng, H, D, 4 * D, scale=D ** -0.5))] + [_leaf(a) for a in state]
+    leaves = [_leaf(rand(rng, B, S, H, D)) for _ in range(4)]
+    leaves += [_leaf(rand(rng, H, D, 4 * D, scale=D ** -0.5))] + [_leaf(a) for a in state]
     out = ref.ref_slstm_scan(*leaves)
-    cots = [torch.from_numpy(_rand(rng, *o.shape)) for o in out]
+    cots = [torch.from_numpy(rand(rng, *o.shape)) for o in out]
     want = _grads(out, leaves, cots)
     with torch.no_grad():
         *fwd, saved = ref.ref_slstm_fwd_saved(*leaves)
@@ -196,7 +181,7 @@ def test_slstm_function_backward_matches_jax_vjp(S, carried, monkeypatch):
         return (y, *st)
 
     out_j, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in (x, *p.values(), *state)))
-    cots = [_rand(rng, *o.shape) for o in out_j]
+    cots = [rand(rng, *o.shape) for o in out_j]
     want = vjp(tuple(jnp.asarray(c) for c in cots))
     leaves = [_leaf(a) for a in (x, *p.values(), *state)]
     ps = dict(zip(names, leaves[1:1 + len(names)]))
@@ -225,14 +210,14 @@ def test_host_and_meta_tensors_take_the_plain_loop(device, monkeypatch):
     monkeypatch.setattr(_build, "lib", _no_build)
     before = dict(xs.launches)
     rng = np.random.default_rng(7)
-    (q, k, v, i_pre, f_pre), state = _mlstm_np(rng, 7, True)
+    (q, k, v, i_pre, f_pre), state = mlstm_np(rng, 7, True)
     args = [torch.from_numpy(a).to(device).requires_grad_(True)
             for a in (q, k, v, i_pre, f_pre, *state)]
     got = xs.mlstm(*args)
     assert got[0].shape == q.shape and got[1].shape == state[0].shape
     assert "MLSTM" not in type(got[0].grad_fn).__name__
-    zx = [torch.from_numpy(_rand(rng, B, 7, H, D)).to(device) for _ in range(4)]
-    r = torch.from_numpy(_rand(rng, H, D, 4 * D)).to(device)
+    zx = [torch.from_numpy(rand(rng, B, 7, H, D)).to(device) for _ in range(4)]
+    r = torch.from_numpy(rand(rng, H, D, 4 * D)).to(device)
     _, _, sst = _slstm_np(rng, 7, True)
     sargs = [*zx, r, *(torch.from_numpy(a).to(device) for a in sst)]
     sgot = xs.slstm(*sargs)
@@ -243,3 +228,175 @@ def test_host_and_meta_tensors_take_the_plain_loop(device, monkeypatch):
         for a, b in zip(sgot, ref.ref_slstm_scan(*sargs), strict=True):
             assert torch.equal(a, b)
     assert xs.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the forward kernels' algorithms, as plain torch mirrors
+# ---------------------------------------------------------------------------
+
+
+def _rel_close(got, want, tol=REL):
+    """Infinities (a fresh stabiliser) in the same places, the rest within
+    a relative L2 of ``tol``."""
+    got, want = torch.as_tensor(np.array(got)), torch.as_tensor(np.array(want))
+    assert got.shape == want.shape
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], want[~fin])
+    got, want = got[fin].double(), want[fin].double()
+    err = float((got - want).norm() / want.norm().clamp(min=1e-30))
+    assert err <= tol, err
+
+
+def chunkwise_mlstm_fwd(q, k, v, log_i, log_f, C, n, m, chunk, defect=None):
+    """The mLSTM forward kernel's algorithm (``csrc/mlstm_scan.cu``) in
+    plain torch, with ``ref_mlstm_fwd_saved``'s outputs and saves. A chunk
+    of steps from the state (C0, n0, m0), with D_ts the sum of log_f over
+    the steps (s, t] of the chunk (never a difference of two cumulative
+    sums, which cancels) and F_t = D_t,-1:
+    m_t = max(F_t + m0, max_{s<=t} D_ts + log_i_s); w_ts = exp(D_ts + log_i_s
+    - m_t); c_t = exp(F_t + m0 - m_t), 0 when m0 = -inf; then
+    h_t = (sum_s w_ts (q_t . k_s) v_s + c_t q_t C0) / max(|nq_t|, exp(-m_t)),
+    nq_t = sum_s w_ts (q_t . k_s) + c_t q_t . n0, n_t = c_t n0 + sum_s w_ts k_s
+    and the chunk's exit C = c_last C0 + K^T (w_last V). ``defect`` makes it
+    a known-wrong variant, for the checks' own tests (``DEFECTS``)."""
+    S = q.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ck, ns, ms, nqs, h32 = [], [n], [m], [], []
+    for t0 in range(0, S, chunk):
+        t1 = min(S, t0 + chunk)
+        r = torch.arange(t1 - t0)
+        causal = r[:, None] >= r[None, :]
+        li, lf = log_i[..., t0:t1], log_f[..., t0:t1]
+        inside = (r[None, None, :] > r[None, :, None]) & (r[None, None, :] <= r[:, None, None])
+        D = torch.where(inside, lf[..., None, None, :], 0.0).sum(-1)  # [.., t, s]: (s, t]
+        F_t = torch.cumsum(lf, -1)
+        if defect == "cancel":
+            D = F_t[..., :, None] - F_t[..., None, :]
+        e = torch.where(causal, D + li[..., None, :], -math.inf)
+        fresh = torch.isinf(m)[..., None]
+        m_t = torch.maximum(F_t + m[..., None], e.amax(-1))
+        c = torch.where(fresh, 0.0, torch.exp(F_t + m[..., None] - m_t))
+        w = torch.exp(e - m_t[..., None])
+        Q, K, V = qf[..., t0:t1, :], kf[..., t0:t1, :], vf[..., t0:t1, :]
+        if defect == "w_bf16":
+            w = w.bfloat16().float()
+        if defect == "tf32":  # 10 bits of mantissa, as the tensor cores' TF32 takes
+            Q, K, V = ((x.view(torch.int32) & ~0x1FFF).view(torch.float32) for x in (Q, K, V))
+        P = w * (Q @ K.transpose(-1, -2))
+        nq = P.sum(-1) + c * (Q @ n[..., None])[..., 0]
+        den = torch.maximum(nq.abs(), torch.exp(-m_t))
+        h32.append((P @ V + c[..., None] * (Q @ C)) / den[..., None])
+        n_rows = c[..., None] * n[..., None, :] + w @ K
+        ck.append(C)
+        C = c[..., -1, None, None] * C + K.transpose(-1, -2) @ (w[..., -1, :, None] * V)
+        n, m = n_rows[..., -1, :], m_t[..., -1]
+        ns += n_rows.unbind(2)
+        ms += m_t.unbind(2)
+        nqs.append(nq)
+    h32 = torch.cat(h32, 2)
+    saved = (torch.stack(ck), torch.stack(ns, 2), torch.stack(ms, 2), torch.cat(nqs, 2), h32)
+    return h32.to(q.dtype), C, n, m, saved
+
+
+# known-wrong variants of the mirror, for the row check's own tests
+DEFECTS = {"cancel": "D_ts as the difference F_t - F_s of two cumulative sums",
+           "w_bf16": "the in-chunk weights w rounded to bfloat16",
+           "tf32": "q, k and v rounded to TF32 for the products"}
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("S", MLSTM_SEQS)
+def test_chunkwise_mlstm_matches_the_plain_loop_and_jax(S, carried, extreme):
+    """The chunkwise mirror in chunks of the checkpoint interval against
+    ``ref_mlstm_fwd_saved`` (h, the state and every save) and the
+    reference's ``mlstm_scan`` (h and the state), at a relative L2 of 1e-4:
+    S below, at and past one chunk and a ragged 3L + 5; a fresh state (m =
+    -inf) and a carried one; normal gates and gates at their extremes (where
+    h, ill-conditioned, is held row by row to the float64 loop instead:
+    ``torch_xlstm_cases.py``)."""
+    args, np_args = mlstm_case(S, carried, extreme)
+    got = chunkwise_mlstm_fwd(*args, L)
+    want = ref.ref_mlstm_fwd_saved(*args, L)
+    out_j = _jax_mlstm(*(jnp.asarray(a) for a in np_args))
+    names = ("h", "C", "n", "m", "ck", "n_all", "m_all", "nq", "h32")
+    apart = {"h", "h32"} if extreme else set()  # then held to the float64 loop below
+    for name, a, b in zip(names, (*got[:4], *got[4]), (*want[:4], *want[4]), strict=True):
+        if name not in apart:
+            _rel_close(a, b)
+    for name, a, b in zip(names, got[:4], out_j):
+        if name not in apart:
+            _rel_close(a, b)
+    if extreme:
+        assert (check_rows(args, got[4][4], want[4][4]) > 0) == ((S, carried) in EXTREME_CASES)
+
+
+@pytest.mark.parametrize("S,carried,defect", [
+    (L + 1, False, "w_bf16"), (L + 1, False, "tf32"), (3 * L + 5, False, "tf32"),
+    (3 * L + 5, True, "w_bf16"), (3 * L + 5, True, "tf32")])
+def test_the_extreme_row_check_rejects_wrong_orders_on_ill_conditioned_rows(S, carried, defect):
+    """The row check's looser branch has teeth: on the ill-conditioned rows
+    of h alone (where each float32 order is more than 1e-4 of the row off
+    float64), a known-wrong variant of the mirror is more than ``FACTOR``
+    times the float32 plain loop's own error off float64, while the mirror
+    is held within it (the test above)."""
+    args, want = extreme_case(S, carried)
+    err, own, row = rows(args, chunkwise_mlstm_fwd(*args, L, defect=defect)[4][4], want[4][4])
+    loose = own > REL * row
+    assert loose.any() and (err[loose] > FACTOR * own[loose]).any(), DEFECTS[defect]
+
+
+def chunkwise_slstm_fwd(zx, ix, fx, ox, r, c, n, h, m):
+    """The sLSTM forward kernel's algorithm (``csrc/slstm_scan.cu``) in
+    plain torch, with ``ref_slstm_fwd_saved``'s outputs and saves: the
+    per-head gate means as mean(ix) + h . wi and mean(fx) + h . wf, wi and
+    wf the recurrent matrices r_i and r_f summed over their columns, and
+    only the z and o columns of r in the product."""
+    hd = zx.shape[-1]
+    wi, wf = (r[..., (1 + g) * hd:(2 + g) * hd].sum(-1) for g in (0, 1))  # [H, hd]
+    rzo = torch.cat([r[..., :hd], r[..., 3 * hd:]], dim=-1)
+    keep = {k: [v] for k, v in (("h", h), ("c", c), ("n", n), ("m", m))}
+    keep |= {k: [] for k in ("z", "o", "li", "pf")}
+    for zt, it, ft, ot in zip(zx.float().unbind(1), ix.float().unbind(1),
+                              fx.float().unbind(1), ox.float().unbind(1)):
+        zr, orr = torch.einsum("bhd,hde->bhe", h, rzo).split(hd, dim=-1)
+        li = (it.sum(-1) + (h * wi).sum(-1)) / hd
+        pf = (ft.sum(-1) + (h * wf).sum(-1)) / hd
+        z, o = torch.tanh(zt + zr), torch.sigmoid(ot + orr)
+        m, i_s, f_s = ref._gates(li, F.logsigmoid(pf), m)
+        c = f_s[..., None] * c + i_s[..., None] * z
+        n = f_s[..., None] * n + i_s[..., None]
+        h = o * c / torch.clamp(n, min=1.0)
+        for key, val in (("h", h), ("c", c), ("n", n), ("m", m), ("z", z), ("o", o),
+                         ("li", li), ("pf", pf)):
+            keep[key].append(val)
+    saved = tuple(torch.stack(keep[key], dim=1)
+                  for key in ("h", "c", "n", "z", "o", "li", "pf", "m"))
+    return saved[0][:, 1:].to(zx.dtype), c, n, h, m, saved
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("S", SEQS)
+def test_slstm_gate_means_from_summed_columns_match_plain_and_jax(S, carried, extreme):
+    """The sLSTM mirror (gate means from wi and wf) against
+    ``ref_slstm_fwd_saved`` (every output and save) and the reference's
+    ``slstm_block`` (its output and final state), at a relative L2 of 1e-4;
+    ``extreme`` scales the input and forget preactivations by 30."""
+    rng = np.random.default_rng(S * 4 + carried * 2 + extreme + 600)
+    x, p, state = _slstm_np(rng, S, carried)
+    if extreme:
+        p["wi"], p["wf"] = p["wi"] * 30, p["wf"] * 30
+    Dm = H * D
+    pre = [torch.from_numpy(x @ p[w]).view(B, S, H, D) for w in ("wz", "wi", "wf", "wo")]
+    r = torch.from_numpy(np.concatenate([p[w] for w in ("rz", "ri", "rf", "ro")], axis=-1))
+    args = [*pre, r, *(torch.from_numpy(a) for a in state)]
+    got = chunkwise_slstm_fwd(*args)
+    want = ref.ref_slstm_fwd_saved(*args)
+    for a, b in zip((*got[:5], *got[5]), (*want[:5], *want[5]), strict=True):
+        _rel_close(a, b)
+    y_j, st_j = JS.slstm_block(jnp.asarray(x), {k: jnp.asarray(a) for k, a in p.items()},
+                               num_heads=H, state=tuple(jnp.asarray(a) for a in state))
+    _rel_close(got[0].reshape(B, S, Dm) @ torch.from_numpy(p["wout"]), y_j)
+    for a, b in zip(got[1:5], st_j, strict=True):
+        _rel_close(a, b)
