@@ -28,8 +28,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    512), in bf16 and float32, and the decode step from the 512-step state;
    each timed by graph in bf16 beside its plain version, its bound and its
    chain floor (S x its step latency, the kernel's own and not a floor of
-   the card; the mLSTM forward's steps are chunks of 32, its "step" a
-   token's share of one); then SSD's chunk loop (the third
+   the card; the mLSTM kernels' steps are chunks of 32, their "step" a
+   token's share of one), each backward's two launches also timed apart
+   (the graph replayed under ``torch.profiler``); then SSD's chunk loop (the third
    ``lax.scan`` site) and decode step: the forward kernel (with the states
    it saves) and backward kernels against ``ref.py``'s plain forward and
    backward at hymba-1.5b's width (25 heads, P = 64, N = 16, chunks of
@@ -194,10 +195,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def graph_ms(fn, iters: int, reps: int = 5) -> float:
-    """Mean device time of one call of ``fn``: ``iters`` calls captured in a
-    CUDA graph (after a warm-up call outside it), replayed ``reps`` times
-    between CUDA events. Measures the device, not the host's launch loop."""
+def _graph(fn, iters: int):
+    """``iters`` calls of ``fn`` captured in a CUDA graph after a warm-up
+    call outside it, replayed once."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -209,6 +209,14 @@ def graph_ms(fn, iters: int, reps: int = 5) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def graph_ms(fn, iters: int, reps: int = 5) -> float:
+    """Mean device time of one call of ``fn``: ``iters`` calls captured in a
+    CUDA graph (after a warm-up call outside it), replayed ``reps`` times
+    between CUDA events. Measures the device, not the host's launch loop."""
+    graph = _graph(fn, iters)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -217,6 +225,30 @@ def graph_ms(fn, iters: int, reps: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (iters * reps)
+
+
+def graph_split_ms(fn, iters: int, reps: int = 5) -> dict:
+    """The device time of each kernel a call of ``fn`` launches: the graph of
+    ``graph_ms`` replayed ``reps`` times under ``torch.profiler``, which
+    sees the graph's kernels; {kernel: ms a call}, empty where the profiler
+    saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graph = _graph(fn, iters)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    return {_demangled_kernel(e.key): _self_device_us(e) / 1e3 / (iters * reps)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and _self_device_us(e) > 0}
+
+
+def _demangled_kernel(key: str) -> str:
+    """A profiler's kernel name cut to the identifier ending in ``_kernel``
+    and its template arguments."""
+    m = re.search(r"(\w+_kernel)(<[^()]*>)?", key)
+    return m.group(1) + (m.group(2) or "") if m else key[:60]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -855,7 +887,9 @@ def check_xlstm(xs, seed: int) -> list:
     512 in bf16 (the plain versions eagerly, two calls), with a bound, and a
     chain floor: S x the step latency, (t(S) - t(1)) / (S - 1), the time a
     call of this design spends in its dependent steps (the chunkwise mLSTM
-    forward's are S / 32 chunks: its "step" is a token's share of one)."""
+    kernels' are S / 32 chunks: their "step" is a token's share of one);
+    each backward's two launches (the reverse loop, then the reduction or
+    dr product) also apart, by ``graph_split_ms``."""
     from repro_torch.kernels import ref
 
     rows, worst = [], dict.fromkeys(xs.KERNELS, 0.0)
@@ -944,6 +978,11 @@ def check_xlstm(xs, seed: int) -> list:
             f"chain_floor_ms={S * step_ms:.5f} plain_ms={plain_ms:.5f} bound_ms={b_ms:.7f} "
             f"({b_by}: {flops / 1e6:.1f} MFLOP at 67 TFLOP/s f32, {moved[name] / 1e6:.2f} MB)"
             f" launches_per_call={xs.LAUNCHES_PER_CALL[name]}")
+        if name.endswith("_bwd"):  # where a backward's two launches spend the call
+            split = graph_split_ms(kernel, 3)
+            log(f"[kernels] {name} B={B} H={H} S={S} d={d} bf16 by launch (graph, profiler): "
+                + (", ".join(f"{k} {v:.5f} ms" for k, v in split.items()) or "not measured")
+                + f"; the whole call {ms:.5f} ms")
         rows.append(dict(name=name, of="lax.scan",
                          source=f"src/repro_torch/kernels/csrc/{name[:5]}_scan.cu",
                          replaces=XL_SITE[name[:5]], max_abs_err=worst[name], ms=ms,

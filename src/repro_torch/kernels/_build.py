@@ -41,7 +41,7 @@ SIGNATURES = {
     "rt_flash_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
     "rt_cmp_claim": [_P] * 11 + [_I] * 3 + [_P],
     "rt_mlstm_fwd": [_P] * 17 + [_I] * 5 + [_P],
-    "rt_mlstm_bwd": [_P] * 29 + [_I] * 6 + [_P],
+    "rt_mlstm_bwd": [_P] * 28 + [_I] * 5 + [_P],
     "rt_slstm_fwd": [_P] * 22 + [_I] * 5 + [_P],
     "rt_slstm_bwd": [_P] * 24 + [_I] * 5 + [_P],
     "rt_ssd_fwd": [_P] * 9 + [_I] * 7 + [_P],

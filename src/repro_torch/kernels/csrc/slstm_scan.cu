@@ -20,13 +20,18 @@
 // before slstm_fwd_kernel) holds r in the registers of a cluster's CTAs
 // and pays one cluster barrier a step.
 // Backward: the forward saves each step's c, n, h, z, o, log_i, the forget
-// preactivation's mean and m. The same clusters step back carrying dh,
-// dc, dn and dm: a step's per-head sums go round the cluster through
-// distributed shared memory, each CTA's four gradients of its elements (drec_t, also saved)
-// meet its own columns of r, and the partial dh_{t-1} = r drec_t of its
-// columns goes to the CTA that owns each element, which sums the kNC
-// shares in order. A second launch forms dr = sum over rows and steps of
-// h_{t-1} (x) drec_t as a tiled product in a fixed order. No atomics.
+// preactivation's mean and m; the backward's chain of S steps back (dh_{t-1}
+// = r^T of the step's preactivation gradient) is bound the same way, by a
+// step's latency. It is the forward's design transposed (before
+// slstm_bwd_kernel): the same clusters, each CTA holding the rows of r's z
+// and o blocks for its elements in registers. The i and f columns of a
+// step's preactivation gradient are per-head scalars broadcast over hd, so
+// r's i and f blocks enter dh_{t-1} only through wi, wf (those blocks summed
+// over their columns): the matvec runs over the z and o columns alone, and
+// a step exchanges its z and o gradients and two partial sums once through
+// distributed shared memory, one cluster barrier a step. A second launch
+// forms dr in a fixed order: the z and o blocks a tiled product, the i and f
+// blocks one sum each. No atomics.
 #include <cooperative_groups.h>
 
 #include "xlstm.cuh"
@@ -40,8 +45,7 @@ using rt::Gates;
 constexpr int kRows = 4;         // batch rows a cluster takes at most
 constexpr int kNC = 8;           // CTAs a cluster: each E = ceil(hd / 8) elements
 constexpr int kMaxHd = 256;      // E <= 32: a warp a row in the element role
-constexpr int kMaxThreads = kRows * 4 * (kMaxHd / kNC);
-constexpr int kTile = 64, kTileK = 16, kDrThreads = 256;  // dr's product
+constexpr int kTile = 64, kTileK = 64, kDrThreads = 256;  // dr's product
 
 struct Fwd {
   const void *zx, *ix, *fx, *ox;
@@ -57,47 +61,10 @@ struct Bwd {
   const void* dhs;
   const float *dc, *dn, *dh, *dm;
   void *dzx, *dix, *dfx, *dox;
-  float *dr, *dc0, *dn0, *dh0, *dm0, *drec;
+  float *dr, *dc0, *dn0, *dh0, *dm0;
+  float* drec;  // [H, B, S, 2 hd + 2]: a step's gz, go, then gi, gf (dr's inputs)
   int B, S, H, hd;
 };
-
-// A backward CTA's shape: E elements, CW = 4 E columns of r (row stride CW +
-// 1 in shared memory: read by rows without bank conflicts).
-struct Shape {
-  int E, CW, ld;
-};
-
-__host__ __device__ inline Shape shape(int hd) {
-  const int E = (hd + kNC - 1) / kNC;
-  return {E, 4 * E, 4 * E + 1};
-}
-
-// The thread's element role: warp r of the CTA is batch row b0 + r, lane
-// el its element c E + el.
-struct Role {
-  int r, el, e, b;
-  bool on;
-};
-
-__device__ __forceinline__ Role role(int c, int E, int hd, int B) {
-  Role x;
-  x.r = threadIdx.x >> 5;
-  x.el = threadIdx.x & 31;
-  x.e = c * E + x.el;
-  x.b = blockIdx.y * kRows + x.r;
-  x.on = x.r < kRows && x.el < E && x.e < hd && x.b < B;
-  return x;
-}
-
-// This CTA's columns of r's head into shared memory: Rs[dd][g E + el] =
-// r[h, dd, g hd + c E + el] (0 past hd).
-__device__ void load_r(float* Rs, const float* R, int c, int hd, Shape sh) {
-  const int G = 4 * hd;
-  for (int i = threadIdx.x; i < hd * sh.CW; i += blockDim.x) {
-    const int dd = i / sh.CW, j = i % sh.CW, g = j / sh.E, e = c * sh.E + j % sh.E;
-    Rs[dd * sh.ld + j] = e < hd ? R[static_cast<long>(dd) * G + g * hd + e] : 0.f;
-  }
-}
 
 // The forward: a cluster of kNC CTAs a (head, up to kRows batch rows), the
 // rows a cluster takes 2 or kRows (B up to 2, or more). CTA c owns
@@ -324,163 +291,259 @@ __global__ void __cluster_dims__(kNC, 1, 1) __launch_bounds__(HRow<NI>::kThreads
   }
 }
 
-template <typename T>
-__global__ void __cluster_dims__(kNC, 1, 1) __launch_bounds__(kMaxThreads)
+// The backward: the forward's clusters (kNC CTAs a head and G batch rows),
+// stepping back from S - 1 carrying dh, dc, dn and dm. CTA c owns elements
+// [c E, (c + 1) E) as inputs of the matvec: the rows dd of r's z and o
+// blocks, 2 hd columns each, in registers (matvec thread (row j, part kp)
+// holds rz[dd, e] and ro[dd, e] for the NI / 2 elements e of its part, dd =
+// c E + j): dh_{t-1}[dd] = sum_e rz[dd, e] gz_e + ro[dd, e] go_e + gi wi[dd]
+// + gf wf[dd], the i and f blocks reduced to wi, wf (formed at the start,
+// each CTA its own rows). A step: gate warp r (lane el: element c E + el of
+// batch row b0 + r) forms the element's dc, dn, gz, go from the saves and
+// dh_t, stores (gz, go) into every CTA's K buffer and the row's partial sums
+// of pdi = dc z + dn and pdf = dc c_{t-1} + dn n_{t-1} into every CTA's
+// partial buffer (distributed shared memory, both double-buffered); one
+// cluster barrier, arrive before the step's output stores and the next
+// step's loads, wait after them; then the matvec warps dot their rows with
+// (gz, go) (fixed trip counts, kKB parts summed by shuffles) while the gate
+// warps sum the kNC partials in the same order in every CTA (the same bits)
+// and run the stabiliser step; one __syncthreads; each gate lane adds gi wi
+// + gf wf to its element's matvec sum: dh_{t-1}, local, no second exchange.
+constexpr int kKB = 16;  // lanes a row of the backward's matvec: 2 hd split in kKB parts
+// The K vector of a step: (gz_e, go_e) of the head's hd elements side by
+// side, 2 hd long, in kKB parts of NI floats (NI / 2 elements each; NI = 24
+// up to hd = 192, else 32), each padded to NI + 4 and zero past hd, as are
+// r's rows in a thread's registers: element e's pair at (e / (NI / 2)) (NI +
+// 4) + 2 (e % (NI / 2)).
+template <int NI>
+struct GRow {
+  static constexpr int kHalf = NI / 2, kBlk = NI + 4, kLen = kKB * kBlk;
+  static constexpr int kThreads = kKB * (kKB * kHalf / kNC) + 32 * kRows;  // at most
+  __device__ static int at(int e) { return e / kHalf * kBlk + 2 * (e % kHalf); }
+};
+
+template <typename T, int G, int NI>
+__global__ void __cluster_dims__(kNC, 1, 1) __launch_bounds__(GRow<NI>::kThreads)
     slstm_bwd_kernel(Bwd p) {
+  using Row = GRow<NI>;
   cg::cluster_group cluster = cg::this_cluster();
   const int c = static_cast<int>(cluster.block_rank());
-  const int hh = blockIdx.z, hd = p.hd, G = 4 * hd, S = p.S, H = p.H, tid = threadIdx.x;
-  const Shape sh = shape(hd);
-  const Role x = role(c, sh.E, hd, p.B);
-  extern __shared__ float smem[];
-  float* Rs = smem;                              // [hd][ld]
-  float* drl = Rs + hd * sh.ld;                  // [kRows][CW], drec of this CTA's columns
-  float* dhp = drl + kRows * sh.CW;              // [kNC][kRows][E], dh_{t-1}'s shares
-  float* part = dhp + kNC * kRows * sh.E;        // [kNC][kRows][2]
+  const int hh = blockIdx.z, hd = p.hd, S = p.S, H = p.H, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  const int E = (hd + kNC - 1) / kNC, NR = 2 * hd + 2;  // NR: drec's row
+  const int mw = (E * kKB + 31) / 32;  // matvec warps; the gate warps follow
+  const int b0 = blockIdx.y * G, rows = min(G, p.B - b0);
+  extern __shared__ __align__(16) float bsm[];
+  float* kbuf = bsm;                              // [2][G][Row::kLen]: (gz, go), double-buffered
+  float2* part = reinterpret_cast<float2*>(kbuf + 2 * G * Row::kLen);  // [2][kNC][G]
+  float* mvs = reinterpret_cast<float*>(part + 2 * kNC * G);  // [G][32]: the rows' matvec sums
+  float* wsum = mvs + G * 32;                     // [2][32]: wi, wf of this CTA's rows
+  const float* R = p.r + static_cast<long>(hh) * hd * 4 * hd;
 
-  load_r(Rs, p.r + static_cast<long>(hh) * hd * G, c, hd, sh);
-  for (int i = tid; i < kRows * sh.CW; i += blockDim.x) drl[i] = 0.f;
+  // matvec role: row j (element dd = c E + j), part kp: elements kp NI / 2 ..
+  const int j = tid / kKB, kp = tid % kKB, dd = c * E + j;
+  const bool mv = warp < mw && j < E && dd < hd;
+  float rr[NI];
+#pragma unroll
+  for (int i = 0; i < Row::kHalf; ++i) {
+    const int e = kp * Row::kHalf + i;
+    const bool in = mv && e < hd;
+    rr[2 * i] = in ? R[static_cast<long>(dd) * 4 * hd + e] : 0.f;
+    rr[2 * i + 1] = in ? R[static_cast<long>(dd) * 4 * hd + 3 * hd + e] : 0.f;
+  }
+  for (int i = tid; i < 2 * G * Row::kLen + 4 * kNC * G + G * 32 + 64; i += blockDim.x)
+    bsm[i] = 0.f;
+  __syncthreads();
+  // wi, wf of this CTA's rows: row dd of r_i or r_f summed over its columns
+  for (int u = warp; u < 2 * E; u += nw) {
+    const int g = u / E, e = c * E + u % E;
+    if (e >= hd) continue;
+    const float* row = R + static_cast<long>(e) * 4 * hd + (1 + g) * hd;
+    float a = 0.f;
+    for (int i = lane; i < hd; i += 32) a += row[i];
+    a = rt::warp_sum(a);
+    if (lane == 0) wsum[g * 32 + u % E] = a;
+  }
+  __syncthreads();
+
+  // gate role: warp mw + r is batch row b0 + r, lane el its element c E + el
+  const int er = warp - mw, el = lane, e = c * E + el;
+  const bool gw = er >= 0 && er < rows, on = gw && el < E && e < hd;
+  const long si = (static_cast<long>(b0 + er) * H + hh) * hd + e;  // state [B,H,hd]
   float dc = 0.f, dn = 0.f, dm = 0.f, dhc = 0.f;
-  const int rows = min(kRows, p.B - static_cast<int>(blockIdx.y) * kRows);
-  const long si = (static_cast<long>(x.b) * H + hh) * hd + x.e;
-  if (x.on) {
+  const float wi = gw ? wsum[el] : 0.f, wf = gw ? wsum[32 + el] : 0.f;
+  if (gw) dm = p.dm[static_cast<long>(b0 + er) * H + hh];
+  if (on) {
     dc = p.dc[si];
     dn = p.dn[si];
     dhc = p.dh[si];
-    dm = p.dm[static_cast<long>(x.b) * H + hh];
   }
-  cluster.sync();
-  // a step's saved values, loaded a step ahead: c_t, n_t, c_{t-1}, n_{t-1},
-  // z, o, log_i, the forget mean, m_{t-1}, m_t and the output's gradient
-  auto load = [&](float* in, int t) {
-    if (!x.on || t < 0) return;
-    const long xi = ((static_cast<long>(x.b) * S + t) * H + hh) * hd + x.e;
-    const long a = ((static_cast<long>(x.b) * (S + 1) + t) * H + hh) * hd + x.e;  // slot t
-    const long a1 = a + static_cast<long>(H) * hd;                                 // t + 1
-    const long gi = (static_cast<long>(x.b) * S + t) * H + hh;
-    const long mi = (static_cast<long>(x.b) * (S + 1) + t) * H + hh;
-    in[0] = p.c_all[a1];
-    in[1] = p.n_all[a1];
-    in[2] = p.c_all[a];
-    in[3] = p.n_all[a];
-    in[4] = p.z_all[xi];
-    in[5] = p.o_all[xi];
-    in[6] = p.li_all[gi];
-    in[7] = p.pf_all[gi];
-    in[8] = p.m_all[mi];
-    in[9] = p.m_all[mi + H];
-    in[10] = rt::to_f(static_cast<const T*>(p.dhs)[xi]);
-  };
+  // a step's saved values, loaded in the previous step's barrier slack (no
+  // register of a load is read before the next step): c_t, n_t, c_{t-1},
+  // n_{t-1}, z, o and the output's gradient of the element; log_i, the
+  // forget mean, m_{t-1}, m_t of the row
   float nxt[11] = {};
-  load(nxt, S - 1);
+  auto load = [&](int t) {
+    const long gi = (static_cast<long>(b0 + er) * S + t) * H + hh;
+    const long mi = (static_cast<long>(b0 + er) * (S + 1) + t) * H + hh;
+    nxt[6] = p.li_all[gi];
+    nxt[7] = p.pf_all[gi];
+    nxt[8] = p.m_all[mi];
+    nxt[9] = p.m_all[mi + H];
+    if (!on) return;
+    const long xi = gi * hd + e;                                // [B,S,H,hd]
+    const long a = mi * hd + e, a1 = a + static_cast<long>(H) * hd;  // slots t, t + 1
+    nxt[0] = p.c_all[a1];
+    nxt[1] = p.n_all[a1];
+    nxt[2] = p.c_all[a];
+    nxt[3] = p.n_all[a];
+    nxt[4] = p.z_all[xi];
+    nxt[5] = p.o_all[xi];
+    nxt[10] = rt::to_f(static_cast<const T*>(p.dhs)[xi]);
+  };
+  if (gw && S > 0) load(S - 1);
+  cluster.sync();  // every CTA's shared memory zeroed before the peers write into it
   for (int t = S - 1; t >= 0; --t) {
-    const long xi = ((static_cast<long>(x.b) * S + t) * H + hh) * hd + x.e;
+    float* kb = kbuf + (t & 1) * G * Row::kLen;
+    float2* pb = part + (t & 1) * kNC * G;
     float cur[11];
 #pragma unroll
     for (int i = 0; i < 11; ++i) cur[i] = nxt[i];
-    load(nxt, t - 1);
-    float pdi = 0.f, pdf = 0.f, dct = 0.f, dnt = 0.f, do_ = 0.f;
     const float z = cur[4], o = cur[5], li = cur[6], pf = cur[7], mp = cur[8], mt = cur[9];
-    if (x.on) {
-      const float ct = cur[0], nt = cur[1], cp = cur[2], np = cur[3];
-      const float dht = dhc + cur[10];
-      const float nc = fmaxf(nt, 1.f), gh = dht / nc;
-      do_ = gh * ct;
-      dct = dc + gh * o;
-      dnt = dn + (nt >= 1.f ? -dht * (o * ct) / (nc * nc) : 0.f);
-      pdi = dct * z + dnt;
-      pdf = dct * cp + dnt * np;
-    }
-    if (x.r < kRows) {
+    const float lf = rt::log_sigmoid(pf);
+    const long xi = ((static_cast<long>(b0 + er) * S + t) * H + hh) * hd + e;
+    const long ri = ((static_cast<long>(hh) * p.B + b0 + er) * S + t) * NR;  // drec's row
+    Gates g{};
+    float gz = 0.f, go = 0.f, dct = 0.f, dnt = 0.f;
+    if (gw) {  // the element's gradients and the row's partial sums, out to every CTA
+      g = rt::gates_at(li, lf, mp, mt);
+      float pdi = 0.f, pdf = 0.f;
+      if (on) {
+        const float ct = cur[0], nt = cur[1], dht = dhc + cur[10];
+        const float nc = fmaxf(nt, 1.f), gh = dht / nc;
+        dct = dc + gh * o;
+        dnt = dn + (nt >= 1.f ? -dht * (o * ct) / (nc * nc) : 0.f);
+        pdi = dct * z + dnt;
+        pdf = dct * cur[2] + dnt * cur[3];
+        gz = dct * g.i * (1.f - z * z);
+        go = gh * ct * (1.f - o) * o;
+        const int at = er * Row::kLen + Row::at(e);
+        for (int q = 0; q < kNC; ++q)
+          *reinterpret_cast<float2*>(cluster.map_shared_rank(kb, q) + at) = make_float2(gz, go);
+      }
       pdi = rt::warp_sum(pdi);
       pdf = rt::warp_sum(pdf);
-      if (x.el < kNC) {
-        float* dst = cluster.map_shared_rank(part, x.el) + (c * kRows + x.r) * 2;
-        dst[0] = pdi;
-        dst[1] = pdf;
-      }
+      if (lane < kNC) cluster.map_shared_rank(pb, lane)[c * G + er] = make_float2(pdi, pdf);
     }
-    cluster.sync();
-    if (x.on) {
+    cluster_arrive();  // the step's K and partials are out
+    if (gw) {
+      if (on) {
+        static_cast<T*>(p.dzx)[xi] = rt::from_f<T>(gz);
+        static_cast<T*>(p.dox)[xi] = rt::from_f<T>(go);
+        p.drec[ri + e] = gz;
+        p.drec[ri + hd + e] = go;
+        dc = g.f * dct;
+        dn = g.f * dnt;
+      }
+      if (t > 0) load(t - 1);
+    }
+    cluster_wait();  // every CTA's (gz, go) in kb, its partials in pb
+    float gi = 0.f, gf = 0.f;
+    if (warp < mw) {
+      float acc[G] = {};
+#pragma unroll
+      for (int i = 0; i < NI; i += 4)
+#pragma unroll
+        for (int r = 0; r < G; ++r) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(kb + r * Row::kLen + kp * Row::kBlk + i);
+          acc[r] = fmaf(x.x, rr[i], acc[r]);
+          acc[r] = fmaf(x.y, rr[i + 1], acc[r]);
+          acc[r] = fmaf(x.z, rr[i + 2], acc[r]);
+          acc[r] = fmaf(x.w, rr[i + 3], acc[r]);
+        }
+#pragma unroll
+      for (int r = 0; r < G; ++r) {
+        float a = acc[r];
+        a += __shfl_xor_sync(kFull, a, 1);
+        a += __shfl_xor_sync(kFull, a, 2);
+        a += __shfl_xor_sync(kFull, a, 4);
+        a += __shfl_xor_sync(kFull, a, 8);
+        if (mv && kp == 0) mvs[r * 32 + j] = a;
+      }
+    } else if (gw) {  // the row's di, df (the same order in every CTA) and its stabiliser step
       float di = 0.f, df = 0.f;
+#pragma unroll
       for (int q = 0; q < kNC; ++q) {
-        di += part[(q * kRows + x.r) * 2];
-        df += part[(q * kRows + x.r) * 2 + 1];
+        const float2 v = pb[q * G + er];
+        di += v.x;
+        df += v.y;
       }
-      const float lf = rt::log_sigmoid(pf);
-      const Gates g = rt::gates_at(li, lf, mp, mt);
       float dli, dlf;
-      dm = rt::gates_bwd(li, lf, mp, mt, di, df, dm, dli, dlf);
-      const float dpf = dlf * rt::log_sigmoid_grad(pf);
-      const float gz = dct * g.i * (1.f - z * z), gi_ = dli / hd, gf = dpf / hd;
-      const float go = do_ * (1.f - o) * o;
-      static_cast<T*>(p.dzx)[xi] = rt::from_f<T>(gz);
-      static_cast<T*>(p.dix)[xi] = rt::from_f<T>(gi_);
-      static_cast<T*>(p.dfx)[xi] = rt::from_f<T>(gf);
-      static_cast<T*>(p.dox)[xi] = rt::from_f<T>(go);
-      float* dr = p.drec + ((static_cast<long>(x.b) * S + t) * H + hh) * G + x.e;
-      float* dl = drl + x.r * sh.CW + x.el;
-      dr[0] = dl[0] = gz;
-      dr[hd] = dl[sh.E] = gi_;
-      dr[2 * hd] = dl[2 * sh.E] = gf;
-      dr[3 * hd] = dl[3 * sh.E] = go;
-      dc = g.f * dct;
-      dn = g.f * dnt;
+      dm = rt::gates_bwd_scaled(li, lf, mp, di * g.i, df * g.f, dm, dli, dlf);
+      gi = dli / hd;
+      gf = dlf * rt::log_sigmoid_grad(pf) / hd;
+      if (on) {
+        static_cast<T*>(p.dix)[xi] = rt::from_f<T>(gi);
+        static_cast<T*>(p.dfx)[xi] = rt::from_f<T>(gf);
+      }
+      if (c == 0 && lane == 0) {
+        p.drec[ri + 2 * hd] = gi;
+        p.drec[ri + 2 * hd + 1] = gf;
+      }
     }
-    __syncthreads();
-    // this CTA's share of dh_{t-1} = r drec_t, to the CTA owning each element
-    for (int i = tid; i < rows * hd; i += blockDim.x) {
-      const int r = i / hd, dd = i % hd;
-      const float* rs = Rs + dd * sh.ld;
-      const float* dl = drl + r * sh.CW;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < sh.CW; ++j) acc += rs[j] * dl[j];
-      cluster.map_shared_rank(dhp, dd / sh.E)[(c * kRows + r) * sh.E + dd % sh.E] = acc;
-    }
-    cluster.sync();
-    if (x.on) {
-      dhc = 0.f;
-      for (int q = 0; q < kNC; ++q) dhc += dhp[(q * kRows + x.r) * sh.E + x.el];
-    }
+    __syncthreads();  // the matvec sums in mvs
+    if (on) dhc = fmaf(gf, wf, fmaf(gi, wi, mvs[er * 32 + el]));
   }
-  if (x.on) {
+  if (on) {
     p.dc0[si] = dc;
     p.dn0[si] = dn;
     p.dh0[si] = dhc;
-    if (x.e == 0) p.dm0[static_cast<long>(x.b) * H + hh] = dm;
+    if (e == 0) p.dm0[static_cast<long>(b0 + er) * H + hh] = dm;
   }
-  cluster.sync();  // no CTA leaves while another may still read its shares
 }
 
-// dr[h] = sum over (b, t) of h_{t-1}[b, h] (x) drec[b, t, h]: a [hd, B*S] x
-// [B*S, 4hd] product a head, 64 x 64 tiles, each thread 4 x 4 outputs, the
-// sum over (b, t) in order.
+// dr[h] from drec's rows (gz | go | gi | gf, 2 hd + 2 columns): a [hd, B S]
+// x [B S, 2 hd + 2] product a head, 64 x 64 tiles, each thread 4 x 4
+// outputs, the sum over (b, t) in order, the next kTileK rows of both
+// operands loaded into registers while this tile's are summed. Column n <
+// hd is dr's z column n, hd <= n < 2 hd its o column n + 2 hd; the last two
+// are sum h_{t-1} gi and sum h_{t-1} gf, each written across its hd columns
+// of dr's i and f blocks.
 __global__ void __launch_bounds__(kDrThreads) slstm_dr_kernel(Bwd p) {
-  const int hh = blockIdx.z, hd = p.hd, G = 4 * hd, S = p.S, H = p.H;
+  constexpr int kPer = kTileK * kTile / kDrThreads;  // elements of a tile a thread loads
+  const int hh = blockIdx.z, hd = p.hd, NR = 2 * hd + 2, S = p.S, H = p.H;
   const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile, tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const long KT = static_cast<long>(p.B) * S;
-  __shared__ float As[kTileK][kTile + 4], Bs[kTileK][kTile + 4];
-  float acc[4][4] = {};
-  for (long kb = 0; kb < KT; kb += kTileK) {
-    for (int i = tid; i < kTileK * kTile; i += kDrThreads) {
-      const int kk = i / kTile, mm = i % kTile;
-      const long kg = kb + kk;
-      const long b = kg / S, t = kg % S;
-      As[kk][mm] = kg < KT && m0 + mm < hd
-                       ? p.h_all[((b * (S + 1) + t) * H + hh) * hd + m0 + mm] : 0.f;
-      Bs[kk][mm] = kg < KT && n0 + mm < G ? p.drec[((b * S + t) * H + hh) * G + n0 + mm] : 0.f;
+  const int KT = p.B * S;
+  __shared__ __align__(16) float As[kTileK][kTile + 4], Bs[kTileK][kTile + 4];
+  __shared__ float bc[kTile][2];
+  float acc[4][4] = {}, ra[kPer], rb[kPer];
+  auto fetch = [&](int kb) {  // (row kg of B S) = (b, t): h_{t-1} at slot b (S + 1) + t = kg + b
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = tid + u * kDrThreads, kk = i / kTile, mm = i % kTile, kg = kb + kk;
+      const long hrow = static_cast<long>(kg + kg / S) * H + hh;
+      const long drow = static_cast<long>(hh) * KT + kg;
+      ra[u] = kg < KT && m0 + mm < hd ? p.h_all[hrow * hd + m0 + mm] : 0.f;
+      rb[u] = kg < KT && n0 + mm < NR ? p.drec[drow * NR + n0 + mm] : 0.f;
+    }
+  };
+  if (KT > 0) fetch(0);
+  for (int kb = 0; kb < KT; kb += kTileK) {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = tid + u * kDrThreads;
+      As[i / kTile][i % kTile] = ra[u];
+      Bs[i / kTile][i % kTile] = rb[u];
     }
     __syncthreads();
+    if (kb + kTileK < KT) fetch(kb + kTileK);
 #pragma unroll
     for (int kk = 0; kk < kTileK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = As[kk][ty * 4 + i];
-        bv[i] = Bs[kk][tx * 4 + i];
-      }
+      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -488,39 +551,26 @@ __global__ void __launch_bounds__(kDrThreads) slstm_dr_kernel(Bwd p) {
     }
     __syncthreads();
   }
+  float* dr = p.dr + static_cast<long>(hh) * hd * 4 * hd;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int mm = m0 + ty * 4 + i, nn = n0 + tx * 4 + j;
-      if (mm < hd && nn < G) p.dr[(static_cast<long>(hh) * hd + mm) * G + nn] = acc[i][j];
+      if (mm >= hd || nn >= NR) continue;
+      if (nn < 2 * hd)
+        dr[static_cast<long>(mm) * 4 * hd + (nn < hd ? nn : nn + 2 * hd)] = acc[i][j];
+      else
+        bc[ty * 4 + i][nn - 2 * hd] = acc[i][j];
     }
+  if (n0 + kTile <= 2 * hd) return;  // (the same for the whole CTA) no i or f sum here
+  __syncthreads();
+  const int rows = min(kTile, hd - m0);
+  for (int i = tid; i < rows * 2 * hd; i += kDrThreads) {
+    const int r = i / (2 * hd), col = i % (2 * hd);
+    dr[static_cast<long>(m0 + r) * 4 * hd + hd + col] = bc[r][col / hd];
+  }
 }
-
-int threads_for(int hd) {
-  const int n = kRows * shape(hd).CW;
-  return ((n > kRows * 32 ? n : kRows * 32) + 31) / 32 * 32;
-}
-
-size_t bwd_smem(int hd) {
-  const Shape sh = shape(hd);
-  return sizeof(float) * (hd * sh.ld + kRows * sh.CW + kNC * kRows * sh.E + kNC * kRows * 2);
-}
-
-// Lets ``kernel`` take ``bytes`` of dynamic shared memory. Raised at most
-// to the largest size yet (a call at the same or a smaller head width sets
-// nothing), so no call under a CUDA graph capture sets it anew once a
-// first call of that width ran outside.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
-  if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err == cudaSuccess) allowed = bytes;
-  return err;
-}
-
-size_t bwd_allowed[2] = {0, 0};  // by dtype code
 
 }  // namespace
 
@@ -558,7 +608,8 @@ extern "C" int rt_slstm_fwd(const void* zx, const void* ix, const void* fx, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-// Both launches of the backward; drec [B, S, H, 4hd] float32 is the
+
+// Both launches of the backward; drec [H, B, S, 2hd + 2] float32 is the
 // wrapper's scratch.
 extern "C" int rt_slstm_bwd(const void* r, const void* h_all, const void* c_all,
                             const void* n_all, const void* z_all, const void* o_all,
@@ -573,20 +624,26 @@ extern "C" int rt_slstm_bwd(const void* r, const void* h_all, const void* c_all,
   Bwd p{f(r), f(h_all), f(c_all), f(n_all), f(z_all), f(o_all), f(li_all), f(pf_all),
         f(m_all), dhs, f(dc), f(dn), f(dh), f(dm), dzx, dix, dfx, dox, w(dr), w(dc0),
         w(dn0), w(dh0), w(dm0), w(drec), B, S, H, hd};
+  const int G = B <= 2 ? 2 : kRows, E = (hd + kNC - 1) / kNC;
+  const dim3 grid(kNC, (B + G - 1) / G, H);
+  const int threads = (E * kKB + 31) / 32 * 32 + 32 * G;
   auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(kNC, (B + kRows - 1) / kRows, H);
-  const size_t bytes = bwd_smem(hd);
-  cudaError_t err;
-  if (dtype == rt::kBF16) {
-    err = allow_smem(slstm_bwd_kernel<__nv_bfloat16>, bytes, bwd_allowed[1]);
-    if (err == cudaSuccess)
-      slstm_bwd_kernel<__nv_bfloat16><<<grid, threads_for(hd), bytes, st>>>(p);
-  } else {
-    err = allow_smem(slstm_bwd_kernel<float>, bytes, bwd_allowed[0]);
-    if (err == cudaSuccess) slstm_bwd_kernel<float><<<grid, threads_for(hd), bytes, st>>>(p);
-  }
+  auto launch = [&](auto kernel, int row_len) {
+    const size_t bytes = sizeof(float) * (2 * G * row_len + 4 * kNC * G + G * 32 + 64);
+    kernel<<<grid, threads, bytes, st>>>(p);
+  };
+  const bool bf = dtype == rt::kBF16, narrow = hd <= kKB * 12;
+#define RT_SLSTM_BWD(TT, GG)                                                    \
+  (narrow ? launch(slstm_bwd_kernel<TT, GG, 24>, GRow<24>::kLen)                \
+          : launch(slstm_bwd_kernel<TT, GG, 32>, GRow<32>::kLen))
+  if (G == 2)
+    bf ? RT_SLSTM_BWD(__nv_bfloat16, 2) : RT_SLSTM_BWD(float, 2);
+  else
+    bf ? RT_SLSTM_BWD(__nv_bfloat16, 4) : RT_SLSTM_BWD(float, 4);
+#undef RT_SLSTM_BWD
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 dr_grid((4 * hd + kTile - 1) / kTile, (hd + kTile - 1) / kTile, H);
+  const dim3 dr_grid((2 * hd + 2 + kTile - 1) / kTile, (hd + kTile - 1) / kTile, H);
   slstm_dr_kernel<<<dr_grid, kDrThreads, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,22 +30,24 @@ __device__ __forceinline__ float tie(float a, float b) {
   return a > b ? 1.f : (a == b ? 0.5f : 0.f);
 }
 
-// One step of the stabiliser chain backwards. In: the gradients of the
-// step's i_s and f_s (di, df) and of its m_new (dm, every other use of it
-// already summed in). Out: the gradients of log_i and log_f, and the
-// return value, that of the previous m.
-__device__ __forceinline__ float gates_bwd(float li, float lf, float m, float mn, float di,
-                                           float df, float dm, float& dli, float& dlf) {
+// One step of the stabiliser chain backwards, from the products of the
+// gradients of the step's i_s and f_s with the gates, di i_s and df f_s
+// (dii, dff: the chunkwise mLSTM backward forms these, never dividing by a
+// gate; the sLSTM's multiplies by gates it formed a step ahead), and the
+// gradient of its m_new (dm, every other use of it already summed in). Out:
+// the gradients of log_i and log_f, and the return value, that of the
+// previous m (ref.py's _gates_bwd, from di and df).
+__device__ __forceinline__ float gates_bwd_scaled(float li, float lf, float m, float dii,
+                                                  float dff, float dm, float& dli, float& dlf) {
   const float a = lf + m;
   const float mt = fmaxf(a, li);
-  const Gates g = gates_at(li, lf, m, mn);
-  const float dff = isinf(m) ? 0.f : df * g.f;
-  dm = dm - di * g.i - dff;
+  dff = isinf(m) ? 0.f : dff;
+  dm = dm - dii - dff;
   const bool first = isinf(mt);
   const float dmt = first ? 0.f : dm;
   const float wa = tie(a, li);
   const float da = dmt * wa;
-  dli = di * g.i + (first ? dm : 0.f) + dmt * (1.f - wa);
+  dli = dii + (first ? dm : 0.f) + dmt * (1.f - wa);
   dlf = dff + da;
   return dff + da;
 }

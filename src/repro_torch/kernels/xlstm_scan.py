@@ -31,8 +31,20 @@ layouts.
 Backward: the forward saves what the backward kernels read (the mLSTM's C
 every ``kernel_chunk()`` steps and its O(S d) vectors; the sLSTM's
 per-step states and gates), and each backward is two launches: the
-reverse loop, then a fixed-order reduction (the mLSTM's sums over value
-blocks and its stabiliser chain; the sLSTM's dr product). No float
+reverse loop, then a fixed-order reduction. The mLSTM's is chunkwise like
+its forward: the chunks walked backwards, each one's weights from the
+saved m_t (no chain inside a chunk), the forward's four products reversed
+on the tensor cores (dv = P^T dNum + w_last K dC, dq = (w dP) K + c dNum
+C0^T, dk = (w dP)^T Q + w_last V dC^T, the entry dC = Q^T (c dNum) +
+c_last dC) with each CTA's slice of dC in mma accumulators, and the gate
+gradients formed as di i and df f, never divided by a gate; its second
+launch sums the value blocks' partials in order and runs the stabiliser
+chain. The sLSTM's is its forward transposed: each CTA holds the rows of
+r's z and o blocks for its elements, the i and f blocks enter through
+their column sums alone, a step's z and o gradients and partial sums go
+round the cluster once (one cluster barrier a step), and each CTA forms
+dh_{t-1} for its own elements; its second launch forms dr, the z and o
+blocks a tiled product, the i and f blocks one sum each. No float
 atomics, so a gradient is the same bits run after run.
 
 On a CPU or ``meta`` tensor the entry points run the plain loop with
@@ -63,10 +75,9 @@ CHECKPOINT_EVERY = 32
 
 
 def kernel_chunk() -> int:
-    """The mLSTM forward kernel's chunk (32: the chunk's products on whole
-    m16n8k16 tiles, and the backward's segment scratch, B H ceil(d / 16) x
-    32 x threads x 16 floats, 38 MB at xlstm-125m's 2 x 512, inside the
-    card's 50 MB of L2), the checkpoint interval of the saves it writes."""
+    """The mLSTM kernels' chunk (32: a chunk's products on whole m16n8k16
+    tiles, its in-chunk weights one warp's scan), the checkpoint interval
+    of the saves the forward writes and the chunk the backward walks."""
     return _build.lib().rt_mlstm_chunk()
 
 plain_mlstm = ref.ref_mlstm_scan
@@ -124,22 +135,18 @@ def mlstm_bwd(q, k, v, log_i, log_f, saved, dh, dC, dn, dm):
     _build.check_args("mlstm_bwd", q.device, {"dh": (dh, q.shape, q.dtype)}, q.dtype)
     dh, dC, dn, dm = _build.contiguous(dh, dC, dn, dm)
     lib = _build.lib()
-    block_v = lib.rt_mlstm_block_v()
-    nx, threads = -(-d // block_v), -(-d // 32) * 32
+    nx = -(-d // lib.rt_mlstm_block_v())
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dli, dlf = torch.empty_like(log_i), torch.empty_like(log_f)
     dC0, dn0, dm0 = torch.empty_like(dC), torch.empty_like(dn), torch.empty_like(dm)
     if B * H == 0:
         return dq, dk, dv, dli, dlf, dC0, dn0, dm0
-    every = lib.rt_mlstm_chunk()
-    scratch = (_build.empty(B * H * nx, every, threads, block_v, like=q),
-               _build.empty(nx, B, H, S, d, like=q), _build.empty(nx, B, H, S, d, like=q),
+    scratch = (_build.empty(nx, B, H, S, d, like=q), _build.empty(nx, B, H, S, d, like=q),
                _build.empty(nx, B, H, S, like=q), _build.empty(nx, B, H, S, like=q),
                _build.empty(B, H, S, like=q), _build.empty(B, H, S, like=q))
     err = lib.rt_mlstm_bwd(*(t.data_ptr() for t in (
         q, k, v, log_i, log_f, *saved, dh, dC, dn, dm, dq, dk, dv, dli, dlf, dC0, dn0, dm0,
-        *scratch)), B, H, S, d, every, _build.DTYPE_CODES[q.dtype],
-        _build.stream_ptr(q.device))
+        *scratch)), B, H, S, d, _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
     _build.check(err, "mlstm_bwd")
     launches["mlstm_bwd"] += LAUNCHES_PER_CALL["mlstm_bwd"]
     return dq, dk, dv, dli, dlf, dC0, dn0, dm0
@@ -234,11 +241,11 @@ def slstm_bwd(r, saved, dhs, dc, dn, dh, dm):
                       dhs.dtype)
     r, dhs, dc, dn, dh, dm = _build.contiguous(r, dhs, dc, dn, dh, dm)
     dx = tuple(torch.empty_like(dhs) for _ in range(4))
-    dr = torch.zeros_like(r)
+    dr = torch.empty_like(r)
     d0 = tuple(torch.empty_like(t) for t in (dc, dn, dh, dm))
     if B * H == 0:
-        return (*dx, dr, *d0)
-    drec = _build.empty(B, S, H, 4 * hd, like=dhs)
+        return (*dx, dr.zero_(), *d0)
+    drec = _build.empty(H, B, S, 2 * hd + 2, like=dhs)  # a step's gz, go, gi, gf
     lib = _build.lib()
     err = lib.rt_slstm_bwd(*(t.data_ptr() for t in (r, *saved, dhs, dc, dn, dh, dm, *dx, dr,
                                                     *d0, drec)),

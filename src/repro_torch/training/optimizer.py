@@ -14,7 +14,10 @@ counterpart of the reference's donated buffers). It and
 most ``SLICE`` elements (one layer of a stacked leaf), so their float32
 temporaries stay a slice's size and not the leaf's: on Yi-6B a stacked MLP
 leaf would need 5.8 GB for each. The update is elementwise, so slicing
-changes none of its values; only the norm's sum runs in another order.
+changes none of its values; only the norm's sum runs in another order. A
+DTensor leaf's norm is summed over its local shard in the same slices, so
+on one rank the sharded step's norm, and so the step, is the plain step's
+bit for bit.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import math
 from typing import Any, NamedTuple, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -82,11 +85,25 @@ def schedule(step: torch.Tensor, cfg: OptConfig) -> torch.Tensor:
     return cfg.lr * warm * cos
 
 
+def _square_sum(x: torch.Tensor) -> torch.Tensor:
+    """A leaf's float32 sum of squares, summed slice by slice. A DTensor's
+    is its local shard's (a partial leaf summed over the ranks first), in
+    the same slices, then summed over the mesh dims that split it: the
+    same bits as the plain leaf's where the mesh is one rank."""
+    if not isinstance(x, DTensor):
+        return torch.stack([torch.sum(torch.square(s.float())) for s in _slices(x)]).sum()
+    if any(p.is_partial() for p in x.placements):
+        x = x.redistribute(placements=[Replicate() if p.is_partial() else p
+                                       for p in x.placements])
+    local = DTensor.from_local(_square_sum(x.to_local()), x.device_mesh,
+                               [Partial() if p.is_shard() else Replicate() for p in x.placements],
+                               run_check=False)
+    return local.redistribute(placements=[Replicate()] * len(x.placements))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    per_leaf = [torch.stack([torch.sum(torch.square(s.float())) for s in _slices(x)]).sum()
-                for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(per_leaf)))
+    return torch.sqrt(torch.sum(torch.stack([_square_sum(x) for x in tree_leaves(tree)])))
 
 
 @torch.no_grad()

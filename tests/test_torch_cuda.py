@@ -1015,6 +1015,58 @@ def test_xlstm_kernels_refuse_what_they_do_not_take(dev):
                  m[:1, :1])
 
 
+def _xl_backward(dev, kind, dtype, B, S, hd=XL_D):
+    """One backward call of ``kind`` (mLSTM or sLSTM) on the forward kernel's
+    saves from a carried state, seeded cotangents; (the gradients, the plain
+    backward's gradients on the same saves)."""
+    from repro_torch.kernels import ref, xlstm_scan as xs
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    if kind == "mlstm":
+        args = _mlstm_inputs(dev, dtype, B, S, True, d=hd)
+        *out, saved = xs.mlstm_fwd(*args, save=True)
+        cots = [torch.randn(t.shape, generator=g, device=dev).to(t.dtype) for t in out]
+        return (lambda: xs.mlstm_bwd(*args[:5], saved, *cots),
+                lambda: ref.ref_mlstm_bwd(*args[:5], saved, *cots, xs.kernel_chunk()))
+    args = _slstm_inputs(dev, dtype, B, S, True, hd=hd)
+    *out, saved = xs.slstm_fwd(*args, save=True)
+    cots = [torch.randn(t.shape, generator=g, device=dev).to(t.dtype) for t in out]
+    return (lambda: xs.slstm_bwd(args[4], saved, *cots),
+            lambda: ref.ref_slstm_bwd(args[4], saved, *cots))
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xlstm_backward_gives_the_same_bits_run_after_run(dev, dtype, kind):
+    """No atomics: two backward calls on the same inputs give bit-equal
+    gradients, at xlstm-125m's head width over 100 steps (several mLSTM
+    chunks), at B = 2 and B = 5 (the sLSTM's two cluster shapes)."""
+    for B in (2, 5):
+        kernel, _ = _xl_backward(dev, kind, dtype, B, 100)
+        first, second = kernel(), kernel()
+        torch.cuda.synchronize()
+        for a, b in zip(first, second, strict=True):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B", [2, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_backward_cluster_shapes(dev, dtype, B):
+    """The sLSTM backward's two cluster shapes at xlstm-125m's head width,
+    100 steps from a carried state: G = 2 batch rows a cluster at B = 2 (one
+    cluster a head), G = 4 at B = 5 (two clusters a head, the second of one
+    row), against ``ref.ref_slstm_bwd`` on the forward kernel's saves, 2
+    launches a call."""
+    from repro_torch.kernels import xlstm_scan as xs
+
+    kernel, plain = _xl_backward(dev, "slstm", dtype, B, 100)
+    before = xs.launches["slstm_bwd"]
+    got = kernel()
+    assert xs.launches["slstm_bwd"] == before + 2
+    for a, b in zip(got, plain(), strict=True):
+        _xl_close(a, b, dtype)
+
+
 # SSD's chunk loop and decode step (kernels/ssd_scan.py) at hymba-1.5b's
 # width (25 heads, P = 64, N = 16, chunks of 256) and the smoke width (4
 # heads, P = 16, N = 4). Tolerances as for the xLSTM loops: atol = rtol =

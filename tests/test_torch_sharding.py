@@ -325,3 +325,42 @@ def test_checkpoint_remeshes_from_4x1_to_2x2(four_ranks):
     np.testing.assert_array_equal(np.asarray(state["w"]), w.numpy())
     raw = np.asarray(state["b"]).view(np.int16)  # JAX's bfloat16 words
     assert torch.equal(torch.from_numpy(raw).view(torch.bfloat16), b)
+
+
+_NORM = """
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+from repro_torch.training import optimizer as O
+O.SLICE = 1000  # leaves of 2,368 elements: three slices each
+mesh = init_device_mesh("cpu", (WORLD, 1), mesh_dim_names=("data", "model"))
+g = torch.Generator().manual_seed(0)
+worst = 0.0
+for trial in range(40):
+    leaves = [torch.randn(37, 64, generator=g) * 10 ** torch.randn(1, generator=g).item()
+              for _ in range(3)]
+    plain = O.global_norm(leaves)
+    sharded = [distribute_tensor(leaves[0], mesh, [Shard(0), Replicate()]),
+               distribute_tensor(leaves[1], mesh, [Replicate(), Shard(1)]),
+               # a partial leaf: rank r holds (r + 1) / sum(1..WORLD) of it
+               DTensor.from_local(leaves[2] * (RANK + 1) / (WORLD * (WORLD + 1) / 2), mesh,
+                                  [Partial(), Replicate()])]
+    got = O.global_norm(sharded).full_tensor()
+    if WORLD == 1:
+        assert torch.equal(got, plain), (trial, got, plain)
+    worst = max(worst, float((got - plain).abs() / plain))
+print("WORST", worst)
+"""
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_global_norm_of_sharded_leaves(world, tmp_path):
+    """``optimizer.global_norm`` over DTensor leaves (sharded on dim 0, on
+    dim 1, and a partial leaf) on a ``world`` x 1 gloo mesh, each leaf of
+    several slices: on one rank the plain leaves' norm bit for bit (so the
+    sharded step on one rank matches the plain step, as ``chip_smoke.py``
+    phase 10 (b) holds it on the card), on two within 1e-6 (the shards'
+    sums added in another order)."""
+    outs = run_ranks(_NORM, world, tmp_path)
+    for out in outs:
+        worst = float(out.split("WORST")[-1])
+        assert worst <= (0.0 if world == 1 else 1e-6), worst

@@ -12,7 +12,11 @@ of 16, S in {1, 7, 40}), from a zero state and a carried one:
 
 Tolerance 1e-5 (atol = rtol): float32 sums in another order, as in
 ``test_torch_ssm.py``. The kernels themselves run only on the card
-(``tests/test_torch_cuda.py``, marker ``cuda``)."""
+(``tests/test_torch_cuda.py``, marker ``cuda``); their algorithms run here
+as plain torch mirrors: the two forwards' against the plain loops and the
+reference, the two backwards' (``torch_xlstm_cases.py``) against the plain
+backwards run in float64 (S in {1, 40, 100}), each at a relative L2 of
+1e-4, with the tolerance at gates of +-30 stated where it is set."""
 
 import math
 
@@ -28,7 +32,9 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels import xlstm_scan as xs
 from repro_torch.models import ssm as TS
 from torch_xlstm_cases import (B, D, EXTREME_CASES, FACTOR, H, L, MLSTM_SEQS, REL,
-                               check_rows, extreme_case, mlstm_case, mlstm_np, rand, rows)
+                               check_rows, chunkwise_mlstm_bwd, extreme_case, float64_plain,
+                               gates_bwd_scaled, mlstm_case, mlstm_np, rand,
+                               reformulated_slstm_bwd, rows)
 
 TOL = 1e-5
 SEQS = [1, 7, 40]
@@ -400,3 +406,131 @@ def test_slstm_gate_means_from_summed_columns_match_plain_and_jax(S, carried, ex
     _rel_close(got[0].reshape(B, S, Dm) @ torch.from_numpy(p["wout"]), y_j)
     for a, b in zip(got[1:5], st_j, strict=True):
         _rel_close(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' algorithms, as plain torch mirrors held to float64
+# ---------------------------------------------------------------------------
+
+BWD_SEQS = [1, 40, 100]
+
+
+def _rel(got, want) -> float:
+    """The relative L2 error of ``got`` against ``want`` over ``want``'s
+    finite entries, after checking the infinities match."""
+    got, want = got.detach(), want.detach()
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin].double(),
+                                                                 want[~fin].double())
+    got, want = got[fin].double(), want[fin].double()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def _hold_to_float64(got, plain, exact, loose: bool):
+    """Each gradient of a mirror (``got``, float32) within a relative L2 of
+    ``REL`` of the plain backward run in float64 (``exact``); with ``loose``
+    (gates at +-30, where the gradients inherit h's ill-conditioned rows and
+    every float32 order of the sums is off float64 by more than ``REL``)
+    within twice the float32 plain backward's (``plain``) own error where
+    that is the larger."""
+    for i, (a, b, c) in enumerate(zip(got, plain, exact, strict=True)):
+        tol = max(REL, 2.0 * _rel(b, c)) if loose else REL
+        err = _rel(a, c)
+        assert err <= tol, (i, err, tol)
+
+
+def backward_case(kind, S, carried, extreme):
+    """One case of the backward mirrors: (the mirror's gradients, the
+    float32 plain backward's, the plain backward's run in float64), all on
+    the same float32 inputs, saves and cotangents (the float64 run on its
+    own float64 saves). The mLSTM's value columns in blocks of 8, so the
+    first block's ds and dn terms and the blocks' partials are exercised;
+    ``extreme``: gates at +-30 (the sLSTM's input and forget
+    preactivations scaled by 30)."""
+    if kind == "mlstm":
+        args, _ = mlstm_case(S, carried, extreme)
+        *out, saved = ref.ref_mlstm_fwd_saved(*args, L)
+        rng = np.random.default_rng(S * 4 + carried * 2 + extreme + 900)
+        cots = [torch.from_numpy(rand(rng, *o.shape)) for o in out]
+        got = chunkwise_mlstm_bwd(*args[:5], saved, *cots, L, block=8)
+        plain = ref.ref_mlstm_bwd(*args[:5], saved, *cots, L)
+        d64 = [a.double() for a in args]
+        with float64_plain():
+            *_, saved64 = ref.ref_mlstm_fwd_saved(*d64, L)
+            exact = ref.ref_mlstm_bwd(*d64[:5], saved64, *(c.double() for c in cots), L)
+        return got, plain, exact
+    rng = np.random.default_rng(S * 4 + carried * 2 + extreme + 700)
+    x, p, state = _slstm_np(rng, S, carried)
+    if extreme:
+        p["wi"], p["wf"] = p["wi"] * 30, p["wf"] * 30
+    pre = [torch.from_numpy(x @ p[w]).view(B, S, H, D) for w in ("wz", "wi", "wf", "wo")]
+    r = torch.from_numpy(np.concatenate([p[w] for w in ("rz", "ri", "rf", "ro")], axis=-1))
+    args = [*pre, r, *(torch.from_numpy(a) for a in state)]
+    *out, saved = ref.ref_slstm_fwd_saved(*args)
+    cots = [torch.from_numpy(rand(rng, *o.shape)) for o in out]
+    got = reformulated_slstm_bwd(r, saved, *cots)
+    plain = ref.ref_slstm_bwd(r, saved, *cots)
+    d64 = [a.double() for a in args]
+    with float64_plain():
+        *_, saved64 = ref.ref_slstm_fwd_saved(*d64)
+        exact = ref.ref_slstm_bwd(d64[4], saved64, *(c.double() for c in cots))
+    return got, plain, exact
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("S", BWD_SEQS)
+def test_chunkwise_mlstm_backward_matches_float64(S, carried, extreme):
+    """The chunkwise mLSTM backward mirror (``torch_xlstm_cases.py``; chunks
+    of 32, value blocks of 8) against ``ref_mlstm_bwd`` run in float64:
+    every gradient within a relative L2 of 1e-4; at gates of +-30 within
+    twice the float32 plain backward's own error where that exceeds 1e-4
+    (ill-conditioned there, as h is: ``torch_xlstm_cases.py``). S of one
+    step, past a chunk and ragged; a fresh state and a carried one."""
+    got, plain, exact = backward_case("mlstm", S, carried, extreme)
+    assert all(g.dtype == q.dtype and g.shape == q.shape
+               for g, q in zip(got, plain, strict=True))
+    _hold_to_float64(got, plain, exact, extreme)
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("S", BWD_SEQS)
+def test_reformulated_slstm_backward_matches_float64(S, carried, extreme):
+    """The sLSTM backward mirror (``torch_xlstm_cases.py``: dh_{t-1} through
+    rz, ro, wi and wf, the matvec over the z and o columns alone; dr's i and
+    f blocks one broadcast sum each) against ``ref_slstm_bwd`` run in
+    float64: every gradient, dr and the state's included, within a relative
+    L2 of 1e-4, also with the gate means at +-30 (``extreme``)."""
+    got, plain, exact = backward_case("slstm", S, carried, extreme)
+    assert all(g.dtype == q.dtype and g.shape == q.shape
+               for g, q in zip(got, plain, strict=True))
+    _hold_to_float64(got, plain, exact, False)
+
+
+CHAIN_CASES = ["fresh", "carried", "tie", "shut"]
+
+
+@pytest.mark.parametrize("case", CHAIN_CASES)
+def test_scaled_stabiliser_step_matches_the_plain_step(case):
+    """The stabiliser chain's step from di i_s and df f_s (the chunkwise
+    mLSTM backward's ``gates_bwd_scaled``) against ``ref._gates_bwd`` from
+    di and df, in float64: the same gradients of log_i, log_f and the
+    previous m from a fresh stabiliser (m = -inf), a carried one, a tie of
+    the max (half the gradient each way), and forget gates shut (log_f =
+    -100: f_s far below float32's range, never divided by)."""
+    rng = np.random.default_rng(CHAIN_CASES.index(case))
+    li, lf, m = (torch.from_numpy(rng.standard_normal(64)) for _ in range(3))
+    lf = -lf.abs() - (100.0 if case == "shut" else 0.0)
+    if case == "fresh":
+        m = torch.full_like(m, -math.inf)
+    if case == "tie":
+        li = lf + m
+    m_new = ref._gates(li, lf, m)[0]
+    di, df, dm = (torch.from_numpy(rng.standard_normal(64)) for _ in range(3))
+    i_s, f_s = ref._gates_at(li, lf, m, m_new)
+    want = ref._gates_bwd(li, lf, m, m_new, di, df, dm)
+    got = gates_bwd_scaled(li, lf, m, di * i_s, df * f_s, dm)
+    for a, b in zip(got, want, strict=True):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=1e-12, rtol=1e-12)
