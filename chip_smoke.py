@@ -37,7 +37,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    256) at B=2 x S=512 (phase 9's train shape), B=4 x S=1,024 (its
    prefill) and B=2 x S=300 (a padded last chunk, a carried state), in
    bf16 and float32, and the decode kernel from the prefill's state; each
-   timed by graph in bf16 beside its plain version and its bound; then
+   timed by graph in bf16 beside its plain version and its bound, the chunk
+   kernels' calls also by launch, with each SSD kernel's registers and
+   spills from ``ptxas -v``; then
    ``chunked_cache_attention``'s KV-block scan (the fourth ``lax.scan``
    site): its kernel against the plain loop at llava-next's prefill (B=2,
    2,880 patch embeddings + 64 tokens into a ring of 2,976; bf16), at its
@@ -283,6 +285,20 @@ def _kernel_name(ptxas_line: str) -> str:
                 tail = re.match(r"I(\w*?)EE", ptxas_line[m.end() + len(name):])
                 return name + (f"<{tail.group(1)}>" if tail else "")
     return "?"
+
+
+def ptxas_lines() -> list:
+    """(kernel, line) for each of ``ptxas -v``'s register and spill lines in
+    the build log of the kernel library."""
+    from repro_torch.kernels import _build
+
+    kernel, out = "?", []
+    for line in (_build.build().parent / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            kernel = _kernel_name(line)
+        elif "registers" in line or "spill" in line:
+            out.append((kernel, line.replace("ptxas info    :", "").strip()))
+    return out
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -823,6 +839,11 @@ def check_attention_repairs(pa, fa, gen) -> dict:
 XL_B, XL_S = 2, 512  # xlstm-125m's train step in phase 9 (b): B x S
 XL_REL_L2 = 1e-4      # float32 kernel vs plain: the same arithmetic, sums in another order
 XL_FLOPS = {"mlstm_fwd": 4, "mlstm_bwd": 12, "slstm_fwd": 8, "slstm_bwd": 16}  # x d^2 a token
+# The rate those FLOPs run at where the kernel does them in bf16: the mLSTM's
+# products on the tensor cores as three bf16 products each (hi hi + lo hi +
+# hi lo), the sLSTM's matvecs on the CUDA cores in f32.
+XL_FLOP_RATE = {"mlstm_fwd": BF16_FLOP_PER_S / 3, "mlstm_bwd": BF16_FLOP_PER_S / 3,
+                "slstm_fwd": F32_FLOP_PER_S, "slstm_bwd": F32_FLOP_PER_S}
 XL_SITE = {"mlstm": "src/repro/models/ssm.py:90", "slstm": "src/repro/models/ssm.py:170"}
 
 
@@ -972,11 +993,13 @@ def check_xlstm(xs, seed: int) -> list:
         plain_ms = cuda_ms(plain, 2)
         step_ms = (ms - one_ms) / (S - 1)
         flops = XL_FLOPS[name] * d * d * B * H * S
-        b_ms, b_by = bound(moved[name], flops, F32_FLOP_PER_S)
+        b_ms, b_by = bound(moved[name], flops, XL_FLOP_RATE[name])
         log(f"[kernels] {name} B={B} H={H} S={S} d={d} bf16: kernel_ms={ms:.5f} (graph) "
             f"one_step_call_ms={one_ms:.5f} step_latency_ms={step_ms:.6f} "
             f"chain_floor_ms={S * step_ms:.5f} plain_ms={plain_ms:.5f} bound_ms={b_ms:.7f} "
-            f"({b_by}: {flops / 1e6:.1f} MFLOP at 67 TFLOP/s f32, {moved[name] / 1e6:.2f} MB)"
+            f"({b_by}: {flops / 1e6:.1f} MFLOP at {XL_FLOP_RATE[name] / 1e12:.0f} TFLOP/s, "
+            f"{moved[name] / 1e6:.2f} MB; at 67 TFLOP/s f32 "
+            f"{bound(moved[name], flops, F32_FLOP_PER_S)[0]:.7f} ms)"
             f" launches_per_call={xs.LAUNCHES_PER_CALL[name]}")
         if name.endswith("_bwd"):  # where a backward's two launches spend the call
             split = graph_split_ms(kernel, 3)
@@ -1031,21 +1054,29 @@ def ssd_inputs(seed: int, dtype, B: int, S: int, carried: bool) -> tuple:
 # chunk's start (3), dh += dy (x) c (2), dc, dx, db and d a (2 each), dh
 # carried back by a (1). The decode step is one forward token a lane.
 SSD_FLOPS = {"ssd_fwd": 5, "ssd_bwd": 14, "ssd_decode": 5}
+# The rate those FLOPs run at where the kernel does them: the chunk kernels'
+# products on the bf16 tensor cores as three products each (hi hi + lo hi +
+# hi lo, float32 accuracy), the decode step's on the CUDA cores in f32.
+SSD_FLOP_RATE = {"ssd_fwd": BF16_FLOP_PER_S / 3, "ssd_bwd": BF16_FLOP_PER_S / 3,
+                 "ssd_decode": F32_FLOP_PER_S}
 
 
 def ssd_pair_flops(S: int, chunk: int, B: int, H: int, P: int, N: int) -> dict:
-    """The FLOPs the kernels' chunked algorithm does on these shapes,
-    counting the causal pairs s <= t of each chunk (the kernels skip the
-    rest): the forward's C_t . B_s and its product with x_s a pair, and a
-    row's inter-chunk readout and state update; the backward's five pair
-    products (C . B, dy . x, dx, db, dc) and a row's six [P, N] terms. Logged
-    beside the bound, which counts the recurrence (``SSD_FLOPS``)."""
+    """The FLOPs the chunk kernels do on these shapes, counting the 16 x 16
+    tiles on and below each chunk's diagonal that they form (a tile is 256
+    pairs (t, s)): the forward's C_t . B_s (once per 32 value columns) and
+    its product with x_s a pair, and a row's inter-chunk readout and state
+    update; the backward's row pass (C . B, dy . x, dc) and column pass (C
+    . B, dy . x, dx, db) a pair, C . B and the N-wide products once per 64
+    value columns, and a row's four [P, N] products. Logged beside the
+    bound, which counts the recurrence (``SSD_FLOPS``)."""
     pairs = rows = 0
     for t0 in range(0, S, chunk):
-        n = min(chunk, S - t0)
-        pairs, rows = pairs + n * (n + 1) // 2, rows + n
-    return {"ssd_fwd": B * H * (pairs * 2 * (N + P) + rows * 4 * P * N),
-            "ssd_bwd": B * H * (pairs * 2 * (3 * N + 2 * P) + rows * 12 * P * N)}
+        ns = -(-min(chunk, S - t0) // 16)
+        pairs, rows = pairs + 256 * ns * (ns + 1) // 2, rows + 16 * ns
+    fwd_blocks, bwd_blocks = -(-P // 32), -(-P // 64)
+    return {"ssd_fwd": B * H * (pairs * 2 * (fwd_blocks * N + P) + rows * 4 * P * N),
+            "ssd_bwd": B * H * (pairs * 2 * (bwd_blocks * 4 * N + 3 * P) + rows * 8 * P * N)}
 
 
 def check_ssd(ss, seed: int) -> list:
@@ -1057,7 +1088,9 @@ def check_ssd(ss, seed: int) -> list:
     the prefill shape's final state. Timed by CUDA graph in bf16 at the
     train shape (the decode at phase 9's 4 lanes; the plain versions
     eagerly), with a bound at 3.35 TB/s or the recurrence's FLOPs
-    (``SSD_FLOPS``) at 67 TFLOP/s f32."""
+    (``SSD_FLOPS``) at the rate the kernel runs them (``SSD_FLOP_RATE``),
+    whichever is longer; the recurrence at 67 TFLOP/s f32 (the chunk
+    kernels' bound before they ran on the tensor cores) logged beside."""
     from repro_torch.kernels import ref
 
     worst = dict.fromkeys(ss.KERNELS, 0.0)
@@ -1119,18 +1152,28 @@ def check_ssd(ss, seed: int) -> list:
         ms, plain_ms = graph_ms(kernel, 20), cuda_ms(plain, 3)
         tokens = 4 if name == "ssd_decode" else B * S
         flops = SSD_FLOPS[name] * P * N * H * tokens
-        b_ms, b_by = bound(moved, flops, F32_FLOP_PER_S)
+        rate = SSD_FLOP_RATE[name]
+        b_ms, b_by = bound(moved, flops, rate)
         shape = "B=4 (one token)" if name == "ssd_decode" else f"B={B} S={S} chunk=256"
-        chunked = (f", the chunked algorithm's {pair_flops[name] / 1e6:.2f} MFLOP"
+        chunked = (f", the kernels' tiles {pair_flops[name] / 1e6:.2f} MFLOP; the recurrence "
+                   f"at 67 TFLOP/s f32 {bound(moved, flops, F32_FLOP_PER_S)[0]:.7f} ms"
                    if name in pair_flops else "")
         log(f"[kernels] {name} {shape} H={H} P={P} N={N} bf16: kernel_ms={ms:.5f} (graph) "
             f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.7f} ({b_by}: the recurrence's "
-            f"{flops / 1e6:.2f} MFLOP at 67 TFLOP/s f32, {moved / 1e6:.3f} MB{chunked}) "
-            f"launches_per_call={ss.LAUNCHES_PER_CALL[name]}")
+            f"{flops / 1e6:.2f} MFLOP at {rate / 1e12:.0f} TFLOP/s, {moved / 1e6:.3f} MB"
+            f"{chunked}) launches_per_call={ss.LAUNCHES_PER_CALL[name]}")
+        if name in pair_flops:  # the chunk kernels: the call's device time by launch
+            split = graph_split_ms(kernel, 5)
+            log(f"[kernels] {name} {shape} bf16 by launch (graph, profiler): "
+                + (", ".join(f"{k} {v:.5f} ms" for k, v in split.items()) or "not measured")
+                + f"; the whole call {ms:.5f} ms")
         rows.append(dict(name=name, of="lax.scan",
                          source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                          replaces=SSD_SITE[name], max_abs_err=worst[name], ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    for kernel, line in ptxas_lines():
+        if kernel.startswith("ssd_"):
+            log(f"[kernels] {kernel} (ptxas): {line}")
     return rows
 
 
@@ -3153,12 +3196,8 @@ def main() -> int:
     _build.lib()
     log(f"[build] {lib_path.relative_to(_build.ROOT)} ready in "
         f"{time.perf_counter() - t0:.2f}s")
-    kernel = "?"
-    for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            kernel = _kernel_name(line)
-        elif "registers" in line or "spill" in line:
-            log(f"[build] {kernel}: {line.replace('ptxas info    :', '').strip()}")
+    for kernel, line in ptxas_lines():
+        log(f"[build] {kernel}: {line}")
     phase(2, "build", t0)
 
     # phase 3: kernels against their plain versions

@@ -32,6 +32,17 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// A thread-block cluster's barrier in two halves: arrive (this CTA's
+// earlier shared-memory writes released to the cluster), then wait (every
+// CTA of the cluster arrived; their writes visible). Every thread of every
+// CTA of the cluster calls both, in turn.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // Logit softcap, as the reference's _sdpa: c tanh(s / c) on the score s
 // already scaled by 1/sqrt(hd); c <= 0 is off.
 __device__ __forceinline__ float softcap(float s, float c) {

@@ -66,9 +66,16 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include "mma.cuh"
 #include "xlstm.cuh"
 
 namespace {
+
+using rt::Mat;
+using rt::mma16816;
+using rt::tile;
+using rt::tiles;
+using rt::tiles_split_b;
 
 constexpr int kMaxD = 256;       // head width
 constexpr int kReduceThreads = 256;
@@ -103,110 +110,14 @@ struct Bwd {
 // forward
 // ---------------------------------------------------------------------------
 
-// A matrix in shared memory read as (row, k): element (r, k) at p[r ld + k],
-// or at p[k ld + r] when kT.
-template <typename E, bool kT>
-struct Mat {
-  const E* p;
-  int ld;
-  __device__ __forceinline__ float at(int r, int k) const {
-    return rt::to_f(kT ? p[k * ld + r] : p[r * ld + k]);
-  }
-  // bf16 only: elements (r, k) and (r, k + 1) as a pair, k even (not kT)
-  __device__ __forceinline__ uint32_t pair(int r, int k) const {
-    return *reinterpret_cast<const uint32_t*>(p + r * ld + k);
-  }
-  // bf16 only: this lane's m16n8k16 A fragment of rows m0.., k0.. (and,
-  // frag_b, its B fragment of columns n0.., k0..); kT by ldmatrix.trans from
-  // the rows k (rows and columns on 16 bytes)
-  __device__ __forceinline__ void frag_a(uint32_t (&a)[4], int m0, int k0) const {
-    const int lane = threadIdx.x & 31;
-    if constexpr (kT) {
-      const int q = lane >> 3;
-      const uint32_t at = static_cast<uint32_t>(__cvta_generic_to_shared(
-          p + (k0 + (q >> 1) * 8 + (lane & 7)) * ld + m0 + (q & 1) * 8));
-      asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                   : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(at) : "memory");
-    } else {
-      const int r = m0 + (lane >> 2), k = k0 + (lane & 3) * 2;
-      a[0] = pair(r, k);
-      a[1] = pair(r + 8, k);
-      a[2] = pair(r, k + 8);
-      a[3] = pair(r + 8, k + 8);
-    }
-  }
-  __device__ __forceinline__ void frag_b(uint32_t (&b)[2], int n0, int k0) const {
-    const int lane = threadIdx.x & 31;
-    if constexpr (kT) {
-      const uint32_t at = static_cast<uint32_t>(__cvta_generic_to_shared(
-          p + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + n0));
-      asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                   : "=r"(b[0]), "=r"(b[1]) : "r"(at) : "memory");
-    } else {
-      const int n = n0 + (lane >> 2), k = k0 + (lane & 3) * 2;
-      b[0] = pair(n, k);
-      b[1] = pair(n, k + 8);
-    }
-  }
-};
-
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// c += A[m0 .. m0 + 16)[0, K) B[0, K)[n0 .. n0 + 8) at this lane's place in
-// the m16n8 accumulator (rows m0 + lane / 4 (+ 8), columns n0 + 2 (lane % 4)
-// (+ 1)); B read as (column, k). bf16 on the tensor cores (K a multiple of
-// 16), float32 on the CUDA cores.
-template <typename E, bool kTA, bool kTB>
-__device__ __forceinline__ void tile(float (&c)[4], Mat<E, kTA> a, Mat<E, kTB> b, int m0,
-                                     int n0, int K) {
-  const int lane = threadIdx.x & 31, r = m0 + (lane >> 2), kq = (lane & 3) * 2;
-  if constexpr (sizeof(E) == 2) {
-#pragma unroll 4
-    for (int k = 0; k < K; k += 16) {
-      uint32_t fa[4], fb[2];
-      a.frag_a(fa, m0, k);
-      b.frag_b(fb, n0, k);
-      mma16816(c, fa[0], fa[1], fa[2], fa[3], fb[0], fb[1]);
-    }
-  } else {
-    const int n = n0 + kq;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float a0 = a.at(r, k), a1 = a.at(r + 8, k), b0 = b.at(n, k), b1 = b.at(n + 1, k);
-      c[0] = fmaf(a0, b0, c[0]);
-      c[1] = fmaf(a0, b1, c[1]);
-      c[2] = fmaf(a1, b0, c[2]);
-      c[3] = fmaf(a1, b1, c[3]);
-    }
-  }
-}
-
-// A float32 operand into shared memory: as itself, or (bf16) as hi at dst
-// and lo = v - hi at dst + lo_off.
+// A float32 operand into shared memory: as itself, or (bf16) as its hi and
+// lo parts (rt::put_parts), lo lo_off elements on.
 template <typename T>
 __device__ __forceinline__ void put(T* dst, int lo_off, float v) {
-  if constexpr (sizeof(T) == 2) {
-    const __nv_bfloat16 hi = __float2bfloat16_rn(v);
-    dst[0] = hi;
-    dst[lo_off] = __float2bfloat16_rn(v - __bfloat162float(hi));
-  } else {
+  if constexpr (sizeof(T) == 2)
+    rt::put_parts(dst, lo_off, v);
+  else
     dst[0] = v;
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
 
 // The forward's shared memory, byte offsets (each on 16 bytes) for a head
@@ -294,12 +205,12 @@ __global__ void __launch_bounds__(kFwdThreads) mlstm_fwd_kernel(Fwd p) {
       const int per = d / pad, pv = nv / pad;  // 16-byte pieces of a row, of its v slice
       for (int i = tid; i < Lk * per; i += kFwdThreads) {
         const int t = i / per, c = (i % per) * pad;
-        cp_async16(dq + t * ld + c, q + static_cast<long>(t0 + t) * d + c);
-        cp_async16(dk + t * ld + c, k + static_cast<long>(t0 + t) * d + c);
+        rt::cp16(dq + t * ld + c, q + static_cast<long>(t0 + t) * d + c);
+        rt::cp16(dk + t * ld + c, k + static_cast<long>(t0 + t) * d + c);
       }
       for (int i = tid; i < Lk * pv; i += kFwdThreads) {
         const int t = i / pv, c = (i % pv) * pad;
-        cp_async16(dv + t * ldV + c, v + static_cast<long>(t0 + t) * d + v0 + c);
+        rt::cp16(dv + t * ldV + c, v + static_cast<long>(t0 + t) * d + v0 + c);
       }
     } else {
       for (int i = tid; i < Lk * d; i += kFwdThreads) {
@@ -313,8 +224,8 @@ __global__ void __launch_bounds__(kFwdThreads) mlstm_fwd_kernel(Fwd p) {
       }
     }
     for (int i = tid; i < Lk; i += kFwdThreads) {
-      cp_async4(atf(pick(L.li, buf)) + i, li + t0 + i);
-      cp_async4(atf(pick(L.lf, buf)) + i, lf + t0 + i);
+      rt::cp4(atf(pick(L.li, buf)) + i, li + t0 + i);
+      rt::cp4(atf(pick(L.lf, buf)) + i, lf + t0 + i);
     }
     const T zero = rt::from_f<T>(0.f);
     for (int i = tid; i < (kL - Lk) * ld; i += kFwdThreads) {
@@ -373,10 +284,7 @@ __global__ void __launch_bounds__(kFwdThreads) mlstm_fwd_kernel(Fwd p) {
         if (!live(j)) continue;
         T* o = sC0 + key * ldV + col;
         if constexpr (kTC) {
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(acc[j][e], acc[j][e + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(o) = hi;
-          *reinterpret_cast<__nv_bfloat162*>(o + DP * ldV) = __floats2bfloat162_rn(
-              acc[j][e] - __low2float(hi), acc[j][e + 1] - __high2float(hi));
+          rt::put2(o, DP * ldV, acc[j][e], acc[j][e + 1]);
         } else {
           o[0] = acc[j][e];
           o[1] = acc[j][e + 1];
@@ -592,75 +500,6 @@ __global__ void __launch_bounds__(kFwdThreads) mlstm_fwd_kernel(Fwd p) {
 // backward
 // ---------------------------------------------------------------------------
 
-// c[j] += A B_j (j < NJ): the warp's 16 rows m0 of A against B's 8-column
-// tiles at min(n0 + dn j, n_last), over K (a multiple of 16 in bf16), k
-// outer and the tiles inner with no branch, so that consecutive mma.syncs
-// go to independent accumulators (a tile past n_last repeats the last one,
-// for the caller to drop). bf16: A and B in parts, kALo (kBLo): the lo part
-// a_lo (b_lo) elements past the hi, else the operand is exact; hi hi + lo
-// hi + hi lo (lo lo is below float32's rounding of the sum). float32: tile()
-// for each, on the CUDA cores.
-template <int NJ, bool kALo, bool kBLo, typename T, bool kTA, bool kTB>
-__device__ __forceinline__ void tiles(float (&c)[NJ][4], Mat<T, kTA> a, int a_lo, Mat<T, kTB> b,
-                                      int b_lo, int m0, int n0, int dn, int n_last, int K) {
-  if constexpr (sizeof(T) == 2) {
-    const Mat<T, kTA> al{a.p + a_lo, a.ld};
-    const Mat<T, kTB> bl{b.p + b_lo, b.ld};
-#pragma unroll 2
-    for (int k = 0; k < K; k += 16) {
-      uint32_t fa[4], fl[4];
-      a.frag_a(fa, m0, k);
-      if constexpr (kALo) al.frag_a(fl, m0, k);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = min(n0 + dn * j, n_last);
-        uint32_t fb[2], gb[2];
-        b.frag_b(fb, n, k);
-        if constexpr (kBLo) bl.frag_b(gb, n, k);
-        mma16816(c[j], fa[0], fa[1], fa[2], fa[3], fb[0], fb[1]);
-        if constexpr (kALo) mma16816(c[j], fl[0], fl[1], fl[2], fl[3], fb[0], fb[1]);
-        if constexpr (kBLo) mma16816(c[j], fa[0], fa[1], fa[2], fa[3], gb[0], gb[1]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) tile(c[j], a, b, m0, min(n0 + dn * j, n_last), K);
-  }
-}
-
-// tiles() with B a float32 matrix in shared memory, B(n, k) = bf[n ldb + k],
-// split into hi + lo bf16 fragments as it loads (bf16 A in its two parts).
-template <int NJ>
-__device__ __forceinline__ void tiles_split_b(float (&c)[NJ][4], Mat<__nv_bfloat16, false> a,
-                                              int a_lo, const float* bf, int ldb, int m0, int n0,
-                                              int dn, int n_last, int K) {
-  const int lane = threadIdx.x & 31, kq = (lane & 3) * 2;
-  const Mat<__nv_bfloat16, false> al{a.p + a_lo, a.ld};
-#pragma unroll 2
-  for (int k = 0; k < K; k += 16) {
-    uint32_t fa[4], fl[4];
-    a.frag_a(fa, m0, k);
-    al.frag_a(fl, m0, k);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = min(n0 + dn * j, n_last) + (lane >> 2);
-      uint32_t bh[2], bl[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 x = *reinterpret_cast<const float2*>(bf + n * ldb + k + kq + 8 * h);
-        const __nv_bfloat162 hv = __floats2bfloat162_rn(x.x, x.y);
-        const __nv_bfloat162 lv =
-            __floats2bfloat162_rn(x.x - __low2float(hv), x.y - __high2float(hv));
-        bh[h] = *reinterpret_cast<const uint32_t*>(&hv);
-        bl[h] = *reinterpret_cast<const uint32_t*>(&lv);
-      }
-      mma16816(c[j], fa[0], fa[1], fa[2], fa[3], bh[0], bh[1]);
-      mma16816(c[j], fl[0], fl[1], fl[2], fl[3], bh[0], bh[1]);
-      mma16816(c[j], fa[0], fa[1], fa[2], fa[3], bl[0], bl[1]);
-    }
-  }
-}
-
 // The backward's shared memory, byte offsets (each on 16 bytes) for a head
 // width padded to DP. The chunk's inputs (Q, K, this CTA's V and dh columns,
 // the gates, m, n . q and the entry n) are double-buffered in bf16 (one
@@ -795,13 +634,13 @@ __global__ void __launch_bounds__(kFwdThreads, 1) mlstm_bwd_kernel(Bwd p) {
       const int per = d / pad, pv = nv / pad;
       for (int i = tid; i < Lk * per; i += kFwdThreads) {
         const int t = i / per, c = (i % per) * pad;
-        cp_async16(sq + t * ld + c, q + static_cast<long>(t0 + t) * d + c);
-        cp_async16(sk + t * ld + c, k + static_cast<long>(t0 + t) * d + c);
+        rt::cp16(sq + t * ld + c, q + static_cast<long>(t0 + t) * d + c);
+        rt::cp16(sk + t * ld + c, k + static_cast<long>(t0 + t) * d + c);
       }
       for (int i = tid; i < Lk * pv; i += kFwdThreads) {
         const int t = i / pv, c = (i % pv) * pad;
-        cp_async16(sv + t * ldV + c, v + static_cast<long>(t0 + t) * d + v0 + c);
-        cp_async16(sdh + t * ldV + c, dh + static_cast<long>(t0 + t) * d + v0 + c);
+        rt::cp16(sv + t * ldV + c, v + static_cast<long>(t0 + t) * d + v0 + c);
+        rt::cp16(sdh + t * ldV + c, dh + static_cast<long>(t0 + t) * d + v0 + c);
       }
     } else {
       for (int i = tid; i < Lk * d; i += kFwdThreads) {
@@ -816,14 +655,14 @@ __global__ void __launch_bounds__(kFwdThreads, 1) mlstm_bwd_kernel(Bwd p) {
       }
     }
     for (int i = tid; i < Lk; i += kFwdThreads) {
-      cp_async4(atf(pick(L.li, buf)) + i, p.li + bh * S + t0 + i);
-      cp_async4(atf(pick(L.lf, buf)) + i, p.lf + bh * S + t0 + i);
-      cp_async4(atf(pick(L.nq, buf)) + i, p.nq_all + bh * S + t0 + i);
+      rt::cp4(atf(pick(L.li, buf)) + i, p.li + bh * S + t0 + i);
+      rt::cp4(atf(pick(L.lf, buf)) + i, p.lf + bh * S + t0 + i);
+      rt::cp4(atf(pick(L.nq, buf)) + i, p.nq_all + bh * S + t0 + i);
     }
     for (int i = tid; i <= Lk; i += kFwdThreads)
-      cp_async4(atf(pick(L.m, buf)) + i, p.m_all + bh * (S + 1) + t0 + i);
+      rt::cp4(atf(pick(L.m, buf)) + i, p.m_all + bh * (S + 1) + t0 + i);
     for (int i = tid; i < d; i += kFwdThreads)
-      cp_async4(atf(pick(L.n0, buf)) + i, p.n_all + (bh * (S + 1) + t0) * d + i);
+      rt::cp4(atf(pick(L.n0, buf)) + i, p.n_all + (bh * (S + 1) + t0) * d + i);
     const T zero = rt::from_f<T>(0.f);
     for (int i = tid; i < (kL - Lk) * ld; i += kFwdThreads) {
       sq[Lk * ld + i] = zero;
@@ -842,12 +681,12 @@ __global__ void __launch_bounds__(kFwdThreads, 1) mlstm_bwd_kernel(Bwd p) {
       const int pv = nv / 4;
       for (int i = tid; i < d * pv; i += kFwdThreads) {
         const int key = i / pv, c = (i % pv) * 4;
-        cp_async16(sC0 + key * kLdC + c, ck + static_cast<long>(key) * d + c);
+        rt::cp16(sC0 + key * kLdC + c, ck + static_cast<long>(key) * d + c);
       }
     } else {
       for (int i = tid; i < d * nv; i += kFwdThreads) {
         const int key = i / nv, c = i % nv;
-        cp_async4(sC0 + key * kLdC + c, ck + static_cast<long>(key) * d + c);
+        rt::cp4(sC0 + key * kLdC + c, ck + static_cast<long>(key) * d + c);
       }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -933,10 +772,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) mlstm_bwd_kernel(Bwd p) {
         ep = fmaf(acc[j][e + 1], sC0[key * kLdC + col + 1], ep);
         T* o = sDC + key * ldV + col;
         if constexpr (kTC) {
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(acc[j][e], acc[j][e + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(o) = hi;
-          *reinterpret_cast<__nv_bfloat162*>(o + dlo) = __floats2bfloat162_rn(
-              acc[j][e] - __low2float(hi), acc[j][e + 1] - __high2float(hi));
+          rt::put2(o, dlo, acc[j][e], acc[j][e + 1]);
         } else {
           o[0] = acc[j][e];
           o[1] = acc[j][e + 1];

@@ -101,12 +101,8 @@ struct HRow {
   __device__ static int at(int dd) { return dd / NI * kBlk + dd % NI; }
 };
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
+using rt::cluster_arrive;
+using rt::cluster_wait;
 
 // G: the batch rows a cluster takes (2 or kRows); NI as above
 template <typename T, int G, int NI>

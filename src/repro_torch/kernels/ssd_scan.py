@@ -6,26 +6,34 @@ loop over chunks on the device (and its gradient as a reverse scan):
 ``repro/models/ssm.py`` :: ``ssd_chunked`` (the scan at :236), and its
 ``ssd_decode_step`` (:241). The kernels compute the plain loop of
 ``ref.py`` (``ref_ssd_chunked``, ``ref_ssd_decode_step``) in float32, y
-cast to x's dtype once, the intra-chunk decay formed only where s <= t.
+cast to x's dtype once, the intra-chunk decay exp(la_t - la_s) formed only
+where s <= t.
 
-What bounds them: neither of the card's rates (a 256-token chunk of a
-head is ~5 MFLOP on a few hundred KB) but the chain of chunks and the
-intra-chunk matrix, 256 KB of f32 a (row, head) at 256 tokens, more than
-an SM holds. So the forward is one launch: a CTA per (16 value columns,
-16 state columns, head, row) walks the chunks in order with its slice of
-the state in shared memory, a thread a row of the chunk, the matrix
-recomputed as it is used and never stored; past N = 16 the state tiles'
-partial y are summed by a second launch. The decode step is one launch, a
-thread a value column.
+What bounds them: a chunk of a head is the causal [L, L] matrix (C B^T)
+o decay against N + P columns (~3 MFLOP at 256 tokens), and the chunks of
+a head are a chain. So each chunk's products run on the tensor cores
+(mma.sync, the float32 operands as bf16 hi + lo parts; float32 inputs
+split alike) with the [L, L] matrix kept in registers, 16 x 16 tiles on
+and below the diagonal, the 16-row strips dealt to the warps in balanced
+pairs. A CTA takes one chunk of 64 value columns and 16 state columns of a
+(head, row), and the CTAs of up to 4 consecutive chunks form a cluster:
+each forms its chunk's own change of the state, and after one cluster
+barrier every CTA walks the chain over the cluster's chunks in order
+through distributed shared memory, so the chunks of a head run side by
+side and the chain keeps its order and bits. The forward is one launch;
+past N = 16 the state tiles' partial y are summed by a second launch. The
+decode step is one launch, a thread a value column.
 
 Backward: the forward saves the state at each chunk's start ([nc, B, H,
-P, N] float32, nothing per token), and the backward is two launches: the
-reverse loop over chunks carrying dh (a row pass for dc and a column pass
-for dx and db, recomputed from the saved state), then a fixed-order sum
-of db, dc and d log_a's partials over the value blocks (and of dx's and d
-log_a's over the state tiles past N = 16), with d log_a's
-reverse cumsum within each chunk. No float atomics, so a gradient is the
-same bits run after run.
+P, N] float32, nothing per token). The same clusters walk dh back from
+the last chunk, each chunk recomputed from its saved state: a row pass
+(dc, the row sums of d la) while the cluster's changes of dh come in, then
+a column pass (dx, db, the column sums), d log_a a warp scan. Where one
+CTA holds all of P and N (P <= 64, N <= 16: hymba-1.5b) that is the whole
+backward, one launch; otherwise a second launch sums the float32 partials
+of db, dc and d log_a over the value blocks (and of dx's and d log_a's
+over the state tiles) in a fixed order. No float atomics, so a gradient is
+the same bits run after run.
 
 On a CPU or ``meta`` tensor the entry points run the plain loop with
 ordinary autograd (the dry run traces on ``meta``); on a CUDA tensor they
@@ -38,7 +46,9 @@ to autograd); elsewhere the forward kernel runs alone. The reference's
 Pallas kernel), so a decode step on CUDA tensors that autograd records
 goes through :class:`SSDDecode`: the decode kernel forward, and a backward
 that recomputes the plain step's vjp from the saved inputs. ``launches``
-counts kernel launches by kernel: ``LAUNCHES_PER_CALL`` of them a call.
+counts kernel launches by kernel: ``LAUNCHES_PER_CALL`` of them a call,
+one more where a call's state is wider than 16 (and, for the backward,
+where P is wider than 64).
 """
 
 from __future__ import annotations
@@ -49,7 +59,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 KERNELS = ("ssd_fwd", "ssd_bwd", "ssd_decode")
-LAUNCHES_PER_CALL = {"ssd_fwd": 1, "ssd_bwd": 2, "ssd_decode": 1}
+LAUNCHES_PER_CALL = {"ssd_fwd": 1, "ssd_bwd": 1, "ssd_decode": 1}
 launches = dict.fromkeys(KERNELS, 0)
 
 plain_chunked = ref.ref_ssd_chunked
@@ -111,16 +121,17 @@ def ssd_bwd(x, b, c, log_a, saved, dy, dh, *, chunk: int):
         return dx, db.zero_(), dc.zero_(), dla.zero_(), dh0.copy_(dh)
     lib = _build.lib()
     npb, nt = -(-P // lib.rt_ssd_block_p()), _tiles(N)
-    scratch = (_build.empty(npb, B, S, H, N, like=x), _build.empty(npb, B, S, H, N, like=x),
-               _build.empty(nt * npb, B, S, H, like=x))
+    split = npb > 1 or nt > 1  # partials, and the second launch that sums them
+    scratch = ((_build.empty(npb, B, S, H, N, like=x), _build.empty(npb, B, S, H, N, like=x),
+                _build.empty(nt * npb, B, S, H, like=x)) if split else (None,) * 3)
     dx_part = _build.empty(nt, B, S, H, P, like=x) if nt > 1 else None
     err = lib.rt_ssd_bwd(*(t.data_ptr() for t in (x, b, c, log_a, saved, dy, dh, dx, db, dc,
-                                                  dla, dh0, *scratch)),
-                         None if dx_part is None else dx_part.data_ptr(),
+                                                  dla, dh0)),
+                         *(None if t is None else t.data_ptr() for t in (*scratch, dx_part)),
                          B, S, H, P, N, chunk, _build.DTYPE_CODES[x.dtype],
                          _build.stream_ptr(x.device))
     _build.check(err, "ssd_bwd")
-    launches["ssd_bwd"] += LAUNCHES_PER_CALL["ssd_bwd"]
+    launches["ssd_bwd"] += LAUNCHES_PER_CALL["ssd_bwd"] + split
     return dx, db, dc, dla, dh0
 
 

@@ -1087,15 +1087,17 @@ def _ssd_inputs(dev, dtype, B, S, width, carried, seed=0):
 
 
 @pytest.mark.parametrize("carried", [False, True])
-@pytest.mark.parametrize("S,chunk", [(1, 1), (40, 16), (300, 256)])
+@pytest.mark.parametrize("S,chunk", [(1, 1), (40, 16), (300, 256), (1100, 256), (200, 16)])
 @pytest.mark.parametrize("width", list(SSD_WIDTHS))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_kernels_match_plain(dev, dtype, width, S, chunk, carried):
     """The SSD forward kernel against ``ref.ref_ssd_fwd_saved`` (y, the
     final state and the states saved at the chunk starts) and the backward
-    kernels against ``ref.ref_ssd_bwd`` on the kernel's saves, 1 + 2
-    launches; S = 300 in chunks of 256 pads its last chunk, S = 40 in 16
-    as well."""
+    kernels against ``ref.ref_ssd_bwd`` on the kernel's saves, with the
+    launches ``LAUNCHES_PER_CALL`` gives; S = 300 in chunks of 256 pads its
+    last chunk, S = 40 in 16 as well; S = 1,100 in 256 (5 chunks) and 200
+    in 16 (13) are more chunks than a cluster's 4 CTAs, so the state goes
+    from cluster group to group and the last group leaves CTAs idle."""
     from repro_torch.kernels import ref, ssd_scan as ss
 
     args = _ssd_inputs(dev, dtype, 2, S, width, carried)
@@ -1111,8 +1113,8 @@ def test_ssd_kernels_match_plain(dev, dtype, width, S, chunk, carried):
     want = ref.ref_ssd_bwd(*args[:4], saved, dy, dh, chunk)
     for a, b in zip(got, want, strict=True):
         _xl_close(a, b, dtype)
-    assert ss.launches["ssd_fwd"] == before["ssd_fwd"] + 1
-    assert ss.launches["ssd_bwd"] == before["ssd_bwd"] + 2
+    assert ss.launches["ssd_fwd"] == before["ssd_fwd"] + ss.LAUNCHES_PER_CALL["ssd_fwd"]
+    assert ss.launches["ssd_bwd"] == before["ssd_bwd"] + ss.LAUNCHES_PER_CALL["ssd_bwd"]
 
 
 @pytest.mark.parametrize("width", list(SSD_WIDTHS))
@@ -1170,7 +1172,8 @@ def test_hymba_block_on_card_matches_plain_autograd(dev, dtype):
             ss.ssd_chunked = real
         moved = {k: ss.launches[k] - before[k] for k in ss.KERNELS}
         runs[how] = ([y, *grads], moved)
-    assert runs["kernel"][1] == {"ssd_fwd": 1, "ssd_bwd": 2, "ssd_decode": 0}
+    assert runs["kernel"][1] == {"ssd_fwd": ss.LAUNCHES_PER_CALL["ssd_fwd"],
+                                 "ssd_bwd": ss.LAUNCHES_PER_CALL["ssd_bwd"], "ssd_decode": 0}
     assert runs["plain"][1] == dict.fromkeys(ss.KERNELS, 0)
     for a, b in zip(runs["kernel"][0], runs["plain"][0], strict=True):
         _xl_close(a, b, dtype)
@@ -1248,6 +1251,80 @@ def test_ssd_states_wider_than_16(dev, dtype, N, S, chunk):
     assert ss.launches["ssd_bwd"] == before["ssd_bwd"] + 2
 
 
+def _ssd_both(ss, args, chunk, seed=9):
+    """The forward kernel (with its saves) and the backward kernels on them,
+    on cotangents from ``seed``: [y, h, saved, dx, db, dc, d log_a, dh0] and
+    the cotangents."""
+    y, h, saved = ss.ssd_fwd(*args, chunk=chunk, save=True)
+    g = torch.Generator(device=y.device).manual_seed(seed)
+    dy = torch.randn(y.shape, generator=g, device=y.device).to(y.dtype)
+    dh = torch.randn(h.shape, generator=g, device=y.device)
+    return [y, h, saved, *ss.ssd_bwd(*args[:4], saved, dy, dh, chunk=chunk)], (dy, dh)
+
+
+@pytest.mark.parametrize("P,N", [(64, 16), (100, 24)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernels_repeat_the_same_bits(dev, dtype, P, N):
+    """Two forward and two backward calls on the same inputs give the same
+    bits (no float atomics): at hymba-1.5b's head (one launch each) and at a
+    head split over value blocks and state tiles (the partials' sums)."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    g = torch.Generator(device=dev).manual_seed(P + N)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    args = (rnd(2, 300, 5, P).to(DT[dtype]), (rnd(2, 300, 5, N) * 0.5).to(DT[dtype]),
+            (rnd(2, 300, 5, N) * 0.5).to(DT[dtype]),
+            -torch.nn.functional.softplus(rnd(2, 300, 5)), rnd(2, 5, P, N))
+    first, _ = _ssd_both(ss, args, 256)
+    again, _ = _ssd_both(ss, args, 256)
+    for a, b in zip(first, again, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_strong_decay_at_hymba_width(dev, dtype):
+    """A decay of -0.7 a step, so a 256-token chunk's summed decay is 179,
+    past float32's exp range (exp(-la_s) would overflow), at hymba-1.5b's
+    width over 2 x 512 from a carried state: every output and gradient
+    finite and equal to the plain loop's."""
+    from repro_torch.kernels import ref, ssd_scan as ss
+
+    x, b, c, _, state = _ssd_inputs(dev, dtype, 2, 512, "hymba", True, seed=3)
+    args = (x, b, c, torch.full(x.shape[:3], -0.7, device=dev), state)
+    got, (dy, dh) = _ssd_both(ss, args, 256)
+    y, h, saved = ref.ref_ssd_fwd_saved(*args, 256)
+    want = [y, h, saved, *ref.ref_ssd_bwd(*args[:4], saved, dy, dh, 256)]
+    for a, w in zip(got, want, strict=True):
+        assert torch.isfinite(a).all()
+        _xl_close(a, w, dtype if a.dtype == DT[dtype] else "float32")
+
+
+@pytest.mark.parametrize("P", [24, 37, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_value_widths(dev, dtype, P):
+    """Heads of P = 24 and 37 (not a multiple of 16; 37 odd, so no pair
+    stores and no 16-byte loads) and 100 (past the backward's value block of
+    64: its partials and second launch): the forward against
+    ``ref.ref_ssd_fwd_saved`` and the backward against ``ref.ref_ssd_bwd``
+    on its saves, 2 x 300 in chunks of 256 from a carried state."""
+    from repro_torch.kernels import ref, ssd_scan as ss
+
+    g = torch.Generator(device=dev).manual_seed(P)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    args = (rnd(2, 300, 3, P).to(DT[dtype]), (rnd(2, 300, 3, 16) * 0.5).to(DT[dtype]),
+            (rnd(2, 300, 3, 16) * 0.5).to(DT[dtype]),
+            -torch.nn.functional.softplus(rnd(2, 300, 3)), rnd(2, 3, P, 16))
+    before = dict(ss.launches)
+    got, (dy, dh) = _ssd_both(ss, args, 256)
+    y, h, saved = ref.ref_ssd_fwd_saved(*args, 256)
+    want = [y, h, saved, *ref.ref_ssd_bwd(*args[:4], saved, dy, dh, 256)]
+    for a, w in zip(got, want, strict=True):
+        _xl_close(a, w, dtype if a.dtype == DT[dtype] else "float32")
+    assert ss.launches["ssd_fwd"] == before["ssd_fwd"] + ss.LAUNCHES_PER_CALL["ssd_fwd"]
+    assert ss.launches["ssd_bwd"] == before["ssd_bwd"] + ss.LAUNCHES_PER_CALL["ssd_bwd"] + (
+        P > 64)
+
+
 @pytest.mark.parametrize("S,chunk", [(600, 257), (600, 300), (700, 512), (300, 1000)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_chunks_past_256_run_as_sub_chunks(dev, dtype, S, chunk):
@@ -1267,7 +1344,8 @@ def test_ssd_chunks_past_256_run_as_sub_chunks(dev, dtype, S, chunk):
         dy = torch.randn(y.shape, generator=g, device=dev).to(y.dtype)
         grads = torch.autograd.grad((y.float() * dy.float()).sum() + h.sum(), leaves)
         runs.append(([y, h, *grads], {k: ss.launches[k] - before[k] for k in ss.KERNELS}))
-    assert runs[0][1] == {"ssd_fwd": 1, "ssd_bwd": 2, "ssd_decode": 0}
+    assert runs[0][1] == {"ssd_fwd": ss.LAUNCHES_PER_CALL["ssd_fwd"],
+                          "ssd_bwd": ss.LAUNCHES_PER_CALL["ssd_bwd"], "ssd_decode": 0}
     assert runs[1][1] == dict.fromkeys(ss.KERNELS, 0)
     for a, b in zip(runs[0][0], runs[1][0], strict=True):
         _xl_close(a, b, dtype if a.dtype == DT[dtype] else "float32")

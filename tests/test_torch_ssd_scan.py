@@ -28,6 +28,8 @@ from repro.models import ssm as JS
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models import ssm as TS
+import torch_ssd_cases as SC
+from torch_xlstm_cases import float64_plain
 
 TOL = 1e-5
 B, H, P, N = 2, 4, 4, 3
@@ -227,3 +229,84 @@ def test_host_and_meta_tensors_take_the_plain_loop(device, monkeypatch):
         for a, b in zip((dy, dh), ref.ref_ssd_decode_step(*step), strict=True):
             assert torch.equal(a, b)
     assert ss.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the chunk kernels' algorithm, mirrored in plain torch (tests/torch_ssd_cases.py)
+# ---------------------------------------------------------------------------
+
+MIRROR_PARTS = {"kernel": {}, "small": {"fblock": 2, "bblock": 2, "tile_n": 2, "cluster": 2}}
+EXACT = 1e-7  # the float64 mirror unsplit: the plain loop's d log_a is float32
+JAX_REL = 1e-5  # the reference's float32 is 2.2e-6 from float64 at S = 300
+
+
+def _as(arrays, dtype):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+@pytest.mark.parametrize("parts", list(MIRROR_PARTS))
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("S,chunk", SC.CASES)
+def test_tiled_mirror_matches_plain_in_float64(S, chunk, carried, parts):
+    """The kernels' algorithm (``torch_ssd_cases.tiled_fwd``/``tiled_bwd``:
+    strips, 16 x 16 tiles, the state walked per CTA, the CTAs' partials)
+    against ``ref_ssd_fwd_saved`` and ``ref_ssd_bwd`` run in float64: y, h,
+    the saves and every gradient. Unsplit, within EXACT; with the products'
+    bf16 hi + lo parts, within a relative L2 of REL_SPLIT. ``small`` value
+    blocks and state tiles of 2 run the partials' sums (P = 4, N = 3), and
+    clusters of 2 chunks the walk over groups (3 chunks at S = 40)."""
+    arrays, cots = SC.inputs(S, carried)
+    args, cots = _as(arrays, torch.float64), _as(cots, torch.float64)
+    with float64_plain():
+        want = SC.run_plain(args, cots, chunk)
+    for split, limit in ((False, EXACT), (True, SC.REL_SPLIT)):
+        got = SC.run_mirror(args, cots, chunk, split=split, **MIRROR_PARTS[parts])
+        for i, (a, b) in enumerate(zip(got, want, strict=True)):
+            assert a.shape == b.shape and SC.rel(a, b) <= limit, (i, split, SC.rel(a, b))
+
+
+def _jax_outputs(arrays, cots, chunk, carried):
+    out, vjp = jax.vjp(_jax_ssd(chunk, carried), *map(jnp.asarray, arrays[:5 if carried else 4]))
+    grads = vjp(tuple(map(jnp.asarray, cots)))
+    return [np.asarray(o) for o in (*out, *grads)]
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("S,chunk", SC.CASES)
+def test_tiled_mirror_matches_jax(S, chunk, carried):
+    """The kernels' algorithm in float64 on the float32 inputs against the
+    reference's ``ssd_chunked`` and ``jax.vjp`` of it: y, the final state
+    and the gradients of x, b, c, log_a (and the carried state), each
+    within a relative L2 of JAX_REL wherever the reference's is finite (its
+    gradient is NaN in part once a 256-token chunk's summed decay passes
+    88, as it does here at S = 300)."""
+    arrays, cots = SC.inputs(S, carried)
+    got = SC.run_mirror(_as(arrays, torch.float64), _as(cots, torch.float64), chunk, split=False)
+    want = [torch.from_numpy(np.array(a)) for a in _jax_outputs(arrays, cots, chunk, carried)]
+    SC.hold_where_finite(got[:2] + got[3:8 if carried else 7], want, JAX_REL)
+
+
+def test_tiled_mirror_strong_decay():
+    """A decay of -0.7 a step: a 256-token chunk's summed decay is 179, past
+    float32's exp range. The kernels' algorithm in float32 with the split
+    products gives finite outputs and gradients, within REL_SPLIT of the
+    port's plain loop, and of the reference's forward and ``jax.vjp``
+    wherever those are finite (its gradient is NaN here)."""
+    arrays, cots = SC.inputs(300, True, strong=True)
+    args, c32 = _as(arrays, torch.float32), _as(cots, torch.float32)
+    got = SC.run_mirror(args, c32, 256)
+    SC.hold_where_finite(got, SC.run_plain(args, c32, 256), SC.REL_SPLIT)
+    jax_out = [torch.from_numpy(np.array(a)) for a in _jax_outputs(arrays, cots, 256, True)]
+    assert not all(torch.isfinite(a).all() for a in jax_out)
+    SC.hold_where_finite(got[:2] + got[3:], jax_out, SC.REL_SPLIT)
+
+
+def test_factored_decay_is_rejected():
+    """The known-wrong variant, the decay factored as exp(la_t) exp(-la_s):
+    on the strong-decay case exp(-la_s) overflows float32, and the check
+    that holds the kernels' algorithm rejects it."""
+    arrays, cots = SC.inputs(300, True, strong=True)
+    args, c32 = _as(arrays, torch.float32), _as(cots, torch.float32)
+    got = SC.run_mirror(args, c32, 256, decay="factored")
+    with pytest.raises(AssertionError):
+        SC.hold_where_finite(got, SC.run_plain(args, c32, 256), SC.REL_SPLIT)
