@@ -232,8 +232,8 @@ def graph_ms(fn, iters: int, reps: int = 5) -> float:
 def graph_split_ms(fn, iters: int, reps: int = 5) -> dict:
     """The device time of each kernel a call of ``fn`` launches: the graph of
     ``graph_ms`` replayed ``reps`` times under ``torch.profiler``, which
-    sees the graph's kernels; {kernel: ms a call}, empty where the profiler
-    saw none."""
+    sees the graph's kernels; {kernel: ms a call} (kernels whose names cut
+    alike summed), empty where the profiler saw none."""
     from torch.profiler import ProfilerActivity, profile
 
     graph = _graph(fn, iters)
@@ -241,9 +241,29 @@ def graph_split_ms(fn, iters: int, reps: int = 5) -> dict:
         for _ in range(reps):
             graph.replay()
         torch.cuda.synchronize()
-    return {_demangled_kernel(e.key): _self_device_us(e) / 1e3 / (iters * reps)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and _self_device_us(e) > 0}
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and _self_device_us(e) > 0:
+            name = _demangled_kernel(e.key)
+            split[name] = split.get(name, 0.0) + _self_device_us(e) / 1e3 / (iters * reps)
+    return split
+
+
+def kernels_launched(fn) -> dict:
+    """The kernels one eager call of ``fn`` runs on the device, as
+    ``torch.profiler`` sees them: {kernel: launches}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0:
+            name = _demangled_kernel(e.key)
+            out[name] = out.get(name, 0) + e.count
+    return out
 
 
 def _demangled_kernel(key: str) -> str:
@@ -1162,11 +1182,19 @@ def check_ssd(ss, seed: int) -> list:
             f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.7f} ({b_by}: the recurrence's "
             f"{flops / 1e6:.2f} MFLOP at {rate / 1e12:.0f} TFLOP/s, {moved / 1e6:.3f} MB"
             f"{chunked}) launches_per_call={ss.LAUNCHES_PER_CALL[name]}")
-        if name in pair_flops:  # the chunk kernels: the call's device time by launch
-            split = graph_split_ms(kernel, 5)
-            log(f"[kernels] {name} {shape} bf16 by launch (graph, profiler): "
-                + (", ".join(f"{k} {v:.5f} ms" for k, v in split.items()) or "not measured")
-                + f"; the whole call {ms:.5f} ms")
+        # the call's device time by launch
+        split = graph_split_ms(kernel, 5)
+        log(f"[kernels] {name} {shape} bf16 by launch (graph, profiler): "
+            + (", ".join(f"{k} {v:.5f} ms" for k, v in split.items()) or "not measured")
+            + f"; the whole call {ms:.5f} ms")
+        if name == "ssd_decode":  # hymba's strided views read in place: one kernel
+            seen = kernels_launched(kernel)
+            log(f"[kernels] ssd_decode on strided x {tuple(xt.stride())}, b {tuple(bt.stride())}"
+                f", c {tuple(ct.stride())}, log_a {tuple(lat.stride())}: the kernels of one "
+                f"call {seen}")
+            if list(seen.values()) != [1] or not next(iter(seen)).startswith("ssd_decode"):
+                raise AssertionError(f"ssd_decode on strided inputs ran {seen}, not one "
+                                     f"decode kernel")
         rows.append(dict(name=name, of="lax.scan",
                          source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                          replaces=SSD_SITE[name], max_abs_err=worst[name], ms=ms,
@@ -1323,10 +1351,16 @@ def check_cache_attention(ca, gen) -> dict:
     lib_ms = graph_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask[:, None], enable_gqa=True), 20)
     moved = nbytes(q, k, v, q_pos, k_pos, q)  # the output is q's size
     b_ms, b_by = bound(moved, 4 * hd * H * pairs)
+    split = graph_split_ms(lambda: ca.cache_attention(q, k, v, q_pos, k_pos), 5)
     log(f"[kernels] cache_attention llava-next prefill B={B} S={S} T={T} H={H} KV={KV} "
         f"hd={hd} bf16: kernel_ms={ms:.5f} (graph) plain_ms={plain_ms:.5f} sdpa_ms={lib_ms:.5f}"
         f" (graph, boolean mask) bound_ms={b_ms:.7f} ({b_by}: {pairs:,} visible pairs, "
-        f"{4 * hd * H * pairs / 1e9:.2f} GFLOP, {moved / 1e6:.2f} MB); one launch a call")
+        f"{4 * hd * H * pairs / 1e9:.2f} GFLOP, {moved / 1e6:.2f} MB); one launch a call; by "
+        f"launch (graph, profiler): "
+        + (", ".join(f"{k} {v:.5f} ms" for k, v in split.items()) or "not measured"))
+    for kernel, line in ptxas_lines():
+        if kernel.startswith("cache_"):
+            log(f"[kernels] {kernel} (ptxas): {line}")
     return dict(name="cache_attention", of="lax.scan",
                 source="src/repro_torch/kernels/csrc/cache_attention.cu", replaces=CACHE_SITE,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -2324,9 +2358,16 @@ def family_decode(seed: int, arch: str, B: int, prompt: int, steps: int, ca,
         f"{sum(e.count for e in avgs if e.key == 'cudaLaunchKernel')}")
     if n_extra:  # where a prefill's time goes: a second one, into a fresh cache
         with torch.no_grad():
-            profile_steps(lambda: prefill(params, tokens[:, :prompt], cfg, init_cache(
+            avgs = profile_steps(lambda: prefill(params, tokens[:, :prompt], cfg, init_cache(
                 cfg, B, n_extra + total, device="cuda"), extra_embeds=extra), 1,
                 f"one {cfg.name} prefill of {n_extra} embeds + {prompt} tokens x {B} lanes")
+        dev = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(_self_device_us(e) for e in dev) / 1e3
+        cache_ms = sum(_self_device_us(e) for e in dev if "cache_" in e.key) / 1e3
+        log(f"[family] {cfg.name} prefill of {n_extra} embeds + {prompt} tokens x {B} lanes: "
+            f"device busy {busy:.4f} ms (the profiled second prefill; the first took "
+            f"{prefill_ms:.3f} ms by CUDA events), of it the cache attention kernel "
+            f"{cache_ms:.4f} ms")
     flash = 0
     if two_chunks:
         # the reference's chunked prefill of a prompt twice the window into a

@@ -46,7 +46,7 @@ SIGNATURES = {
     "rt_slstm_bwd": [_P] * 24 + [_I] * 5 + [_P],
     "rt_ssd_fwd": [_P] * 9 + [_I] * 7 + [_P],
     "rt_ssd_bwd": [_P] * 16 + [_I] * 7 + [_P],
-    "rt_ssd_decode": [_P] * 7 + [_I] * 6 + [_P],
+    "rt_ssd_decode": [_P] * 8 + [_I] * 6 + [_P],
     "rt_cache_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
     "rt_cmp_ring_max_n": [],
     "rt_paged_attention_max_rep_hd": [],

@@ -13,12 +13,16 @@ What bounds it: the products, 4 hd FLOPs a visible (query, slot) pair and
 head (llava-next's 2,944-token prefill: 1.4e11 FLOPs a layer, 0.14 ms on
 the tensor cores, against 121 MB); the plain loop instead writes half a
 dozen [B, S, H, block_k] float32 tensors a block. So the kernel is flash
-attention over the ring in one launch: a CTA of 64 query rows of one head
-lists the K/V tiles of 64 slots that its rows' positions can see (from
-k_pos: a ring that wraps keeps its positions out of slot order) and walks
-them with an online softmax, nothing of S x T size leaving the SM. bfloat16
-with head_dim % 16 == 0 and 16-byte aligned rows runs on the tensor cores
-(wgmma, TMA); float32 and every other head_dim or stride on the CUDA cores.
+attention over the ring in one launch: a CTA lists the K/V tiles that its
+query rows' positions can see (from k_pos: a ring that wraps keeps its
+positions out of slot order) and walks them with an online softmax, nothing
+of S x T size leaving the SM. bfloat16 with head_dim % 16 == 0 and 16-byte
+aligned rows runs on the tensor cores, warp-specialised and persistent: a
+CTA an SM walks blocks of 128 query rows of a head, its producer warpgroup
+planning the next block and loading 128-slot K/V tiles by TMA into a ring
+of stages, its two consumer warpgroups (wgmma) running each softmax under
+their products; float32 and every other head_dim or stride on the CUDA
+cores (64-row CTAs, 64-slot tiles).
 ``block_k`` is kept for parity with the reference: it orders the plain
 version's sums and does not change the kernel's result.
 

@@ -21,33 +21,66 @@
 // and head: 1.4e11 FLOPs, 0.14 ms on the tensor cores, against 121 MB of
 // inputs and output (0.036 ms). The plain loop wrote ~6 [B,S,H,block_k] f32
 // tensors a block (0.77 GB each at that shape); here no S x T intermediate
-// leaves the SM.
+// leaves the SM. Next to the products: each K/V tile staged in shared
+// memory is read from L2 once for every query tile that sees it (1.1 GB at
+// that shape for 128-row query tiles, twice that for 64), and the softmax's
+// exponentials on the CUDA cores take about half the products' time, so
+// they must run under them.
 //
 // Which tiles: a slot's position is in k_pos, not in its index (hymba's
 // ring wraps), so a K/V tile cannot be skipped by its index as flash does.
-// Each CTA first takes its rows' positions (qmin, qmax over rows < S) and
-// walks k_pos once, a warp a tile of 64 slots: a tile is needed where some
-// slot is visible to some position in [qmin, qmax] (p >= 0, p <= qmax,
-// qmin - p < w), and needs no per-element mask where every slot is visible
-// to every one (inside T, p >= 0, p <= qmin, qmax - p < w). The needed
-// tiles go to a list in shared memory, in slot order, with that flag.
-// Where positions follow the slots (a prefill into an empty ring, llava's)
-// the list is the causal half of the ring.
+// A CTA plans each block of query rows first: the position range of its
+// rows below S (per group of 64 rows), then a walk of k_pos, a warp a tile:
+// a tile is needed where some slot is visible to some position in the
+// block's [qmin, qmax] (p >= 0, p <= qmax, qmin - p < w), and needs no
+// per-element mask for a group's rows where every slot is visible to every
+// one of their positions (inside T, p >= 0, p <= the group's qmin, its qmax
+// - p < w). The needed tiles go to a list in shared memory, in slot order,
+// each with a flag a group. Where positions follow the slots (a prefill into
+// an empty ring, llava's) the list is the causal half of the ring.
 //
-// bfloat16 with hd % 16 == 0 and 16-byte aligned rows (cache_bf16_kernel):
-// flash_attention.cu's design over the list. One warpgroup a CTA owns 64
-// query rows of one head; S = Q K^T as wgmma m64n64k16 from 128-byte
-// swizzled shared tiles, O += P V as wgmma m64n{64,128}k16 with P in
-// registers; Q and a two-stage K/V ring arrive by TMA on tensor maps built
-// per call from the strides (zeros past S, T and hd), the next listed tile
-// loading while this one computes. hd up to 64 runs as 64 (zero columns),
-// up to 128 as 128.
+// bfloat16 with hd % 16 == 0 and 16-byte aligned rows (cache_bf16_kernel),
+// warp-specialised and persistent (its times against the earlier kernel of
+// one warpgroup a 64-row CTA: PERF.md). One CTA an SM (its shared memory
+// allows one) walks work items, a block of 128 query rows of
+// one (head, row) each, the latest blocks first, in a snake over the grid so
+// that long and short items even out. Each K/V tile staged in shared memory
+// serves 128 rows. Three roles, a warpgroup each, no CTA-wide barrier after
+// the start:
+//   - the producer warpgroup (its registers lowered with setmaxnreg, given
+//     to the consumers): three warps plan the next item while the current
+//     one runs, into one of two plan buffers; one warp loads, by TMA, each
+//     item's Q (once the consumers' last Q K^T of the item before is done),
+//     then each listed tile's K with its 128 slots' positions (so a masked
+//     tile reads positions from shared memory) and its V, into rings of 2
+//     stages at hd 128 and 4 at 64 (64 or 32 KB a stage; 227 KB a CTA).
+//     K and V have full and empty mbarriers each: K is free once the tile's
+//     scores are read, V once its P V is done, so the next tile's copy
+//     starts a tile earlier than with one barrier for both.
+//   - two consumer warpgroups, each 64 of an item's rows: S = Q K^T as wgmma
+//     m64n128k16 (both K-major in 128-byte swizzled shared memory), O += P V
+//     as wgmma m64n{64,128}k16 with P in registers and V MN-major. Tile j's
+//     Q K^T and tile j-1's P V are issued together; after wgmma.wait_group 1
+//     (Q K^T done) tile j's softmax runs while P V still does.
+//   - between the two consumers, named barriers order the issues (ping-
+//     pong): one issues its pair of products after the other has issued
+//     its own, so one's softmax runs under the other's products.
+// Every branch of a consumer is uniform to the compiler (mbarrier waits in
+// the asm with bra.uni, predicated arrivals, values broadcast from lane 0),
+// S is declared fresh a tile and the first tile of an item is peeled: with a
+// divergent path or a loop-carried accumulator ptxas serialises every wgmma
+// (C7520, C7515), and each issue waits for the products. Tiles of 128 slots:
+// Q K^T as m64n128 reads 6 KB of shared memory per 64 columns of work (8 KB
+// as two n64), and each tile's barrier and issue cost is spread over twice
+// the work; the consumers' registers (S 64, P 32, O 64 a thread) fit in
+// 232. The softmax: scores stay q.k without a softcap, the scale folded into
+// the exponent's FMA; row maxima and sums by trees; one MUFU.EX2 an element.
 //
 // Every other case (float32, hd not a multiple of 16 or past 128, unaligned
 // rows) runs on the CUDA cores (cache_scalar_kernel<T, DPER>, hd up to 16
-// DPER: 128 or 256): flash's f32 kernel over the
-// list, the mask from the positions, bf16 read into f32 and P rounded to
-// bf16 before P V as the plain version rounds it. float32 stays off the
+// DPER: 128 or 256): flash's f32 kernel over the list of 64-slot tiles of
+// 64-row CTAs, the mask from the positions, bf16 read into f32 and P rounded
+// to bf16 before P V as the plain version rounds it. float32 stays off the
 // tensor cores: TF32 would miss the f32 tolerance (2e-5).
 #include <cuda.h>
 
@@ -56,14 +89,21 @@
 #include <initializer_list>
 
 #include "common.cuh"
-#include "wgmma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using hp::mbar_arrive_if;
+using hp::mbar_expect;
+using hp::mbar_init;
+using hp::mbar_wait;
+
 constexpr int kMaxHd = 256;       // the CUDA-core kernel's; the wgmma kernel takes up to 128
 constexpr int kMaxTileHd = 128;
-constexpr int kRows = 64;        // query rows a CTA, slots a K/V tile
-constexpr int kFull = 1 << 30;   // list entry flag: every slot visible to every row
+constexpr int kRows = 64;        // query rows of a group (a CTA of the scalar kernel, a
+                                 // consumer warpgroup); slots a tile of the scalar kernel
+constexpr int kFull = 1 << 30;   // list entry flag: every slot visible to every row (of group
+                                 // g: kFull >> g)
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may have
 
 struct Strides {
@@ -74,327 +114,584 @@ __device__ __forceinline__ bool visible(int qp, int kp, int window) {
   return kp >= 0 && qp >= kp && (window <= 0 || qp - kp < window);
 }
 
-// The CTA's plan, called by every thread (blockDim.x a multiple of 32, at
-// least 64): the position range of rows q0.. below S, then the K/V tiles any
-// of them can see, in slot order, as list[0, n) (tile | kFull where no slot
-// needs a mask); returns n. red: 3 ints; list: one int a tile of the ring,
-// written in place over the per-tile flags (warp 0 reads a group of 32
-// flags before it writes any entry, and entries land at or below them).
+// A K/V tile's list entry flags, a warp together, from its slots' positions
+// (this lane's kPer of them, -1 past T) and the position range [lo[g],
+// hi[g]] of each group of query rows (lo > hi: the group has no row below
+// S): bit 0 where some slot is visible to some position in the CTA's range,
+// kFull >> g where every slot is visible to every position of group g (a
+// group without rows counts as such). The same on every lane.
+template <int G, int kPer>
+__device__ __forceinline__ int tile_flags(const int (&p)[kPer], const int (&lo)[G],
+                                          const int (&hi)[G], int window) {
+  int qmin = INT_MAX, qmax = INT_MIN;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    qmin = min(qmin, lo[g]);
+    qmax = max(qmax, hi[g]);
+  }
+  bool any = false, all[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) all[g] = true;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    any = any || (p[j] >= 0 && p[j] <= qmax && (window <= 0 || qmin - p[j] < window));
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      all[g] = all[g] && (lo[g] > hi[g] ||
+                          (p[j] >= 0 && p[j] <= lo[g] && (window <= 0 || hi[g] - p[j] < window)));
+  }
+  int f = __any_sync(0xffffffffu, any) ? 1 : 0;
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    if (__all_sync(0xffffffffu, all[g])) f |= kFull >> g;
+  return f;
+}
+
+// The range of the positions of rows r0 .. r1 - 1 (below S), a warp
+// together: lo > hi where there is none.
+__device__ __forceinline__ void row_range(const int* __restrict__ qp, int r0, int r1, int& lo,
+                                          int& hi) {
+  int a = INT_MAX, z = INT_MIN;
+  for (int r = r0 + threadIdx.x % 32; r < r1; r += 32) {
+    a = min(a, qp[r]);
+    z = max(z, qp[r]);
+  }
+  lo = __reduce_min_sync(0xffffffffu, a);
+  hi = __reduce_max_sync(0xffffffffu, z);
+}
+
+// The plan of G groups of kRows rows from q0, made by nwarp warps (this
+// one is `warp` of them, nwarp >= G) that sync() together: the K/V tiles of
+// TILE slots the rows can see, in slot order, as list[0, n) (tile | kFull >>
+// g where no slot of the tile needs a mask for group g's rows), a warp a
+// tile; returns n. Each warp's first two tiles' positions load before the
+// rows' ranges are known, so the two loads overlap. red: 2 G + 1 ints;
+// list: one int a tile of the ring, written in place over the per-tile
+// flags (warp 0 reads a group of 32 flags before it writes any entry, and
+// entries land at or below them).
+template <int G, int TILE, typename Sync>
 __device__ int plan_tiles(const int* __restrict__ qp, const int* __restrict__ kp, int q0,
-                          int S, int Tn, int window, int* red, int* list) {
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, nwarp = blockDim.x / 32;
-  if (tid == 0) {
-    red[0] = INT_MAX;
-    red[1] = INT_MIN;
-  }
-  __syncthreads();
-  if (tid < kRows && q0 + tid < S) {
-    const int p = qp[q0 + tid];
-    atomicMin(&red[0], p);
-    atomicMax(&red[1], p);
-  }
-  __syncthreads();
-  const int qmin = red[0], qmax = red[1];
-  const int nk = (Tn + kRows - 1) / kRows;
-  for (int i = warp; i < nk; i += nwarp) {
-    bool any = false, all = true;
-    for (int j = lane; j < kRows; j += 32) {
-      const int t = i * kRows + j;
-      const int p = t < Tn ? kp[t] : -1;
-      any = any || (p >= 0 && p <= qmax && (window <= 0 || qmin - p < window));
-      all = all && (p >= 0 && p <= qmin && (window <= 0 || qmax - p < window));
+                          int S, int Tn, int window, int* red, int* list, int warp, int nwarp,
+                          Sync sync) {
+  constexpr int kPer = TILE / 32, kPre = 2;  // slots a lane a tile; tiles loaded early
+  const int lane = threadIdx.x % 32;
+  const int nk = (Tn + TILE - 1) / TILE;
+  auto load = [&](int i, int (&p)[kPer]) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int t = i * TILE + 32 * j + lane;
+      p[j] = t < Tn ? kp[t] : -1;
     }
-    any = __any_sync(0xffffffffu, any);
-    all = __all_sync(0xffffffffu, all);
-    if (lane == 0) list[i] = any ? (all ? 2 : 1) : 0;
+  };
+  int pre[kPre][kPer];
+#pragma unroll
+  for (int u = 0; u < kPre; ++u) load(warp + u * nwarp, pre[u]);
+  if (warp < G) {  // warp g: the range of group g's positions
+    int lo, hi;
+    row_range(qp, q0 + warp * kRows, min(S, q0 + (warp + 1) * kRows), lo, hi);
+    if (lane == 0) {
+      red[2 * warp] = lo;
+      red[2 * warp + 1] = hi;
+    }
   }
-  __syncthreads();
+  sync();
+  int lo[G], hi[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    lo[g] = red[2 * g];
+    hi[g] = red[2 * g + 1];
+  }
+#pragma unroll
+  for (int u = 0; u < kPre; ++u) {
+    const int i = warp + u * nwarp;
+    if (i < nk) {
+      const int f = tile_flags<G, kPer>(pre[u], lo, hi, window);
+      if (lane == 0) list[i] = f;
+    }
+  }
+  for (int i = warp + kPre * nwarp; i < nk; i += nwarp) {
+    int p[kPer];
+    load(i, p);
+    const int f = tile_flags<G, kPer>(p, lo, hi, window);
+    if (lane == 0) list[i] = f;
+  }
+  sync();
   if (warp == 0) {
     int n = 0;
     for (int i0 = 0; i0 < nk; i0 += 32) {
       const int i = i0 + lane;
       const int f = i < nk ? list[i] : 0;
-      const unsigned take = __ballot_sync(0xffffffffu, f != 0);
-      if (f != 0) list[n + __popc(take & ((1u << lane) - 1u))] = i | (f == 2 ? kFull : 0);
+      const unsigned take = __ballot_sync(0xffffffffu, f & 1);
+      if (f & 1) list[n + __popc(take & ((1u << lane) - 1u))] = i | (f & ~1);
       n += __popc(take);
     }
-    if (lane == 0) red[2] = n;
+    if (lane == 0) red[2 * G] = n;
   }
-  __syncthreads();
-  return red[2];
+  sync();
+  return red[2 * G];
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: wgmma tiles (flash_attention.cu's, over the list)
+// bfloat16: a producer warp and two consumer warpgroups on wgmma tiles
 // ---------------------------------------------------------------------------
 
-constexpr int kWgThreads = 128;  // one warpgroup
-// One 64-column block of a tile: 64 rows of 128 bytes, 16-byte chunk c of row
+constexpr int kSlots = 128;                  // slots a K/V tile
+constexpr int kConsumers = 2;                // consumer warpgroups, kRows query rows each
+constexpr int kCtaRows = kConsumers * kRows;
+constexpr int kProducerWarp = 4 * kConsumers;  // the first warp of the last warpgroup
+constexpr int kWsThreads = 128 * (kConsumers + 1);
+constexpr int kTurn = 1;  // named barriers kTurn + w: consumer warpgroup w's turn to issue
+constexpr int kTileMask = (kFull >> 2) - 1;  // a list entry's tile
+// Registers a thread: ptxas gives each of the 3 warpgroups 168 at launch;
+// the producer's gives back 128 a thread, which the consumers take.
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+static_assert(128 * (168 - kProducerRegs) == 128 * kConsumers * (kConsumerRegs - 168),
+              "the producer frees what the consumers take");
+// A 64-column block of a tile: its rows of 128 bytes, 16-byte chunk c of row
 // r at r * 128 + ((c ^ r % 8) << 4) (the 128-byte swizzle the TMA applies).
-constexpr int kBlockBytes = kRows * 128;
+constexpr uint32_t kQBlock = kRows * 128;
+constexpr uint32_t kKvBlock = kSlots * 128;
 
-// mbarrier and TMA (cp.async.bulk.tensor) helpers; addresses are shared-space
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+// K/V stages: as many as 227 KB holds beside Q at 128 and at 64 columns
+template <int HDP> constexpr int stages() { return HDP == 128 ? 2 : 4; }
+
+// The shared memory of cache_bf16_kernel<HDP> for nk tiles in the ring:
+// offsets in bytes from a 1,024-aligned base.
+template <int HDP>
+struct Layout {
+  static constexpr int kSt = stages<HDP>();
+  static constexpr uint32_t kQHalf = kQBlock * (HDP / 64);  // a warpgroup's Q
+  static constexpr uint32_t kKv = kKvBlock * (HDP / 64);    // a K or V tile
+  static constexpr uint32_t kK = kConsumers * kQHalf;       // stage st's K at kK + 2 st kKv
+  // mbarriers: K full[kSt], V full[kSt], K empty[kSt], V empty[kSt], Q's
+  static constexpr uint32_t kBars = kK + 2 * kSt * kKv;
+  // and the plans' full[2], empty[2], Q's empty
+  static constexpr uint32_t kPos = kBars + 8 * (4 * kSt + 6);  // [kSt][kSlots] ints
+  // two plans, each 8 ints and its list
+  static constexpr uint32_t kPlan = kPos + 4 * kSt * kSlots;
+  static constexpr int bytes(int nk) { return 1024 + kPlan + 2 * 4 * (8 + nk); }
+};
+static_assert(Layout<128>::bytes(4096) <= kMaxSmem && Layout<64>::bytes(4096) <= kMaxSmem,
+              "a ring of 4,096 tiles");
+constexpr int kPlanners = 3;       // the producer warpgroup's warps that plan
+constexpr int kPlanBarrier = 3;    // their named barrier
+
+// S = Q K^T over hd in steps of 16 (Q's 64 rows at q, K's 128 at k): within
+// a 64-column block a step is 32 bytes on from the block's start (the
+// hardware applies the swizzle); one committed group.
+template <int HDP>
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q, uint32_t k) {
+  wg::fence();
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk)
+    wg::wgmma_ss_m64n128(s, wg::desc_sw128(q + (kk / 4) * kQBlock + (kk % 4) * 32, 0, 1024),
+                         wg::desc_sw128(k + (kk / 4) * kKvBlock + (kk % 4) * 32, 0, 1024),
+                         kk > 0);
+  wg::commit();
 }
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes) : "memory");
+
+// O += P V over a tile's 128 slots (V at v) in steps of 16 (16 rows of 128
+// bytes); V is MN-major: LBO steps between its 64-column blocks, SBO
+// between groups of 8 slots. One committed group.
+template <int HDP>
+__device__ __forceinline__ void issue_pv(float (&acc)[HDP / 2], uint32_t (&pa)[8][4],
+                                         uint32_t v) {
+  wg::fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    hp::wgmma_pv<HDP>(acc, pa[kk], wg::desc_sw128(v + kk * 16 * 128, kKvBlock, 1024));
+  wg::commit();
 }
-// Wait for the phase of the given parity to complete. A copy that never
-// lands (a bad tensor map) traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (int i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (i > (1 << 20)) asm volatile("trap;");
+
+// A consumer thread's two rows: their positions (-1: sees nothing) and the
+// score's terms.
+struct Rows {
+  int qp0, qp1, window;
+  float scale_log2, softcap;
+};
+
+// The maxima of rows r0 (x[4c], x[4c + 1]) and r1 (x[4c + 2], x[4c + 3])
+// of a thread's 64 values, by halving: a tree of depth 6, not a chain of 32.
+__device__ __forceinline__ void row_max(const float (&x)[64], float& mx0, float& mx1) {
+  float a[16], b[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    a[c] = fmaxf(x[4 * c], x[4 * c + 1]);
+    b[c] = fmaxf(x[4 * c + 2], x[4 * c + 3]);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)  // halves of 8, 4, 2, 1 (fixed trip counts: all in registers)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (c < 8 >> k) {
+        a[c] = fmaxf(a[c], a[c + (8 >> k)]);
+        b[c] = fmaxf(b[c], b[c + (8 >> k)]);
+      }
+  mx0 = a[0];
+  mx1 = b[0];
+}
+
+// A tile's scores, in place; s[4c + e]: row e < 2 ? r0 : r1, slot 8c + c0 +
+// e % 2 of the tile, whose positions kpos[8c], kpos[8c + 1] mask it element
+// by element where kMasked (-1e30). With a softcap (kCap) they are turned
+// into log2 units here; without, they stay q.k, and the scale goes into the
+// exponent's FMA (probs). The rows' maxima, in log2 units, into mx0, mx1.
+template <bool kMasked, bool kCap>
+__device__ __forceinline__ void scores(float (&s)[64], const int* kpos, const Rows& r,
+                                       float& mx0, float& mx1) {
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    int2 kq = make_int2(0, 0);
+    if constexpr (kMasked) kq = *reinterpret_cast<const int2*>(kpos + 8 * c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * c + e;
+      if constexpr (kCap)
+        s[i] = rt::softcap(s[i] * (r.scale_log2 / rt::kLog2e), r.softcap) * rt::kLog2e;
+      if (kMasked && !visible(e < 2 ? r.qp0 : r.qp1, e % 2 ? kq.y : kq.x, r.window))
+        s[i] = rt::kNegInf;
+    }
+  }
+  row_max(s, mx0, mx1);
+  if constexpr (!kCap) {  // a masked row's -1e30 stays far below any score
+    mx0 *= r.scale_log2;
+    mx1 *= r.scale_log2;
   }
 }
-// one 64 x 64 box (row0.., column c0..) of a [B, rows, heads, hd] tensor map
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int c0, int row0,
-                                        int head, int b, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(row0), "r"(head), "r"(b),
-        "r"(bar) : "memory");
-}
-// a tile: its 64-column blocks, each a box the TMA swizzles as it stores
-template <int HDP>
-__device__ __forceinline__ void tma_tile(uint32_t tile, const CUtensorMap* map, int row0,
-                                         int head, int b, uint32_t bar) {
+
+// P = 2^(score - the row's max) in place (kRaw: the score is q.k, scaled
+// here), each row's share of its sum into sum0, sum1 (a tree, as row_max).
+// Where kMasked, a masked score (-1e30) gives 0 also while the row's max
+// is -1e30 (a row that has seen no slot yet).
+template <bool kMasked, bool kRaw>
+__device__ __forceinline__ void probs(float (&s)[64], float scale_log2, float mn0, float mn1,
+                                      float& sum0, float& sum1) {
 #pragma unroll
-  for (int cb = 0; cb < HDP / 64; ++cb)
-    tma_box(tile + cb * kBlockBytes, map, 64 * cb, row0, head, b, bar);
+  for (int i = 0; i < 64; ++i) {
+    const float mn = i % 4 < 2 ? mn0 : mn1;
+    const float x = kRaw ? fmaf(s[i], scale_log2, -mn) : s[i] - mn;
+    s[i] = kMasked && s[i] == rt::kNegInf ? 0.f : rt::ex2(x);
+  }
+  float a[16], b[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    a[c] = s[4 * c] + s[4 * c + 1];
+    b[c] = s[4 * c + 2] + s[4 * c + 3];
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (c < 8 >> k) {
+        a[c] += a[c + (8 >> k)];
+        b[c] += b[c + (8 >> k)];
+      }
+  sum0 = a[0];
+  sum1 = b[0];
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+// Work item k (0 .. nq H B - 1) of the CTAs' walk: the latest 128-row block
+// first, over every (head, row) before the next.
+struct Item {
+  int q0, h, b;
+};
+__device__ __forceinline__ Item item_of(int k, int nq, int H, int B) {
+  const int hb = k % (H * B);
+  return {(nq - 1 - k / (H * B)) * kCtaRows, hb % H, hb / H};
 }
-
-template <int HDP> __device__ __forceinline__ void wgmma_pv(float (&o)[HDP / 2],
-                                                            const uint32_t (&a)[4],
-                                                            uint64_t db);
-template <> __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
-                                                         const uint32_t (&a)[4],
-                                                         uint64_t db) {
-  wg::wgmma_rs_m64n64(o, a, db);
+// The m-th item of this CTA: a snake over the grid, round r taking items r G
+// .. r G + G - 1 forwards when r is even and backwards when odd, so the
+// CTAs' loads of long and short items even out; -1 past the last.
+__device__ __forceinline__ int nth_item(int m, int items) {
+  const int G = gridDim.x, c = m % 2 ? G - 1 - blockIdx.x : blockIdx.x;
+  const int k = m * G + c;
+  return k < items ? k : -1;
 }
-template <> __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
-                                                          const uint32_t (&a)[4],
-                                                          uint64_t db) {
-  wg::wgmma_rs_m64n128(o, a, db);
-}
-
-// V is MN-major for the P.V product: LBO steps between the 64-column blocks
-// of hd, SBO between groups of 8 slots.
-constexpr uint32_t kVLbo = kBlockBytes, kVSbo = 8 * 128;
 
 template <int HDP>
-__global__ void __launch_bounds__(kWgThreads)
+__global__ void __launch_bounds__(kWsThreads, 1)
 cache_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const int* __restrict__ q_pos,
                   const int* __restrict__ k_pos, __nv_bfloat16* __restrict__ o, Strides os,
-                  int KV, int S, int Tn, int hd, int window, float scale_log2, float softcap) {
-  constexpr int kTile = kRows * HDP * 2;  // bytes of one tile
+                  int H, int KV, int B, int S, int Tn, int hd, int window, float scale_log2,
+                  float softcap) {
+  using L = Layout<HDP>;
+  constexpr int kSt = L::kSt;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align the tiles to it
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t sQ = base;
-  auto sK = [&](int st) { return base + (1 + st) * kTile; };
-  auto sV = [&](int st) { return base + (3 + st) * kTile; };
-  const uint32_t full = base + 5 * kTile;  // two mbarriers: stage 0, stage 1 filled
-  int* red = reinterpret_cast<int*>(smem_raw + (base - raw) + 5 * kTile + 16);
-  int* list = red + 4;
+  unsigned char* gbase = smem_raw + (base - raw);
+  auto sK = [&](int st) { return base + L::kK + 2 * st * L::kKv; };
+  auto sV = [&](int st) { return sK(st) + L::kKv; };
+  // stage st's mbarriers: K (v = 0) or V (v = 1) landed, done with
+  auto full = [&](int v, int st) { return base + L::kBars + 8 * (v * kSt + st); };
+  auto empty = [&](int v, int st) { return base + L::kBars + 8 * ((2 + v) * kSt + st); };
+  const uint32_t qbar = base + L::kBars + 32 * kSt;  // Q landed
+  // plan buffer u's mbarriers: made, read by every warp that reads it; Q done with
+  auto plan_full = [&](int u) { return qbar + 8 + 8 * u; };
+  auto plan_empty = [&](int u) { return qbar + 24 + 8 * u; };
+  const uint32_t qfree = qbar + 40;
+  int* pos = reinterpret_cast<int*>(gbase + L::kPos);
+  const int nk = (Tn + kSlots - 1) / kSlots;
+  auto red = [&](int u) { return reinterpret_cast<int*>(gbase + L::kPlan) + u * (8 + nk); };
+  auto list = [&](int u) { return red(u) + 8; };
 
-  const int iq = gridDim.x - 1 - blockIdx.x;  // the latest positions first, in a prefill
-  const int h = blockIdx.y, b = blockIdx.z, g = h % KV;
-  const int q0 = iq * kRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int* qp = q_pos + static_cast<int64_t>(b) * S;
-  const int* kp = k_pos + static_cast<int64_t>(b) * Tn;
+  const int nq = (S + kCtaRows - 1) / kCtaRows, items = nq * H * B;
+  // values every lane of a warp holds alike are broadcast from lane 0, so
+  // the compiler knows the branches on them uniform (see hp::mbar_wait)
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    mbar_init(full);
-    mbar_init(full + 8);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  const int n = plan_tiles(qp, kp, q0, S, Tn, window, red, list);  // syncs the barriers too
-
-  // one thread starts the copies: Q and the first listed K/V tile on stage
-  // 0's barrier (rows past S or T arrive as zeros); none without a tile
-  if (threadIdx.x == 0 && n > 0) {
-    const int k0 = (list[0] & ~kFull) * kRows;
-    mbar_expect(full, 3 * kTile);
-    tma_tile<HDP>(sQ, &tq, q0, h, b, full);
-    tma_tile<HDP>(sK(0), &tk, k0, g, b, full);
-    tma_tile<HDP>(sV(0), &tv, k0, g, b, full);
-  }
-
-  // this thread's rows (and 8 below), their positions (-1 past S: sees
-  // nothing), and the first column of each 8-column block
-  const int r0 = q0 + warp * 16 + lane / 4, r1 = r0 + 8, c0 = 2 * (lane % 4);
-  const int qp0 = r0 < S ? qp[r0] : -1, qp1 = r1 < S ? qp[r1] : -1;
-  float acc[HDP / 2];
-#pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
-  float s[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = 0.f;
-  float m0 = rt::kNegInf, m1 = rt::kNegInf, l0 = 0.f, l1 = 0.f;
-
-  uint32_t parity = 0;  // bit st: the phase of stage st's barrier to wait for
-  for (int it = 0; it < n; ++it) {
-    const int st = it & 1;
-    mbar_wait(full + 8 * st, (parity >> st) & 1);
-    parity ^= 1u << st;
-    __syncthreads();  // everyone is done with the other stage
-    if (threadIdx.x == 0 && it + 1 < n) {  // the next tile loads while this one computes
-      const int kn = (list[it + 1] & ~kFull) * kRows;
-      mbar_expect(full + 8 * (st ^ 1), 2 * kTile);
-      tma_tile<HDP>(sK(st ^ 1), &tk, kn, g, b, full + 8 * (st ^ 1));
-      tma_tile<HDP>(sV(st ^ 1), &tv, kn, g, b, full + 8 * (st ^ 1));
+    for (int st = 0; st < kSt; ++st) {
+      mbar_init(full(0, st), 2);  // K's copy's arrival (with its bytes), the positions'
+      mbar_init(full(1, st), 1);
+      mbar_init(empty(0, st), 4 * kConsumers);  // each consumer warp's
+      mbar_init(empty(1, st), 4 * kConsumers);
     }
-    const int entry = list[it];
-    const int k0 = (entry & ~kFull) * kRows;
-
-    // S = Q K^T over hd in steps of 16: within a 64-column block a step is
-    // 32 bytes on from the block's start (the hardware applies the swizzle)
-    wg::fence();
-#pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kBlockBytes + (kk % 4) * 32;
-      wg::wgmma_ss_m64n64(s, wg::desc_sw128(sQ + off, 0, 1024),
-                          wg::desc_sw128(sK(st) + off, 0, 1024), kk > 0);
+    mbar_init(qbar, 1);
+    for (int u = 0; u < 2; ++u) {
+      mbar_init(plan_full(u), 1);
+      mbar_init(plan_empty(u), 4 * kConsumers + 1);  // the consumer warps and the loader
     }
-    wg::commit();
-    wg::wait_all();
-    wg::fence_operands(s);
+    mbar_init(qfree, 4 * kConsumers);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();  // the barriers are initialised; no CTA-wide barrier after this
 
-    // online softmax in log2 units; s[4j + e]: row e < 2 ? r0 : r1, slot
-    // k0 + 8j + c0 + e % 2. A tile not flagged full masks element by
-    // element with its slots' positions (-1 past T).
-    const bool masked = !(entry & kFull);
-    int kpv[16];
-    if (masked) {
+  if (warp >= kProducerWarp) {
+    hp::reg_dealloc<kProducerRegs>();
+    if (warp > kProducerWarp) {
+      // planners: each item's plan into buffer m % 2, once the item two
+      // before has left it
+      const int pw = warp - kProducerWarp - 1;
+      for (int m = 0;; ++m) {
+        const int k = nth_item(m, items);
+        if (k < 0) break;
+        const Item it = item_of(k, nq, H, B);
+        if (m >= 2) mbar_wait(plan_empty(m % 2), (m / 2 + 1) & 1);
+        plan_tiles<kConsumers, kSlots>(q_pos + static_cast<int64_t>(it.b) * S,
+                                       k_pos + static_cast<int64_t>(it.b) * Tn, it.q0, S, Tn,
+                                       window, red(m % 2), list(m % 2), pw, kPlanners,
+                                       [] { hp::bar_sync(kPlanBarrier, 32 * kPlanners); });
+        mbar_arrive_if(plan_full(m % 2), pw == 0 && lane == 0);
+      }
+      return;
+    }
+    // loader: each item's Q (once the consumers' last Q K^T is done), then
+    // its listed tiles' K (with their slots' positions) and V into the ring
+    int it = 0;  // tiles put, over the items
+    for (int m = 0;; ++m) {
+      const int k = nth_item(m, items);
+      if (k < 0) break;
+      const Item item = item_of(k, nq, H, B);
+      const int g = item.h % KV;
+      const int* kp = k_pos + static_cast<int64_t>(item.b) * Tn;
+      mbar_wait(plan_full(m % 2), (m / 2) & 1);
+      const int n = red(m % 2)[2 * kConsumers];
+      const int* lst = list(m % 2);
+      if (m > 0) mbar_wait(qfree, (m - 1) & 1);
+      if (lane == 0) {
+        mbar_expect(qbar, kConsumers * L::kQHalf);  // rows past S arrive as zeros
+        for (int w = 0; w < kConsumers; ++w)
+          hp::tma_tile<HDP, kQBlock>(base + w * L::kQHalf, &tq, item.q0 + w * kRows, item.h,
+                                     item.b, qbar);
+      }
+      for (int t = 0; t < n; ++t, ++it) {
+        const int st = it % kSt, k0 = (lst[t] & kTileMask) * kSlots;
+        // K and its positions once tile it - kSt's scores are read
+        if (it >= kSt) mbar_wait(empty(0, st), (it / kSt + 1) & 1);
+        if (lane == 0) {
+          mbar_expect(full(0, st), L::kKv);
+          hp::tma_tile<HDP, kKvBlock>(sK(st), &tk, k0, g, item.b, full(0, st));
+        }
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int t = k0 + 8 * (i / 2) + c0 + i % 2;
-        kpv[i] = t < Tn ? kp[t] : -1;
+        for (int j = 0; j < kSlots / 32; ++j) {
+          const int t_ = k0 + 32 * j + lane;
+          pos[st * kSlots + 32 * j + lane] = t_ < Tn ? kp[t_] : -1;
+        }
+        __syncwarp();
+        mbar_arrive_if(full(0, st), lane == 0);
+        // V once tile it - kSt's P V is done
+        if (it >= kSt) mbar_wait(empty(1, st), (it / kSt + 1) & 1);
+        if (lane == 0) {
+          mbar_expect(full(1, st), L::kKv);
+          hp::tma_tile<HDP, kKvBlock>(sV(st), &tv, k0, g, item.b, full(1, st));
+        }
+      }
+      __syncwarp();
+      mbar_arrive_if(plan_empty(m % 2), lane == 0);
+    }
+  } else {
+    // consumer warpgroup w: of each item, rows q0 + 64 w.., this thread's r0
+    // and r0 + 8, and the first column of each 8-column block
+    hp::reg_alloc<kConsumerRegs>();
+    const int w = warp / 4;
+    const int c0 = 2 * (lane % 4);
+    const uint32_t sQ = base + w * L::kQHalf;
+    float acc[HDP / 2];
+    uint32_t pa[8][4];  // P (bf16) as the A fragments of P V, 16 slots each
+    float m0, m1, l0, l1, corr0, corr1;
+    Rows rows{-1, -1, window, scale_log2, softcap};
+    // global tile j's online softmax on its scores s (e: its list entry);
+    // every warpgroup's branches here are uniform
+    auto softmax = [&](float (&s)[64], int j, int e) {
+      const int st = j % kSt;
+      const bool full_tile = e & (kFull >> w);
+      float mx0, mx1;
+      const int* kpos = pos + st * kSlots + c0;
+      if (rows.softcap > 0.f) {  // a kernel argument: uniform
+        if (full_tile) scores<false, true>(s, kpos, rows, mx0, mx1);
+        else scores<true, true>(s, kpos, rows, mx0, mx1);
+      } else {
+        if (full_tile) scores<false, false>(s, kpos, rows, mx0, mx1);
+        else scores<true, false>(s, kpos, rows, mx0, mx1);
+      }
+      __syncwarp();  // this warp is done with the tile's K and positions
+      mbar_arrive_if(empty(0, st), lane == 0);
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      corr0 = rt::ex2(m0 - mn0);
+      corr1 = rt::ex2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0, sum1;
+      const float sc = rows.scale_log2;
+      if (rows.softcap > 0.f) {
+        if (full_tile) probs<false, false>(s, sc, mn0, mn1, sum0, sum1);
+        else probs<true, false>(s, sc, mn0, mn1, sum0, sum1);
+      } else {
+        if (full_tile) probs<false, true>(s, sc, mn0, mn1, sum0, sum1);
+        else probs<true, true>(s, sc, mn0, mn1, sum0, sum1);
+      }
+      l0 = l0 * corr0 + sum0;  // this thread's share of the row sum
+      l1 = l1 * corr1 + sum1;
+    };
+    // P as the A fragment: slots 16kk.. are S columns of blocks 2kk, 2kk+1
+    auto pack = [&](const float (&s)[64]) {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pa[kk][i] = hp::pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+    };
+    // global tile j's K has landed: e, its list entry, broadcast (uniform)
+    auto wait_k = [&](int j, int e) {
+      mbar_wait(full(0, j % kSt), (j / kSt) & 1);
+      return __shfl_sync(0xffffffffu, e, 0);
+    };
+    // this warp is done with Q: the loader may bring the next item's
+    auto free_q = [&] {
+      __syncwarp();
+      mbar_arrive_if(qfree, lane == 0);
+    };
+
+    if (w == 1) hp::bar_arrive(kTurn, 2 * 128);  // warpgroup 0 issues first
+    int it = 0;  // tiles done, over the items
+    for (int m = 0;; ++m) {
+      const int k = nth_item(m, items);
+      if (k < 0) break;
+      const Item item = item_of(k, nq, H, B);
+      const int* qp = q_pos + static_cast<int64_t>(item.b) * S;
+      const int r0 = item.q0 + w * kRows + (warp % 4) * 16 + lane / 4, r1 = r0 + 8;
+      rows.qp0 = r0 < S ? qp[r0] : -1;  // -1 past S: sees nothing
+      rows.qp1 = r1 < S ? qp[r1] : -1;
+#pragma unroll
+      for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+      m0 = m1 = rt::kNegInf;
+      l0 = l1 = 0.f;
+      mbar_wait(plan_full(m % 2), (m / 2) & 1);
+      const int n = __shfl_sync(0xffffffffu, red(m % 2)[2 * kConsumers], 0);
+      const int* lst = list(m % 2);
+      mbar_wait(qbar, m & 1);
+      if (n > 0) {  // tile 0: its Q K^T alone
+        float s[64];
+        const int e = wait_k(it, lst[0]);
+        hp::bar_sync(kTurn + w, 2 * 128);
+        issue_qk<HDP>(s, sQ, sK(it % kSt));
+        hp::bar_arrive(kTurn + 1 - w, 2 * 128);
+        wg::wait<0>();
+        wg::fence_operands(s);
+        if (n == 1) free_q();
+        softmax(s, it, e);
+        pack(s);
+      } else {
+        free_q();
+      }
+      for (int j = 1; j < n; ++j) {
+        // tile j's Q K^T and tile j-1's P V issued together, in this
+        // warpgroup's turn; tile j's softmax runs while P V does
+        const int gj = it + j, st = gj % kSt, sp = (gj - 1) % kSt;
+        float s[64];
+        const int e = wait_k(gj, lst[j]);
+        hp::bar_sync(kTurn + w, 2 * 128);
+        issue_qk<HDP>(s, sQ, sK(st));
+        mbar_wait(full(1, sp), ((gj - 1) / kSt) & 1);
+        issue_pv<HDP>(acc, pa, sV(sp));
+        hp::bar_arrive(kTurn + 1 - w, 2 * 128);
+        wg::wait<1>();  // Q K^T done
+        wg::fence_operands(s);
+        if (j + 1 == n) free_q();
+        softmax(s, gj, e);
+        wg::wait<0>();  // P V done: tile j-1's V is free
+        wg::fence_operands(acc);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) wg::fence_operands(pa[kk]);
+        __syncwarp();
+        mbar_arrive_if(empty(1, sp), lane == 0);
+        // O rescaled where a row's max moved (a causal walk's later tiles
+        // rarely move it); the vote keeps the branch uniform
+        if (!__all_sync(0xffffffffu, corr0 == 1.f && corr1 == 1.f))
+#pragma unroll
+          for (int i = 0; i < HDP / 2; ++i) acc[i] *= (i % 4 < 2) ? corr0 : corr1;
+        pack(s);
+      }
+      __syncwarp();  // done with the plan
+      mbar_arrive_if(plan_empty(m % 2), lane == 0);
+      if (n > 0) {  // the last tile's P V
+        const int sp = (it + n - 1) % kSt;
+        mbar_wait(full(1, sp), ((it + n - 1) / kSt) & 1);
+        issue_pv<HDP>(acc, pa, sV(sp));
+        wg::wait<0>();
+        wg::fence_operands(acc);
+        __syncwarp();
+        mbar_arrive_if(empty(1, sp), lane == 0);
+      }
+      it += n;
+
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+      __nv_bfloat16* ob = o + item.b * os.b + item.h * os.h;
+#pragma unroll
+      for (int jb = 0; jb < HDP / 8; ++jb) {
+        const int col = 8 * jb + c0;
+        if (col >= hd) continue;
+        if (r0 < S)
+          *reinterpret_cast<__nv_bfloat162*>(ob + r0 * os.s + col) =
+              __floats2bfloat162_rn(acc[4 * jb] * inv0, acc[4 * jb + 1] * inv0);
+        if (r1 < S)
+          *reinterpret_cast<__nv_bfloat162*>(ob + r1 * os.s + col) =
+              __floats2bfloat162_rn(acc[4 * jb + 2] * inv1, acc[4 * jb + 3] * inv1);
       }
     }
-    float mx0 = rt::kNegInf, mx1 = rt::kNegInf;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      float x = rt::score_log2(s[i], scale_log2, softcap);
-      if (masked && !visible(i % 4 < 2 ? qp0 : qp1, kpv[2 * (i / 4) + i % 2], window))
-        x = rt::kNegInf;
-      s[i] = x;
-      if (i % 4 < 2) mx0 = fmaxf(mx0, x);
-      else mx1 = fmaxf(mx1, x);
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off *= 2) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const bool top = i % 4 < 2;
-      const float p = s[i] == rt::kNegInf ? 0.f : exp2f(s[i] - (top ? mn0 : mn1));
-      s[i] = p;
-      if (top) sum0 += p;
-      else sum1 += p;
-    }
-    l0 = l0 * corr0 + sum0;  // this thread's share of the row sum
-    l1 = l1 * corr1 + sum1;
-#pragma unroll
-    for (int i = 0; i < HDP / 2; ++i) acc[i] *= (i % 4 < 2) ? corr0 : corr1;
-
-    // P (bf16) as the A fragment: slots 16kk.. are S columns of blocks 2kk, 2kk+1
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
-
-    // O += P V over the tile's 64 slots in steps of 16 (16 rows of 128 bytes)
-    wg::fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<HDP>(acc, pa[kk], wg::desc_sw128(sV(st) + kk * 16 * 128, kVLbo, kVSbo));
-    wg::commit();
-    wg::wait_all();
-    wg::fence_operands(acc);
+    // warpgroup 1 arrived in warpgroup 0's turn once more than 0 waited
+    if (w == 0) hp::bar_sync(kTurn, 2 * 128);
   }
-
-#pragma unroll
-  for (int off = 1; off < 4; off *= 2) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  __nv_bfloat16* ob = o + b * os.b + h * os.h;
-#pragma unroll
-  for (int j = 0; j < HDP / 8; ++j) {
-    const int col = 8 * j + c0;
-    if (col >= hd) continue;
-    if (r0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * os.s + col) =
-          __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
-    if (r1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * os.s + col) =
-          __floats2bfloat162_rn(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
-  }
-}
-
-// A [B, rows, heads, hd] bf16 tensor (element strides st, hd contiguous) as
-// a TMA map of 64 x 64 boxes, 128-byte swizzled, zeros past the edges.
-int make_map(CUtensorMap* map, const void* ptr, const Strides& st, int B, int rows, int heads,
-             int hd) {
-  using Encode = decltype(&cuTensorMapEncodeTiled);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault, &found);
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess || encode == nullptr) {
-      encode = nullptr;
-      return static_cast<int>(cudaErrorNotSupported);
-    }
-  }
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
-                                 static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {64, kRows, 1, 1}, elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int HDP>
 int launch_bf16(const void* q, const void* k, const void* v, const int* q_pos, const int* k_pos,
                 void* o, const Strides* st, int B, int H, int KV, int S, int Tn, int hd,
                 int window, float softcap, cudaStream_t stream) {
-  const int nk = (Tn + kRows - 1) / kRows;
-  // Q, K x2, V x2, barriers, alignment; the plan's 4 + nk ints
-  const int smem = 5 * kRows * HDP * 2 + 16 + 1024 + 4 * (4 + nk);
+  const int smem = Layout<HDP>::bytes((Tn + kSlots - 1) / kSlots);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   static int attr = 0;  // the largest size set so far
   if (smem > attr) {
@@ -403,15 +700,22 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* q_pos, c
     if (err != cudaSuccess) return static_cast<int>(err);
     attr = smem;
   }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, q, st[0], B, S, H, hd);
-  if (err == 0) err = make_map(&tk, k, st[1], B, Tn, KV, hd);
-  if (err == 0) err = make_map(&tv, v, st[2], B, Tn, KV, hd);
+  int err = hp::make_map(&tq, q, B, S, H, hd, st[0].s, st[0].h, st[0].b);
+  if (err == 0) err = hp::make_map(&tk, k, B, Tn, KV, hd, st[1].s, st[1].h, st[1].b, kSlots);
+  if (err == 0) err = hp::make_map(&tv, v, B, Tn, KV, hd, st[2].s, st[2].h, st[2].b, kSlots);
   if (err != 0) return err;
-  const dim3 grid((S + kRows - 1) / kRows, H, B);
-  cache_bf16_kernel<HDP><<<grid, kWgThreads, smem, stream>>>(
-      tq, tk, tv, q_pos, k_pos, static_cast<__nv_bfloat16*>(o), st[3], KV, S, Tn, hd, window,
-      rt::kLog2e / sqrtf(static_cast<float>(hd)), softcap);
+  // persistent: one CTA an SM (its shared memory allows no more), each
+  // walking its share of the nq H B items
+  const long items = static_cast<long>((S + kCtaRows - 1) / kCtaRows) * H * B;
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  cache_bf16_kernel<HDP><<<grid, kWsThreads, smem, stream>>>(
+      tq, tk, tv, q_pos, k_pos, static_cast<__nv_bfloat16*>(o), st[3], H, KV, B, S, Tn, hd,
+      window, rt::kLog2e / sqrtf(static_cast<float>(hd)), softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -463,7 +767,8 @@ cache_scalar_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int* qp = q_pos + static_cast<int64_t>(b) * S;
   const int* kp = k_pos + static_cast<int64_t>(b) * Tn;
 
-  const int n = plan_tiles(qp, kp, q0, S, Tn, window, red, list);
+  const int n = plan_tiles<1, kRows>(qp, kp, q0, S, Tn, window, red, list, tid / 32,
+                                   kThreads / 32, [] { __syncthreads(); });
   for (int e = tid; e < kRows * hd; e += kThreads) {
     const int i = e / hd, d = e % hd;
     q_s[i * hdp + d] = (q0 + i < S) ? rt::to_f(qb[(q0 + i) * qs.s + d]) : 0.f;

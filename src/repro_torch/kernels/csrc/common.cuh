@@ -22,6 +22,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' mask value
+
+// 2^x, one MUFU.EX2 (below 2^-126 flushed to 0; -inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x * kLog2e)
 
 // A sum over the 32 lanes of a warp, every lane taking part. Each stage

@@ -56,9 +56,15 @@
 #include <cmath>
 
 #include "common.cuh"
-#include "wgmma.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using hp::mbar_expect;
+using hp::mbar_init;
+using hp::mbar_wait;
+using hp::pack_bf16;
+using hp::wgmma_pv;
 
 constexpr int kMaxHd = 128;
 
@@ -82,64 +88,6 @@ constexpr int kWgThreads = 128;     // one warpgroup
 // One 64-column block of a tile: 64 rows of 128 bytes, 16-byte chunk c of row
 // r at r * 128 + ((c ^ r % 8) << 4) (the 128-byte swizzle the TMA applies).
 constexpr int kBlockBytes = kRows * 128;
-
-// mbarrier and TMA (cp.async.bulk.tensor) helpers; addresses are shared-space
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes) : "memory");
-}
-// Wait for the phase of the given parity to complete. A copy that never
-// lands (a bad tensor map) traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (int i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (i > (1 << 20)) asm volatile("trap;");
-  }
-}
-// one 64 x 64 box (row0.., column c0..) of a [B, heads, rows, hd] tensor map
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int c0, int row0,
-                                        int head, int b, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(row0), "r"(head), "r"(b),
-        "r"(bar) : "memory");
-}
-// a tile: its 64-column blocks, each a box the TMA swizzles as it stores
-template <int HDP>
-__device__ __forceinline__ void tma_tile(uint32_t tile, const CUtensorMap* map, int row0,
-                                         int head, int b, uint32_t bar) {
-#pragma unroll
-  for (int cb = 0; cb < HDP / 64; ++cb)
-    tma_box(tile + cb * kBlockBytes, map, 64 * cb, row0, head, b, bar);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-template <int HDP> __device__ __forceinline__ void wgmma_pv(float (&o)[HDP / 2],
-                                                            const uint32_t (&a)[4],
-                                                            uint64_t db);
-template <> __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
-                                                         const uint32_t (&a)[4],
-                                                         uint64_t db) {
-  wg::wgmma_rs_m64n64(o, a, db);
-}
-template <> __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
-                                                          const uint32_t (&a)[4],
-                                                          uint64_t db) {
-  wg::wgmma_rs_m64n128(o, a, db);
-}
 
 // V is MN-major for the P.V product: LBO steps between the 64-column blocks
 // of hd, SBO between groups of 8 keys.
@@ -180,10 +128,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     mbar_init(full + 8);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect(full, (lo < hi ? 3 : 1) * kTile);
-    tma_tile<HDP>(sQ, &tq, q0, h, b, full);
+    hp::tma_tile<HDP, kBlockBytes>(sQ, &tq, q0, h, b, full);
     if (lo < hi) {
-      tma_tile<HDP>(sK(0), &tk, lo * kRows, g, b, full);
-      tma_tile<HDP>(sV(0), &tv, lo * kRows, g, b, full);
+      hp::tma_tile<HDP, kBlockBytes>(sK(0), &tk, lo * kRows, g, b, full);
+      hp::tma_tile<HDP, kBlockBytes>(sV(0), &tv, lo * kRows, g, b, full);
     }
   }
   __syncthreads();  // the barriers are initialised
@@ -206,8 +154,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     __syncthreads();  // everyone is done with the other stage
     if (threadIdx.x == 0 && it + 1 < hi) {  // the next tile loads while this one computes
       mbar_expect(full + 8 * (st ^ 1), 2 * kTile);
-      tma_tile<HDP>(sK(st ^ 1), &tk, (it + 1) * kRows, g, b, full + 8 * (st ^ 1));
-      tma_tile<HDP>(sV(st ^ 1), &tv, (it + 1) * kRows, g, b, full + 8 * (st ^ 1));
+      const uint32_t bar = full + 8 * (st ^ 1);
+      hp::tma_tile<HDP, kBlockBytes>(sK(st ^ 1), &tk, (it + 1) * kRows, g, b, bar);
+      hp::tma_tile<HDP, kBlockBytes>(sV(st ^ 1), &tv, (it + 1) * kRows, g, b, bar);
     }
     const int k0 = it * kRows;
 
@@ -301,34 +250,6 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   }
 }
 
-// A [B, heads, rows, hd] bf16 tensor (element strides st, hd contiguous) as
-// a TMA map of 64 x 64 boxes, 128-byte swizzled, zeros past the edges.
-int make_map(CUtensorMap* map, const void* ptr, const Strides& st, int B, int heads, int rows,
-             int hd) {
-  using Encode = decltype(&cuTensorMapEncodeTiled);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault, &found);
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess || encode == nullptr) {
-      encode = nullptr;
-      return static_cast<int>(cudaErrorNotSupported);
-    }
-  }
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
-                                 static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {64, kRows, 1, 1}, elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <int HDP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, const Strides* st,
                 int B, int H, int KV, int S, int Tn, int hd, bool causal, int window,
@@ -342,9 +263,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, const Stri
     attr_set = true;
   }
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, q, st[0], B, H, S, hd);
-  if (err == 0) err = make_map(&tk, k, st[1], B, KV, Tn, hd);
-  if (err == 0) err = make_map(&tv, v, st[2], B, KV, Tn, hd);
+  // each a [B, heads, rows, hd] tensor read as [B, rows, heads, hd]
+  auto map = [&](CUtensorMap* m, const void* p, const Strides& s, int heads, int rows) {
+    return hp::make_map(m, p, B, rows, heads, hd, s.s, s.h, s.b);
+  };
+  int err = map(&tq, q, st[0], H, S);
+  if (err == 0) err = map(&tk, k, st[1], KV, Tn);
+  if (err == 0) err = map(&tv, v, st[2], KV, Tn);
   if (err != 0) return err;
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   flash_bf16_kernel<HDP><<<grid, kWgThreads, smem, stream>>>(

@@ -72,9 +72,20 @@
 // the value blocks (dx and d la over the state tiles), written in float32,
 // and a second launch sums them in a fixed order and takes the cumsum. No
 // float atomics: a repeated call gives the same bits.
-// Decode: a thread per (b, h, value column p), the columns of a (b, h) over
-// ceil(P / 1,024) CTAs: state' = exp(log_a) state + x_p b, then y_p =
-// state' . c (the reference's order), the state written to a new tensor.
+// Decode: state' = exp(log_a) state + x_p b, then y_p = state' . c (the
+// reference's order), the state written to a new tensor. One token moves the
+// state twice ([B,H,P,N] float32 in and out, 0.8 MB at hymba-1.5b's 4 lanes)
+// and does 5 FLOPs an element: its bound is those bytes, and what it costs is
+// a launch. So it is one launch a call that reads x, b, c and log_a in place
+// through their element strides (hymba's b and c are views into the fused
+// projection's rows, which the port copied before, two more launches a
+// layer), and the state's rows coalesced: tpc threads a value column (a power
+// of 2, ceil(N / 4) up to 32), each 4 consecutive n as a float4 (N % 4 == 0,
+// the state 16-byte aligned; else one n a thread), so a warp reads whole rows
+// of 8 columns at N = 16; y summed over a column's lanes by shuffles. b and
+// c go through shared memory as float, once a CTA, 1,024 values at a time
+// (any N). A CTA is 128 threads over 128 / tpc columns of one (b, h): 200
+// CTAs at hymba-1.5b's B = 4, H = 25, P = 64, N = 16.
 #include <cooperative_groups.h>
 
 #include "mma.cuh"
@@ -86,6 +97,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 using rt::cp16;
 using rt::cp_wait;
+using rt::ex2;
 using rt::frags_a;
 using rt::frags_b;
 using rt::mma3;
@@ -105,7 +117,8 @@ constexpr int kLdN = kN + 8;                // bf16 rows padded so ldmatrix meet
 constexpr int kLdP = kP + 8;
 constexpr int kXch = kP * kN;    // floats of a CTA's slice of a state change, 4 a thread
 constexpr int kMaxCluster = 4;   // chunks a cluster takes side by side
-constexpr int kDecodeThreads = 1024;  // the decode's CTA: a thread a value column
+constexpr int kDecThreads = 128;   // the decode's CTA
+constexpr int kDecChunk = 1024;    // b and c values the decode stages at a time
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kXch == 4 * kThreads, "a thread's 16 x 8 accumulator share of the state slice");
@@ -135,7 +148,8 @@ struct Dec {
   const float *log_a, *h0;
   void* y;
   float* h;
-  int P, N;
+  int64_t sx[3], sb[3], sc[3], sa[2];  // element strides: x [B,H,P], b, c [B,H,N], log_a [B,H]
+  int H, P, N, tpc;                    // tpc: threads a value column, a power of 2 up to 32
 };
 
 // The shared memory of a chunk kernel (kFwd: the forward's, else the
@@ -209,12 +223,6 @@ __device__ __forceinline__ float at(const T* a, long i) {
   return rt::to_f(a[i]);
 }
 
-// 2^x, one MUFU.EX2 (below 2^-126 flushed to 0; -inf gives 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // exp(la_t - la_s) in log2 units, taken only where s <= t (live), else 0
 __device__ __forceinline__ float decay(float lt, float ls, bool live) {
@@ -987,24 +995,54 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_reduce_kernel(Bwd p) {
 // decode
 // ---------------------------------------------------------------------------
 
-template <typename TX, typename TB>
-__global__ void ssd_decode_kernel(Dec p) {
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= p.P) return;
-  const long bh = blockIdx.x;
-  const TX* x = static_cast<const TX*>(p.x);
-  const TB* bm = static_cast<const TB*>(p.b) + bh * p.N;
-  const TB* cm = static_cast<const TB*>(p.c) + bh * p.N;
-  const float a = expf(p.log_a[bh]);
-  const float xv = at(x, bh * p.P + j);
-  const long o = (bh * p.P + j) * p.N;
+// V: state elements a thread reads at a time (4: a float4; 1)
+template <typename TX, typename TB, int V>
+__global__ void __launch_bounds__(kDecThreads) ssd_decode_kernel(Dec p) {
+  __shared__ __align__(16) float sb[kDecChunk], sc[kDecChunk];
+  const int bh = blockIdx.x, bi = bh / p.H, hi = bh % p.H;
+  const int g = threadIdx.x % p.tpc;  // the thread's lane in its column's group
+  const int j = blockIdx.y * (kDecThreads / p.tpc) + threadIdx.x / p.tpc;
+  const bool live = j < p.P;
+  const TB* bm = static_cast<const TB*>(p.b) + bi * p.sb[0] + hi * p.sb[1];
+  const TB* cm = static_cast<const TB*>(p.c) + bi * p.sc[0] + hi * p.sc[1];
+  const float a = expf(p.log_a[bi * p.sa[0] + hi * p.sa[1]]);
+  const float xv =
+      live ? at(static_cast<const TX*>(p.x), bi * p.sx[0] + hi * p.sx[1] + j * p.sx[2]) : 0.f;
+  const long row = (static_cast<long>(bh) * p.P + j) * p.N;
   float y = 0.f;
-  for (int n = 0; n < p.N; ++n) {
-    const float s = fmaf(a, p.h0[o + n], xv * at(bm, n));
-    p.h[o + n] = s;
-    y = fmaf(s, at(cm, n), y);
+  for (int n0 = 0; n0 < p.N; n0 += kDecChunk) {
+    const int m = min(kDecChunk, p.N - n0);
+    if (n0 > 0) __syncthreads();  // every thread is done with the last chunk
+    for (int i = threadIdx.x; i < m; i += kDecThreads) {
+      sb[i] = at(bm, (n0 + i) * p.sb[2]);
+      sc[i] = at(cm, (n0 + i) * p.sc[2]);
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int i = g * V; i < m; i += p.tpc * V) {
+      if constexpr (V == 4) {
+        const float4 h0 = *reinterpret_cast<const float4*>(p.h0 + row + n0 + i);
+        const float4 bv = *reinterpret_cast<const float4*>(sb + i);
+        const float4 cv = *reinterpret_cast<const float4*>(sc + i);
+        float4 s;
+        s.x = fmaf(a, h0.x, xv * bv.x);
+        s.y = fmaf(a, h0.y, xv * bv.y);
+        s.z = fmaf(a, h0.z, xv * bv.z);
+        s.w = fmaf(a, h0.w, xv * bv.w);
+        *reinterpret_cast<float4*>(p.h + row + n0 + i) = s;
+        y = fmaf(s.x, cv.x, y);
+        y = fmaf(s.y, cv.y, y);
+        y = fmaf(s.z, cv.z, y);
+        y = fmaf(s.w, cv.w, y);
+      } else {
+        const float s = fmaf(a, p.h0[row + n0 + i], xv * sb[i]);
+        p.h[row + n0 + i] = s;
+        y = fmaf(s, sc[i], y);
+      }
+    }
   }
-  static_cast<TX*>(p.y)[bh * p.P + j] = rt::from_f<TX>(y);
+  for (int o = p.tpc / 2; o > 0; o /= 2) y += __shfl_xor_sync(kFull, y, o);
+  if (live && g == 0) static_cast<TX*>(p.y)[static_cast<long>(bh) * p.P + j] = rt::from_f<TX>(y);
 }
 
 static_assert(layout<float, false>(kMaxChunk).bytes <= 232448, "backward past 227 KB");
@@ -1155,26 +1193,34 @@ extern "C" int rt_ssd_bwd(const void* x, const void* b, const void* c, const voi
 }
 
 // One token: h = exp(log_a) h0 + x (x) b, y = h . c, over x [B,H,P]
-// (x_dtype), b, c [B,H,N] (bc_dtype), log_a [B,H] and h0 [B,H,P,N] f32.
+// (x_dtype), b, c [B,H,N] (bc_dtype) and log_a [B,H] f32, each read through
+// its element strides (11 int64: x's 3, b's 3, c's 3, log_a's 2), and h0
+// [B,H,P,N] f32 contiguous; y [B,H,P] (x_dtype) and h [B,H,P,N] f32 are
+// written contiguous.
 extern "C" int rt_ssd_decode(const void* x, const void* b, const void* c, const void* log_a,
-                             const void* h0, void* y, void* h, int B, int H, int P, int N,
-                             int x_dtype, int bc_dtype, void* stream) {
-  if (B < 1 || H < 1 || P < 1 || N < 1 || static_cast<long>(B) * H > 0x7fffffffL ||
-      (P + kDecodeThreads - 1) / kDecodeThreads > 65535)
+                             const void* h0, void* y, void* h, const void* strides, int B, int H,
+                             int P, int N, int x_dtype, int bc_dtype, void* stream) {
+  if (B < 1 || H < 1 || P < 1 || N < 1 || static_cast<long>(B) * H > 0x7fffffffL)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t* s = static_cast<const int64_t*>(strides);
+  const int vec = N % 4 == 0 && on16(h0) && on16(h) ? 4 : 1;
+  int tpc = 1;
+  while (tpc < 32 && tpc * vec < N) tpc *= 2;
+  const long cols = kDecThreads / tpc, blocks = (P + cols - 1) / cols;
+  if (blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   Dec p{x, b, c, static_cast<const float*>(log_a), static_cast<const float*>(h0), y,
-        static_cast<float*>(h), P, N};
+        static_cast<float*>(h), {s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
+        {s[9], s[10]}, H, P, N, tpc};
   auto st = static_cast<cudaStream_t>(stream);
-  const int threads = P < kDecodeThreads ? (P + 31) / 32 * 32 : kDecodeThreads;
-  const dim3 grid(B * H, (P + threads - 1) / threads);
+  const dim3 grid(B * H, static_cast<unsigned>(blocks));
   const bool xb = x_dtype == rt::kBF16, bb = bc_dtype == rt::kBF16;
-  if (xb && bb)
-    ssd_decode_kernel<__nv_bfloat16, __nv_bfloat16><<<grid, threads, 0, st>>>(p);
-  else if (xb)
-    ssd_decode_kernel<__nv_bfloat16, float><<<grid, threads, 0, st>>>(p);
-  else if (bb)
-    ssd_decode_kernel<float, __nv_bfloat16><<<grid, threads, 0, st>>>(p);
+  void (*kernel)(Dec);
+  if (vec == 4)
+    kernel = xb ? (bb ? ssd_decode_kernel<bf16, bf16, 4> : ssd_decode_kernel<bf16, float, 4>)
+                : (bb ? ssd_decode_kernel<float, bf16, 4> : ssd_decode_kernel<float, float, 4>);
   else
-    ssd_decode_kernel<float, float><<<grid, threads, 0, st>>>(p);
+    kernel = xb ? (bb ? ssd_decode_kernel<bf16, bf16, 1> : ssd_decode_kernel<bf16, float, 1>)
+                : (bb ? ssd_decode_kernel<float, bf16, 1> : ssd_decode_kernel<float, float, 1>);
+  kernel<<<grid, kDecThreads, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

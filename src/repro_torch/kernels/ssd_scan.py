@@ -22,7 +22,9 @@ barrier every CTA walks the chain over the cluster's chunks in order
 through distributed shared memory, so the chunks of a head run side by
 side and the chain keeps its order and bits. The forward is one launch;
 past N = 16 the state tiles' partial y are summed by a second launch. The
-decode step is one launch, a thread a value column.
+decode step is one launch that reads x, b, c and log_a in place through
+their strides (hymba's b and c are views into its fused projection) and
+the state's rows coalesced, a few threads a value column.
 
 Backward: the forward saves the state at each chunk's start ([nc, B, H,
 P, N] float32, nothing per token). The same clusters walk dh back from
@@ -52,6 +54,8 @@ where P is wider than 64).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -190,13 +194,16 @@ def decode(x, b, c, log_a, state):
     _build.require(b.dtype in _build.DTYPE_CODES, f"ssd_decode: b, c dtype {b.dtype} not "
                    "float32/bfloat16")
     lib = _build.lib()
-    x, b, c, log_a, state = _build.contiguous(x, b, c, log_a, state)
-    y, h = torch.empty_like(x), torch.empty_like(state)
-    if B * H * N == 0:
+    state = state.contiguous()
+    y = torch.empty((B, H, P), dtype=x.dtype, device=x.device)
+    h = torch.empty_like(state)
+    if B * H * P * N == 0:
         return y.zero_(), h
+    # x, b, c and log_a are read where they lie, through their element strides
+    strides = (ctypes.c_int64 * 11)(*x.stride(), *b.stride(), *c.stride(), *log_a.stride())
     err = lib.rt_ssd_decode(*(t.data_ptr() for t in (x, b, c, log_a, state, y, h)),
-                            B, H, P, N, _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[b.dtype],
-                            _build.stream_ptr(x.device))
+                            ctypes.addressof(strides), B, H, P, N, _build.DTYPE_CODES[x.dtype],
+                            _build.DTYPE_CODES[b.dtype], _build.stream_ptr(x.device))
     _build.check(err, "ssd_decode")
     launches["ssd_decode"] += LAUNCHES_PER_CALL["ssd_decode"]
     return y, h

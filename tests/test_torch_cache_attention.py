@@ -6,6 +6,9 @@ not, a wrapped ring with empty slots, a window, a softcap and both, a
 query that sees no slot (zeros, no NaN), two queries. Then ``meta``
 tensors (the dry run's) take the plain loop and launch nothing, and
 llava-next's smoke prefill through the chunked path against JAX's.
+Then the kernels' tile plan and the bf16 kernel's walk over it, mirrored
+in ``tests/torch_cache_cases.py``: the plan held to the visibility mask of
+the positions, the walk to the function in float64 and to JAX's.
 
 Tolerances: 2e-5 (atol = rtol) in float32, sums in another order; 3e-2 in
 bfloat16, inputs rounded to bf16 alike in both packages and each package
@@ -32,6 +35,7 @@ from repro_torch.kernels import cache_attention as ca
 from repro_torch.kernels import ref
 from repro_torch.models import init_cache, prefill
 from repro_torch.models import layers as TL
+import torch_cache_cases as CC
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -183,3 +187,57 @@ def test_cache_attention_gradient_matches_jax_vjp(case):
                                    rtol=TOL["float32"])
     if kind == "wrap":
         assert not got[0][0, 0].any()
+
+
+@pytest.mark.parametrize("plan", ["bf16", "scalar"])
+@pytest.mark.parametrize("case", list(CC.CASES))
+def test_tile_plan_covers_every_visible_pair(case, plan):
+    """The kernels' tile plan, each CTA's from its rows' position ranges:
+    every visible (row, slot) pair in a listed tile, each tile listed once
+    in slot order, and every tile flagged full for a group of 64 rows
+    inside T with all of the group's pairs visible; the bf16 kernel's 128
+    rows and 128-slot tiles, the CUDA-core kernel's 64 and 64. Prefills at
+    S below, at and past 64 and 128, wrapped rings with empty slots and
+    windows, a windowed prefill's second chunk, a ring no query sees."""
+    S, T, window, kind = CC.CASES[case]
+    q_pos, k_pos = CC.ring(np.random.default_rng(S + T), 3, S, T, kind)
+    for b in range(3):
+        CC.check_plan(q_pos[b], k_pos[b], window, **(CC.BF16 if plan == "bf16" else CC.SCALAR))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_tile_plan_on_random_positions(seed):
+    """The same on positions in no order at all (the plan assumes none):
+    queries and slots at random positions, a fifth of the slots empty,
+    windows of 0 to 300, S and T from 1 to 400."""
+    rng = np.random.default_rng(seed)
+    for _ in range(6):
+        S, T = (int(x) for x in rng.integers(1, 401, 2))
+        q_pos = rng.integers(0, 500, S)
+        k_pos = np.where(rng.random(T) < 0.2, -1, rng.integers(0, 500, T))
+        window = int(rng.choice([0, 1, 17, 64, 300]))
+        for plan in (CC.BF16, CC.SCALAR):
+            CC.check_plan(q_pos, k_pos, window, **plan)
+
+
+@pytest.mark.parametrize("case,softcap", [("prefix-S65", 0.0), ("prefix-S129", 0.0),
+                                          ("wrap-window", 5.0), ("chunk2-window-ragged", 0.0),
+                                          ("wrap", 30.0), ("blind", 0.0)])
+def test_tiled_walk_matches_jax(case, softcap):
+    """The bf16 kernel's walk over its plan in float64 (a tile masked only
+    for the groups not flagged full, slots past T as zeros) against the
+    function in float64 at 1e-12, and JAX's ``chunked_cache_attention`` on
+    the same float32 inputs at 2e-5; H/KV 4/2, hd 16."""
+    S, T, window, kind = CC.CASES[case]
+    rng = np.random.default_rng(S * T)
+    q_pos, k_pos = CC.ring(rng, 2, S, T, kind)
+    q = rng.standard_normal((2, S, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, T, 2, 16)).astype(np.float32) for _ in range(2))
+    args = [torch.from_numpy(x) for x in (q, k, v, q_pos, k_pos)]
+    got = CC.tiled_attention(*args, window=window, softcap=softcap)
+    exact = CC.dense_attention(*args, window=window, softcap=softcap)
+    torch.testing.assert_close(got, exact, atol=1e-12, rtol=1e-12)
+    want = JL.chunked_cache_attention(*map(jnp.asarray, (q, k, v, q_pos, k_pos)),
+                                      sliding_window=window, softcap=softcap, block_k=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float64), atol=TOL["float32"],
+                               rtol=TOL["float32"])

@@ -1607,3 +1607,177 @@ def test_llava_prefill_through_the_kernel_on_card_matches_cpu(dev):
         out[str(d)] = [lg] + O.tree_leaves(cache)
     for a, b in zip(out[str(dev)], out["cpu"], strict=True):
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-5)
+
+
+# The bf16 cache attention kernel's CTAs (128 query rows, two consumer
+# warpgroups of 64), its ring of K/V stages (2 at hd 128, 4 at 64) and its
+# plan; the decode step on the views the model hands it. Tolerances as
+# above; in bf16 each output row also within a relative L2 of 1e-2 of the
+# plain loop run in float32 on the same inputs (P and the output rounded to
+# bf16 give ~2.3e-3; a tile dropped or counted twice moves a row by more).
+
+
+def _cache_rows_close(got, q, k, v, q_pos, k_pos, **kw):
+    from repro_torch.kernels import cache_attention as ca
+
+    _close(got, ca.plain(q, k, v, q_pos, k_pos, block_k=64, **kw), 2e-2)
+    exact = ca.plain(q.float(), k.float(), v.float(), q_pos, k_pos, block_k=64, **kw)
+    rows = (got.float() - exact).norm(dim=-1) / exact.norm(dim=-1).clamp_min(1e-30)
+    assert rows.max().item() <= 1e-2, rows.max().item()
+
+
+@pytest.mark.parametrize("S", [1, 37, 64, 65, 127, 128, 129, 300])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cache_attention_rows_around_a_cta(dev, hd, S):
+    """S below one warpgroup's 64 rows, at and past 64 and 128 (a
+    warpgroup with no row below S, or one), a prefill into a ring that held
+    positions before it (H/KV 8/2): one launch, against the plain loop."""
+    from repro_torch.kernels import cache_attention as ca
+
+    q, k, v, q_pos, k_pos = _cache_case(dev, "bfloat16", 2, S, S + 200, 8, 2, hd, "prefix",
+                                        S + hd)
+    before = ca.launches
+    got = ca.cache_attention(q, k, v, q_pos, k_pos)
+    assert ca.launches == before + 1
+    _cache_rows_close(got, q, k, v, q_pos, k_pos)
+
+
+@pytest.mark.parametrize("T,S,softcap", [(100, 40, 0.0), (128, 128, 30.0), (384, 300, 0.0),
+                                         (640, 200, 30.0), (1152, 129, 0.0)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cache_attention_tile_counts_wrap_the_stages(dev, hd, T, S, softcap):
+    """One 128-slot tile, one whole tile, 3, 5 and 9 tiles (an odd count, so
+    the K/V ring's 2 or 4 stages wrap mid-walk), in a ring written past its
+    end with empty slots (CTAs listing different tiles), with and without a
+    softcap: one launch, against the plain loop."""
+    from repro_torch.kernels import cache_attention as ca
+
+    q, k, v, q_pos, k_pos = _cache_case(dev, "bfloat16", 2, S, T, 8, 4, hd, "wrap", T + S)
+    before = ca.launches
+    got = ca.cache_attention(q, k, v, q_pos, k_pos, softcap=softcap)
+    assert ca.launches == before + 1
+    _cache_rows_close(got, q, k, v, q_pos, k_pos, softcap=softcap)
+    assert not got[0, 0].any()  # the query at position 0 sees no slot
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cache_attention_cta_without_tiles_writes_zeros(dev, hd):
+    """Rows 0..127 (the first CTA) see no slot, rows 128.. see the ring:
+    the CTA that lists no tile writes zeros, the other its rows' attention."""
+    from repro_torch.kernels import cache_attention as ca
+
+    S, T = 256, 300
+    g = torch.Generator(device=dev).manual_seed(hd)
+    q = torch.randn(2, S, 4, hd, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(2, T, 2, hd, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    q_pos = torch.cat([torch.arange(128), torch.arange(1000, 1128)]).to(torch.int32)
+    q_pos = q_pos.to(dev).expand(2, -1).contiguous()
+    k_pos = torch.arange(900, 900 + T, dtype=torch.int32, device=dev).expand(2, -1).contiguous()
+    got = ca.cache_attention(q, k, v, q_pos, k_pos)
+    assert not got[:, :128].any() and got[:, 128:].abs().sum(dim=-1).gt(0).all()
+    _cache_rows_close(got, q, k, v, q_pos, k_pos)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_cache_attention_at_hymbas_second_chunk(dev, B):
+    """hymba-1.5b's heads (25 over 5, hd 64) over its 1,024-slot ring in a
+    chunked prefill's second chunk: positions 0..2,047 written into the
+    ring (each slot the latest), queries at 1,024..2,047, its window of
+    1,024, against the plain loop."""
+    from repro_torch.kernels import cache_attention as ca
+
+    S = T = W = 1024
+    t = torch.arange(T, device=dev)
+    k_pos = (2 * S - 1 - (2 * S - 1 - t) % T).to(torch.int32).expand(B, -1).contiguous()
+    q_pos = torch.arange(S, 2 * S, dtype=torch.int32, device=dev).expand(B, -1).contiguous()
+    g = torch.Generator(device=dev).manual_seed(B)
+    q = torch.randn(B, S, 25, 64, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, T, 5, 64, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    got = ca.cache_attention(q, k, v, q_pos, k_pos, sliding_window=W)
+    _cache_rows_close(got, q, k, v, q_pos, k_pos, sliding_window=W)
+
+
+def test_cache_attention_strided_views_at_hd_128(dev):
+    """q a view of every other head of a wider tensor, k and v views into
+    rings with twice the KV heads, the output written in q's layout: the
+    tensor-core path reads them in place (TMA maps from their strides)."""
+    from repro_torch.kernels import cache_attention as ca
+
+    q, k, v, q_pos, k_pos = _cache_case(dev, "bfloat16", 2, 300, 400, 8, 2, 128, "wrap", 5)
+    wide = torch.stack([q, -q], dim=3).flatten(2, 3)[:, :, ::2]
+    kw, vw = (torch.cat([t, t.flip(1)], dim=2)[:, :, :2] for t in (k, v))
+    assert not (wide.is_contiguous() or kw.is_contiguous() or vw.is_contiguous())
+    got = ca.cache_attention(wide, kw, vw, q_pos, k_pos, sliding_window=100)
+    _cache_rows_close(got, q, k, v, q_pos, k_pos, sliding_window=100)
+
+
+def _decode_views(dev, x_dtype, bc_dtype, B=4, H=25, P=64, N=16, seed=0):
+    """The decode step's inputs as ``mamba_block`` hands them, and more
+    strided: b and c halves of ``bc.chunk(2)`` of a fused projection's one
+    position, x a view into a wider tensor, log_a every other element, and
+    a carried state."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fused = torch.randn(B, 1, 2 * H * P + 2 * H * N + H, generator=g, device=dev)
+    _, _, bc, _ = fused.to(DT[bc_dtype]).split([H * P, H * P, 2 * H * N, H], dim=-1)
+    b, c = (t.view(B, 1, H, N)[:, 0] for t in bc.chunk(2, dim=-1))
+    x = torch.randn(B, H, 2 * P, generator=g, device=dev).to(DT[x_dtype])[..., P:]
+    log_a = (-torch.rand(B, H, 2, generator=g, device=dev))[..., 1]
+    state = torch.randn(B, H, P, N, generator=g, device=dev)
+    return x, b, c, log_a, state
+
+
+@pytest.mark.parametrize("x_dtype,bc_dtype", [("float32", "float32"), ("float32", "bfloat16"),
+                                              ("bfloat16", "float32"),
+                                              ("bfloat16", "bfloat16")])
+def test_ssd_decode_reads_strided_views(dev, x_dtype, bc_dtype):
+    """Each dtype pair on strided x, b, c and log_a (hymba-1.5b's width):
+    one launch, y and the new state against the plain step on the same
+    views, the state a fresh contiguous tensor."""
+    from repro_torch.kernels import ref, ssd_scan as ss
+
+    args = _decode_views(dev, x_dtype, bc_dtype)
+    assert not any(t.is_contiguous() for t in args[:4])
+    before = ss.launches["ssd_decode"]
+    got = ss.ssd_decode(*args)
+    assert ss.launches["ssd_decode"] == before + 1
+    assert got[1].is_contiguous() and got[1].data_ptr() != args[4].data_ptr()
+    for a, w in zip(got, ref.ref_ssd_decode_step(*args), strict=True):
+        _xl_close(a, w, x_dtype if a.dtype == DT[x_dtype] else "float32")
+
+
+@pytest.mark.parametrize("N", [16, 24, 64, 5, 1100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_decode_state_widths(dev, dtype, N):
+    """State widths of 16 (hymba's, 4 threads a value column), 24 and 64
+    (8 and 16), 5 (not a multiple of 4: a thread an element) and 1,100
+    (past the 1,024 values of b and c a CTA stages at a time), on strided
+    views: against the plain step."""
+    from repro_torch.kernels import ref, ssd_scan as ss
+
+    args = _decode_views(dev, dtype, dtype, B=2, H=3, P=40, N=N, seed=N)
+    got = ss.ssd_decode(*args)
+    for a, w in zip(got, ref.ref_ssd_decode_step(*args), strict=True):
+        _xl_close(a, w, dtype if a.dtype == DT[dtype] else "float32")
+
+
+def test_ssd_decode_is_one_kernel_under_the_profiler(dev):
+    """hymba-1.5b's decode step on the strided b and c of its fused
+    projection (x * dt in float32, b and c bf16): the profiler sees one
+    kernel, the decode kernel, and no copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ssd_scan as ss
+
+    args = _decode_views(dev, "float32", "bfloat16")
+    ss.ssd_decode(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ss.ssd_decode(*args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0]
+    assert len(kernels) == 1 and "ssd_decode_kernel" in kernels[0].key, \
+        [(e.key, e.count) for e in kernels]
+    assert kernels[0].count == 1

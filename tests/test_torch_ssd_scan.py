@@ -9,9 +9,10 @@ S), from a zero state and a carried one:
   reference's ``ssd_chunked`` on the same numpy inputs;
 * the long chunk whose decay overflows the reference's gradient: the
   backward finite and equal to the plain loop's autograd (1e-4);
-* the decode step against the reference's ``ssd_decode_step``, its
-  gradient against ``jax.vjp`` of it, and a one-token chunk through
-  ``SSD`` against it;
+* the decode step against the reference's ``ssd_decode_step`` (also on
+  the strided views ``mamba_block`` hands it, which the kernel reads in
+  place), its gradient against ``jax.vjp`` of it, and a one-token chunk
+  through ``SSD`` against it;
 * CPU and ``meta`` tensors reach the plain loop, and launch nothing.
 
 Tolerance 1e-5 (atol = rtol): float32 sums in another order, as in
@@ -157,6 +158,35 @@ def test_decode_step_matches_jax(carried):
     x, b, c, log_a = (a[:, 0] for a in (x, b, c, log_a))
     jy, jst = JS.ssd_decode_step(*map(jnp.asarray, (x, b, c, log_a, state)))
     ty, tst = TS.ssd_decode_step(*map(torch.from_numpy, (x, b, c, log_a, state)))
+    _close(ty, jy)
+    _close(tst, jst)
+
+
+@pytest.mark.parametrize("layout", ["mamba", "all-strided"])
+@pytest.mark.parametrize("carried", [False, True])
+def test_decode_step_on_strided_views_matches_jax(carried, layout):
+    """The decode step on the views ``mamba_block`` hands it: b and c the
+    halves of ``bc.chunk(2)`` of the fused projection at the one position,
+    [B, H, N] views whose rows are the projection's (2 Di + 2 H N + H
+    wide), x * dt and log_a fresh; with ``all-strided`` x and log_a views
+    into wider tensors too. The port's ``models.ssm.ssd_decode_step`` (the
+    plain step on the CPU; on the card the kernel reads these views through
+    their strides) against the reference's on the same values, at 1e-5."""
+    rng = np.random.default_rng(50 + carried)
+    Di = H * P
+    fused = torch.from_numpy(_rand(rng, B, 1, 2 * Di + 2 * H * N + H))
+    _, _, bc, _ = fused.split([Di, Di, 2 * H * N, H], dim=-1)
+    b, c = (t.view(B, 1, H, N)[:, 0] for t in bc.chunk(2, dim=-1))
+    assert b.stride() == c.stride() == (fused.shape[-1], N, 1)
+    x, _, _, log_a, state = (torch.from_numpy(a) for a in _inputs(rng, 1, carried))
+    x, log_a = x[:, 0], log_a[:, 0]
+    if layout == "all-strided":
+        x = torch.cat([x, x.flip(-1)], dim=-1)[..., :P]
+        log_a = torch.stack([log_a, -log_a], dim=-1)[..., 0]
+        assert not (x.is_contiguous() or log_a.is_contiguous())
+    args = (x, b, c, log_a, state)
+    jy, jst = JS.ssd_decode_step(*(jnp.asarray(t.contiguous().numpy()) for t in args))
+    ty, tst = TS.ssd_decode_step(*args)
     _close(ty, jy)
     _close(tst, jst)
 
