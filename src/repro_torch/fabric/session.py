@@ -38,6 +38,7 @@ from repro_torch.control import ControlHandle
 from repro_torch.fabric.config import FabricConfig, FabricConfigError
 from repro_torch.fabric.stats import (SloView, StatsView, _json_safe,
                                 class_view_from_snapshot)
+from repro_torch.obs.recorder import FABRIC_STEP
 from repro_torch.sched import QueueClass, ReplicaSet, Scheduler, make_transport
 from repro_torch.sched.tenants import (TIERS, TenantMap, TenantQuotaLedger,
                                  TenantRouter, TenantStatsTable,
@@ -467,8 +468,17 @@ class Fabric:
         """One fabric iteration: every replica admits/decodes (serving) or
         drains one batch (scheduler-only), starved replicas steal, and the
         checkpoint cadence fires when due. Returns completed requests
-        (serving) or ``(view, envelope)`` deliveries (scheduler-only)."""
+        (serving) or ``(view, envelope)`` deliveries (scheduler-only).
+        With the obs plane on, the iteration is a ``fabric.step`` span on
+        the producer-side recorder: the engines' step spans nest in it."""
         self._check_open()
+        hub = self._obs_hub
+        if hub is None:
+            return self._step()
+        with hub.recorder().span(FABRIC_STEP):
+            return self._step()
+
+    def _step(self) -> List:
         self.step_count += 1
         if self._group is not None:
             out = self._group.step()

@@ -363,8 +363,10 @@ def build_parser() -> argparse.ArgumentParser:
     obs.add_argument("--trace", nargs="?", const="reports/trace.json",
                      default=None, metavar="PATH",
                      help="enable the flight recorder and write a Chrome/"
-                          "Perfetto trace.json after the run (bare flag = "
-                          "reports/trace.json; load at ui.perfetto.dev)")
+                          "Perfetto trace.json after the run: the sampled "
+                          "request lifecycles and every engine step's phase "
+                          "spans (bare flag = reports/trace.json; load at "
+                          "ui.perfetto.dev)")
     obs.add_argument("--trace-rate", type=float, default=0.01,
                      help="head-sampling rate for lifecycle tracing "
                           "(1.0 = every envelope; default 0.01)")
@@ -518,10 +520,14 @@ def main(argv=None) -> dict:
                   f"{d['reason']}")
     if fab.obs is not None:
         from repro_torch.obs import perfetto_trace, prometheus_text, stage_breakdown
+        from repro_torch.obs.recorder import SPAN
         events = fab.obs.events()
         if args.trace:
+            # the trace holds the engine's step spans too; the line counts
+            # the lifecycle and control events, as the JAX driver's does
             perfetto_trace(events, path=args.trace)
-            print(f"[serve] flight-recorder trace: {len(events)} events "
+            n_events = sum(ev[1] != SPAN for ev in events)
+            print(f"[serve] flight-recorder trace: {n_events} events "
                   f"(trace_rate={fab.obs.config.trace_rate}) -> {args.trace}")
             for pair, row in stage_breakdown(events).items():
                 print(f"[serve]   {pair}: n={row['n']} "

@@ -8,6 +8,16 @@ Chrome/Perfetto traces, Prometheus text exposition, and JSONL snapshots.
 Wired end-to-end via ``FabricConfig(obs=ObsConfig(...))``; the
 :class:`MetricsHub` rolling window is the future autoscaler's sensor
 input (ROADMAP: closed-loop control plane).
+
+The same rings hold the serving loop's step spans (``fabric.step`` >
+``engine.step`` > its phases; names and nesting in
+``repro_torch.obs.recorder.SPAN_PARENTS``), recorded whenever a recorder
+is attached, whatever ``trace_rate``. Each recorder also keeps running
+totals per span name and per counter (``host_reads``: the step's
+device->host reads, counted where they happen, against the innermost open
+span), which :meth:`MetricsHub.totals` sums; while a ``torch.profiler``
+records, each span is a ``repro.<span>`` range on the device trace's
+timeline. ``perfetto_trace`` draws the spans as nested slices.
 """
 
 from repro_torch.obs.export import (append_jsonl_snapshot, format_class_lines,

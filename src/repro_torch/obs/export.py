@@ -8,7 +8,9 @@ and gauge sweeps:
     ("ph":"X") slices, one per lifecycle stage, whose duration is the time
     since the previous stage — so the trace viewer shows exactly where an
     envelope's time went (window wait vs. shard hop vs. steal vs. lane).
-    Control events render as instants ("ph":"i"). pid = host, tid = replica.
+    Control events render as instants ("ph":"i"). Step spans render as
+    nested complete slices of their own duration, a request's
+    ``admit.prefill`` in its chain's category. pid = host, tid = replica.
   * :func:`prometheus_text` — Prometheus text exposition (``# HELP`` /
     ``# TYPE`` + samples) over the fabric stats dict and a gauge sweep.
   * :func:`append_jsonl_snapshot` — periodic JSONL snapshots (one JSON
@@ -25,7 +27,7 @@ import os
 import time
 from typing import Dict, List, Optional
 
-from repro_torch.obs.recorder import CONTROL_EVENTS, LIFECYCLE_STAGES
+from repro_torch.obs.recorder import CONTROL_EVENTS, LIFECYCLE_STAGES, SPAN
 from repro_torch.sched.stats import _interp_percentile
 
 _STAGE_ORDER = {s: i for i, s in enumerate(LIFECYCLE_STAGES)}
@@ -72,6 +74,19 @@ def perfetto_trace(events: List[tuple], *, path: Optional[str] = None
             out.append({"name": stage, "ph": "i", "s": "t", "cat": cls,
                         "ts": round(us(t), 3), "pid": host, "tid": rid,
                         "args": {"cls": cls, "seq": seq, "detail": arg}})
+        elif stage == SPAN:
+            # both ends rounded alike, so a child never pokes out of its
+            # parent
+            ts, end = round(us(t), 3), round(us(arg.end), 3)
+            args = {"sid": arg.sid, "parent": arg.parent}
+            if cls is not None:
+                args.update(cls=cls, seq=seq)
+            if arg.uid is not None:
+                args["uid"] = arg.uid
+            out.append({"name": arg.name, "ph": "X",
+                        "cat": SPAN if cls is None else cls,
+                        "ts": ts, "dur": round(end - ts, 3),
+                        "pid": host, "tid": rid, "args": args})
     trace = {"traceEvents": out, "displayTimeUnit": "ms"}
     if path is not None:
         d = os.path.dirname(path)

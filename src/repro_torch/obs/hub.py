@@ -88,6 +88,9 @@ class MetricsHub:
             ring = getattr(eng, "_dev_admit", None)
             if ring is not None:
                 ring._obs = rec
+            pool = getattr(eng, "pool", None)
+            if pool is not None:  # counts its host reads
+                pool._obs = rec
 
     # ------------------------------------------------------ rolling window
     def sample(self, replica_set, engines=()) -> dict:
@@ -105,6 +108,19 @@ class MetricsHub:
     def window(self) -> List[Tuple[float, dict]]:
         """The retained (timestamp, gauge-sweep) samples, oldest first."""
         return list(self._window)
+
+    def totals(self) -> dict:
+        """Running span and counter totals summed over every recorder:
+        ``span_n`` / ``span_s`` by span name, ``span_counters`` by
+        (counter, innermost span). Differences of two readings cover the
+        steps between them, however many the rings kept."""
+        out = {"span_n": {}, "span_s": {}, "span_counters": {}}
+        for rec in self._recorders.values():
+            for key in out:
+                acc = out[key]
+                for k, v in getattr(rec, key).items():
+                    acc[k] = acc.get(k, 0) + v
+        return out
 
     # ------------------------------------------------------------ snapshot
     def snapshot(self) -> dict:

@@ -29,6 +29,7 @@ from typing import Any, List, Tuple
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.obs.recorder import HOST_READS
 
 
 def resolve_device_admission(flag) -> bool:
@@ -74,8 +75,8 @@ class DeviceAdmissionRing:
         self.stats = {"steps": 0, "kernel_calls": 0, "pushed": 0,
                       "claimed": 0, "rejected": 0}
 
-    # flight-recorder attachment (kernel calls and flushes are recorded
-    # when a recorder is attached here)
+    # flight-recorder attachment (kernel calls and flushes are recorded,
+    # and each call's host read counted, when a recorder is attached here)
     _obs = None
 
     @property
@@ -127,6 +128,7 @@ class DeviceAdmissionRing:
             self.stats["rejected"] += len(entries) - accepted
             rejected = list(entries[accepted:])
             if self._obs is not None:
+                self._obs.count(HOST_READS)
                 self._obs.emit("claim_block", "_ring", self._enq,
                                arg={"pushed": accepted,
                                     "claimed": n_claimed})

@@ -19,6 +19,12 @@ engine's device across steps and are updated in place; prefill and decode
 share one forward callable. The engine runs on the card unless built with
 ``device="cpu"``.
 
+With a flight recorder attached (``FabricConfig(obs=...)``) a step records
+its phases as spans (``engine.step`` > ``engine.admit`` > ``admit.ring``,
+``admit.prefill``; ``engine.grow``, ``engine.decode``, ``engine.read``,
+``engine.retire``) and counts each device->host read (``host_reads``) where
+it happens; without one each site is one ``is None`` check.
+
 Scale-out is :class:`EngineReplicaGroup`: N of these engines over one
 fabric, each fed by a :class:`~repro_torch.sched.SchedulerReplica` that owns
 a seat subset of every class, rebalanced purely by seat-claim steals, with
@@ -28,6 +34,7 @@ The replicas share one forward callable and one set of parameter tensors.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -36,10 +43,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.obs.recorder import (ADMIT_PREFILL, ADMIT_RING, ENGINE_ADMIT,
+                                      ENGINE_DECODE, ENGINE_GROW, ENGINE_READ,
+                                      ENGINE_RETIRE, ENGINE_STEP, HOST_READS)
 from repro_torch.sched import Envelope, QueueClass, ReplicaSet, Scheduler
 from repro_torch.serving.admission import DeviceAdmissionRing, resolve_device_admission
 from repro_torch.serving.kv_cache import PagedKVPool
 from repro_torch.serving.paged_model import paged_forward
+
+
+# the span of a site when no recorder is attached (reused, never allocated)
+_NO_SPAN = contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -192,6 +206,8 @@ class Engine:
             return np.zeros((0,), np.int32)
         ids, valid = self.pool.alloc(n)
         both = torch.stack([ids, valid.to(torch.int32)]).cpu().numpy()
+        if self._obs is not None:
+            self._obs.count(HOST_READS)
         if not both[1].all():
             self.pool.retire(ids)  # return partial grab
             return None
@@ -199,6 +215,8 @@ class Engine:
 
     def _retire_request(self, lane: int) -> None:
         used = (int(self.seq_lens[lane]) + self.page_size - 1) // self.page_size
+        if self._obs is not None:
+            self._obs.count(HOST_READS)
         if used > 0:
             self.pool.retire(self.block_tables[lane, :used])
         self.block_tables[lane] = 0
@@ -275,42 +293,61 @@ class Engine:
             free.append(lane)
         if not free:
             return
-        batch = self._drain_admission(len(free))
+        rec = self._obs
+        with _NO_SPAN if rec is None else rec.span(ADMIT_RING):
+            batch = self._drain_admission(len(free))
         for idx, (lane, (qc, env)) in enumerate(zip(free, batch)):
             req: Request = env.payload
-            need = (len(req.prompt) + self.page_size - 1) // self.page_size
-            pages = self._alloc_pages(max(1, need))
-            while pages is None:
-                if not self._preempt_for(qc.priority, env.stamp):
+            with (_NO_SPAN if rec is None
+                  else rec.span(ADMIT_PREFILL, qc.name, env.seq, req.uid)):
+                if not self._prefill(lane, qc, env, req):
                     # Pool dry, nothing less entitled to evict: every request
                     # not yet laned goes back to its own class seat.
                     for qc2, env2 in batch[idx:]:
                         qc2.requeue(env2)
                     return
-                pages = self._alloc_pages(max(1, need))
-            self.active[lane] = req
-            self._lane_env[lane] = (qc, env)
-            self.block_tables[lane, :len(pages)] = torch.from_numpy(pages).to(self.device)
-            self.seq_lens[lane] = 0
-            # prefill: the whole prompt at once (same callable as decode)
-            toks = torch.tensor([req.prompt], dtype=torch.int32, device=self.device)
-            bt = self.block_tables[lane:lane + 1]
-            sl = torch.zeros((1,), dtype=torch.int32, device=self.device)
-            logits, self.pool.k_pages, self.pool.v_pages = self._forward(
-                self.params, toks, self.pool.k_pages, self.pool.v_pages, bt, sl)
-            tok = int(torch.argmax(logits[0]))
-            self.seq_lens[lane] = len(req.prompt)
-            self.last_tok[lane] = tok
-            req.output.append(tok)
-            rec = self._obs
-            if rec is not None and rec.sampled(env.seq):
+
+    def _prefill(self, lane: int, qc: QueueClass, env: Envelope,
+                 req: Request) -> bool:
+        """Lane ``req``: its pages (preempting less entitled lanes if the
+        pool is dry), the ``[1, S]`` forward and the first token. False
+        when the pool stays dry."""
+        need = (len(req.prompt) + self.page_size - 1) // self.page_size
+        pages = self._alloc_pages(max(1, need))
+        while pages is None:
+            if not self._preempt_for(qc.priority, env.stamp):
+                return False
+            pages = self._alloc_pages(max(1, need))
+        self.active[lane] = req
+        self._lane_env[lane] = (qc, env)
+        self.block_tables[lane, :len(pages)] = torch.from_numpy(pages).to(self.device)
+        self.seq_lens[lane] = 0
+        # prefill: the whole prompt at once (same callable as decode)
+        toks = torch.tensor([req.prompt], dtype=torch.int32, device=self.device)
+        bt = self.block_tables[lane:lane + 1]
+        sl = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        logits, self.pool.k_pages, self.pool.v_pages = self._forward(
+            self.params, toks, self.pool.k_pages, self.pool.v_pages, bt, sl)
+        tok = int(torch.argmax(logits[0]))
+        self.seq_lens[lane] = len(req.prompt)
+        self.last_tok[lane] = tok
+        req.output.append(tok)
+        rec = self._obs
+        if rec is not None:
+            # the first-token read, and paged_forward's read of seq_lens in
+            # a call of more than one token
+            rec.count(HOST_READS, 2 if len(req.prompt) > 1 else 1)
+            if rec.sampled(env.seq):
                 rec.emit("lane_prefill", qc.name, env.seq, arg=lane)
+        return True
 
     def _grow_pages(self) -> None:
         """Allocate fresh pages for every lane whose next token crosses a page
         boundary — one batched allocation for all of them (pool pressure
         triggers preemption, paper Alg 1 Phase 1)."""
         sl = self.seq_lens.cpu().numpy()
+        if self._obs is not None:
+            self._obs.count(HOST_READS)
         used = -(-sl // self.page_size)
         need = -(-(sl + 1) // self.page_size)
         lanes = [i for i, r in enumerate(self.active)
@@ -349,25 +386,43 @@ class Engine:
     # ---------------------------------------------------------------- step
     def step(self) -> List[Request]:
         """One engine iteration: tick window clock, reclaim, admit, decode."""
+        rec = self._obs
+        if rec is None:
+            return self._step(None)
+        with rec.span(ENGINE_STEP):
+            return self._step(rec)
+
+    def _step(self, rec) -> List[Request]:
         self.step_count += 1
         self.pool.tick(self.step_count)
-        self._admit()
-        self._grow_pages()
+        with _NO_SPAN if rec is None else rec.span(ENGINE_ADMIT):
+            self._admit()
+        with _NO_SPAN if rec is None else rec.span(ENGINE_GROW):
+            self._grow_pages()
         active_np = np.array([r is not None for r in self.active])
         if not active_np.any():
             return []
-        # Decode all lanes in one call on the device-resident tables.
-        logits, self.pool.k_pages, self.pool.v_pages = self._forward(
-            self.params, self.last_tok[:, None], self.pool.k_pages,
-            self.pool.v_pages, self.block_tables, self.seq_lens)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        mask = torch.from_numpy(active_np).to(self.device)
-        self.seq_lens += mask.to(torch.int32)
-        self.last_tok = torch.where(mask, nxt, self.last_tok)
-        # single host sync per step for completion bookkeeping
-        nxt_np, sl_np = torch.stack([nxt, self.seq_lens]).cpu().numpy()
+        with _NO_SPAN if rec is None else rec.span(ENGINE_DECODE):
+            # Decode all lanes in one call on the device-resident tables.
+            logits, self.pool.k_pages, self.pool.v_pages = self._forward(
+                self.params, self.last_tok[:, None], self.pool.k_pages,
+                self.pool.v_pages, self.block_tables, self.seq_lens)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            mask = torch.from_numpy(active_np).to(self.device)
+            self.seq_lens += mask.to(torch.int32)
+            self.last_tok = torch.where(mask, nxt, self.last_tok)
+        with _NO_SPAN if rec is None else rec.span(ENGINE_READ):
+            # single host sync per step for completion bookkeeping
+            nxt_np, sl_np = torch.stack([nxt, self.seq_lens]).cpu().numpy()
+            if rec is not None:
+                rec.count(HOST_READS)
+        with _NO_SPAN if rec is None else rec.span(ENGINE_RETIRE):
+            return self._retire_step(rec, active_np, nxt_np, sl_np)
+
+    def _retire_step(self, rec, active_np, nxt_np, sl_np) -> List[Request]:
+        """The bookkeeping after the decode's read: each lane's new token,
+        and the lanes whose requests finished retire."""
         done = []
-        rec = self._obs
         for lane in np.nonzero(active_np)[0]:
             req = self.active[lane]
             req.output.append(int(nxt_np[lane]))

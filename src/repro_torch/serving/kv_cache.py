@@ -32,9 +32,14 @@ from repro_torch.core.domain import (
     reclaim_retired_mask,
     safe_cycle,
 )
+from repro_torch.obs.recorder import HOST_READS
 
 
 class PagedKVPool:
+    # flight-recorder attachment: when set, the device->host reads of the
+    # calls the engine's step makes are counted (HOST_READS)
+    _obs = None
+
     def __init__(self, cfg: ModelConfig, *, num_pages: int, page_size: int,
                  window: Optional[int] = None, dtype=None,
                  steps_per_sec: float = 100.0, resilience_s: float = 0.1,
@@ -79,6 +84,8 @@ class PagedKVPool:
     def alloc(self, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Allocate n pages (FREE -> AVAILABLE/live). Returns (ids, valid)."""
         self.pool, ids, valid = sp.produce_with_reclaim(self.pool, n, self.window)
+        if self._obs is not None:  # produce_with_reclaim reads valid once
+            self._obs.count(HOST_READS)
         return ids, valid
 
     def retire(self, ids: torch.Tensor) -> None:
@@ -114,6 +121,8 @@ class PagedKVPool:
 
     # ------------------------------------------------------------------
     def free_pages(self) -> int:
+        if self._obs is not None:
+            self._obs.count(HOST_READS)
         return int((self.pool.state == FREE).sum())
 
     def live_pages(self) -> int:

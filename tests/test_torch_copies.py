@@ -25,14 +25,16 @@ COPIES = [
     "data/pipeline.py",
     "fabric/config.py", "fabric/stats.py", "launch/report.py",
     "net/__init__.py", "net/__main__.py", "net/framing.py", "net/server.py", "net/wire.py",
-    "obs/__init__.py", "obs/export.py", "obs/gauges.py", "obs/hub.py", "obs/recorder.py",
+    "obs/__init__.py", "obs/gauges.py",
     "sched/__init__.py", "sched/classes.py", "sched/policy.py", "sched/replica.py",
     "sched/stats.py", "sched/steal.py", "sched/tenants.py", "sched/transport.py",
 ]
 
 # modules with a reference twin that the port rewrites on torch (not copies);
 # fabric/__init__.py is the reference's but for one error message, which
-# does not name the release that removed the shims it reports
+# does not name the release that removed the shims it reports; the three
+# obs modules are the reference's plus the serving loop's step spans and
+# host-read counter (tests/test_torch_obs.py)
 REWRITTEN = {
     "checkpoint/checkpointer.py", "core/slotpool.py", "fabric/__init__.py",
     "fabric/session.py",
@@ -42,6 +44,7 @@ REWRITTEN = {
     "launch/serve.py", "launch/train.py", "models/__init__.py",
     "models/blocks.py", "models/frontends.py",
     "models/layers.py", "models/model.py", "models/moe.py", "models/ssm.py",
+    "obs/export.py", "obs/hub.py", "obs/recorder.py",
     "parallel/collectives.py", "parallel/pipeline.py", "parallel/sharding.py",
     "serving/admission.py",
     "serving/engine.py", "serving/kv_cache.py", "serving/paged_model.py",
