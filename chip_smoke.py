@@ -52,8 +52,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    full width and depth in bfloat16, random weights from ``--seed``, 16
    requests each through ``Engine(device_admission=True)`` with
    ``submit_many`` and ``run_until_idle``; the launch counts of the three
-   serving kernels are read from each model's run alone, and a decode step
-   of each is profiled;
+   serving kernels and of the paged block's two fused chains are read from
+   each model's run alone (``rms_norm`` held to 2L + 1 launches a forward
+   of L layers, ``rope_write`` to L), and a decode step of each is
+   profiled;
 6. device CMP queue: seeded FIFO churns through ``repro_torch.core.slotpool``
    (produce, claim, advance, reclaim) on a 2,048-slot pool (the JAX
    package's claim tile) and on a 65,536-slot pool (the page pool of a
@@ -163,8 +165,12 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``kernels`` JSON line (five rows for the five ``pallas_call`` sites, the
 claim kernel serving two, then eight for the four ``lax.scan`` sites: four
 xLSTM kernels, three SSD kernels, the decode step's among them, and the
-cache attention kernel; each row's ``of`` naming which), and the card's
-name and power limit come before that.
+cache attention kernel; then two for the paged block's fused chains,
+``rms_norm`` and ``rope_write``, whose ``of`` is ``fusion``: they replace
+no TPU kernel; each row's ``of`` naming which), and the card's name and
+power limit come before that. Phase 3 ends with those two kernels against
+their plain versions at yi-6b's and granite-moe's heads and widths over
+the benchmark's decode, prefill and chunk calls, each timed by graph.
 """
 
 from __future__ import annotations
@@ -1367,6 +1373,96 @@ def check_cache_attention(ca, gen) -> dict:
                 library_ms=lib_ms)
 
 
+NR_SITE = "src/repro/serving/paged_model.py::_paged_block (XLA's fusions; no pallas_call)"
+
+
+def check_norm_rope(nr, gen) -> list:
+    """Phase 3, the paged block's fused chains (``kernels/norm_rope.py``,
+    replacing no TPU kernel): ``rope_write`` and ``rms_norm`` (with the
+    residual add) against their plain versions at yi-6b's and granite-moe's
+    heads and widths over the benchmark's calls (decode steps of 320 and
+    512 lanes, a 4,000-token prefill, a 2 x 64 chunk at position 100), in
+    bf16 and float32: q, k, the K pages and the norm within one bf16 ulp
+    (float32 1e-6), the V pages bit for bit but for scratch page 0, where
+    idle lanes race. Timed in bf16: the kernel by CUDA graph, the plain
+    chain eagerly, ``F.rms_norm`` by graph as the norm's yardstick; the
+    bound each byte in and out once at 3.35 TB/s. Returns the two rows (each
+    kernel at yi-6b's prefill)."""
+    from torch_norm_rope_cases import NR_CALLS, NR_MODELS, norm_case, rope_case, within_one_ulp
+
+    sdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    err = {"rope_write": 0.0, "rms_norm": 0.0}
+    ulps = dict(err)
+    rows = {}
+    for model in NR_MODELS:
+        for call in NR_CALLS:
+            for dname, dt in sdt.items():
+                q, k, v, pos, inv, bt, kp, vp = rope_case(gen, "cuda", model, call, dt)
+                x, r, sc = norm_case(gen, "cuda", model, call, dt)
+                want_kp, want_vp = kp.clone(), vp.clone()
+                want = nr.plain_rope_write(q, k, v, pos, inv, bt, want_kp, want_vp)
+                got = nr.rope_write(q, k, v, pos, inv, bt, kp, vp)
+                what = f"rope_write {model} {call} {dname}"
+                ulps["rope_write"] = max(ulps["rope_write"],
+                                         within_one_ulp(what + " q", got[0], want[0]),
+                                         within_one_ulp(what + " k", got[1], want[1]),
+                                         within_one_ulp(what + " k pages", kp[1:], want_kp[1:]))
+                e = max(max_err(got[0], want[0]), max_err(got[1], want[1]),
+                        max_err(kp[1:], want_kp[1:]))  # page 0: the idle lanes' race
+                if not (torch.equal(vp[1:], want_vp[1:])
+                        and torch.equal(vp[0, :, 1:], want_vp[0, :, 1:])):
+                    raise AssertionError(f"{what}: V pages differ from the plain version's")
+                err["rope_write"] = max(err["rope_write"], e)
+                s, y = nr.rms_norm(x, sc, residual=r)
+                want_s, want_y = nr.plain_rms_norm(x, sc, residual=r)
+                if not torch.equal(s, want_s):
+                    raise AssertionError(f"rms_norm {model} {call} {dname}: the residual sum "
+                                         "differs from the plain add")
+                y1, want_y1 = nr.rms_norm(x, sc), nr.plain_rms_norm(x, sc)
+                ulps["rms_norm"] = max(ulps["rms_norm"],
+                                       within_one_ulp(f"rms_norm {model} {call} {dname}", y,
+                                                      want_y),
+                                       within_one_ulp(f"rms_norm {model} {call} {dname} (no "
+                                                      f"residual)", y1, want_y1))
+                err["rms_norm"] = max(err["rms_norm"], max_err(y, want_y), max_err(y1, want_y1))
+            q, k, v, pos, inv, bt, kp, vp = rope_case(gen, "cuda", model, call, torch.bfloat16)
+            x, r, sc = norm_case(gen, "cuda", model, call, torch.bfloat16)
+            args = (q, k, v, pos, inv, bt, kp, vp)
+            B, S = pos.shape
+            moved = nbytes(q, q, k, k, v, pos, inv) + 2 * nbytes(k) + 4 * B * S  # + a table entry
+            ms = graph_ms(lambda: nr.rope_write(*args), 20)
+            plain_ms = cuda_ms(lambda: nr.plain_rope_write(*args), 5)
+            b_ms, b_by = bound(moved, 0)
+            log(f"[kernels] rope_write {model} {call} bf16: kernel_ms={ms:.5f} (graph) "
+                f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.7f} ({b_by}: {moved / 1e6:.3f} MB); "
+                f"{ms / plain_ms:.4f} of the plain chain's time, {100 * b_ms / ms:.1f}% of the "
+                f"bound")
+            if (model, call) == ("yi_6b", "prefill4000"):
+                rows["rope_write"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                          bound_by=b_by, library_ms=None)
+            D = x.shape[-1]
+            moved = nbytes(x, r, sc, x, x)
+            ms = graph_ms(lambda: nr.rms_norm(x, sc, residual=r), 20)
+            plain_ms = cuda_ms(lambda: nr.plain_rms_norm(x, sc, residual=r), 5)
+            lib_ms = graph_ms(lambda: torch.nn.functional.rms_norm(x + r, (D,), sc, 1e-6), 20)
+            b_ms, b_by = bound(moved, 0)
+            log(f"[kernels] rms_norm (+ residual) {model} {call} bf16 D={D}: kernel_ms="
+                f"{ms:.5f} (graph) plain_ms={plain_ms:.5f} F.rms_norm_ms={lib_ms:.5f} (graph, "
+                f"the add and the norm) bound_ms={b_ms:.7f} ({b_by}: {moved / 1e6:.3f} MB); "
+                f"{100 * b_ms / ms:.1f}% of the bound")
+            if (model, call) == ("yi_6b", "prefill4000"):
+                rows["rms_norm"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                        library_ms=lib_ms)
+    log(f"[kernels] norm_rope: largest difference from the plain versions in bf16 ulps "
+        f"(float32: 1e-6 of the largest value) {ulps}; max abs err {err}")
+    for kernel, line in ptxas_lines():
+        if kernel.startswith(("rms_norm", "rope_write")):
+            log(f"[kernels] {kernel} (ptxas): {line}")
+    return [dict(name=name, of="fusion", source="src/repro_torch/kernels/csrc/norm_rope.cu",
+                 replaces=NR_SITE, max_abs_err=err[name], **rows[name])
+            for name in ("rms_norm", "rope_write")]
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the serving path
 # ---------------------------------------------------------------------------
@@ -1435,9 +1531,10 @@ def _to_device(tree, device, dtype=None):
     return tree_map(leaf, tree)
 
 
-def main_path(seed: int, kernels: dict, arch: str) -> dict:
+def main_path(seed: int, kernels: dict, nr, arch: str) -> dict:
     """Serve 16 requests on ``arch`` at full width and depth; return the
-    kernels' launch counts of this run alone."""
+    kernels' launch counts of this run alone, the paged block's fused
+    chains (``nr``, ``kernels/norm_rope.py``) among them."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, param_count
     from repro_torch.serving.engine import Engine
@@ -1465,12 +1562,13 @@ def main_path(seed: int, kernels: dict, arch: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for mod in kernels.values():
         mod.launches = 0
+    nr.launches.update(dict.fromkeys(nr.KERNELS, 0))
     t0 = time.perf_counter()
     uids = eng.submit_many(prompts, max_new_tokens=new_tokens)
     done = eng.run_until_idle(max_steps=2000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: mod.launches for name, mod in kernels.items()}
+    launches = {name: mod.launches for name, mod in kernels.items()} | nr.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     if None in uids or any(u not in done for u in uids):
@@ -1491,6 +1589,12 @@ def main_path(seed: int, kernels: dict, arch: str) -> dict:
     if launches["flash_attention"] != n_pre * cfg.num_layers:
         raise AssertionError(f"flash launches {launches['flash_attention']} != "
                              f"{n_pre} prefills x {cfg.num_layers}")
+    calls, n_layers = n_dec + n_pre, cfg.num_layers
+    if (launches["rms_norm"], launches["rope_write"]) != ((2 * n_layers + 1) * calls,
+                                                          n_layers * calls):
+        raise AssertionError(f"rms_norm/rope_write launches {launches['rms_norm']}/"
+                             f"{launches['rope_write']} != (2 x {n_layers} + 1)/{n_layers} "
+                             f"a forward x {calls} forwards")
     if launches["cmp_ring"] < 1 or eng._dev_admit.stats["kernel_calls"] < 1:
         raise AssertionError("the admission ring kernel never ran")
     gen_tokens = sum(len(done[u].output) for u in uids)
@@ -3208,9 +3312,10 @@ def main() -> int:
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
+    sys.path.insert(0, os.path.join(here, "tests"))  # torch_norm_rope_cases
     from repro_torch.kernels import _build
     from repro_torch.kernels import cache_attention, cmp_claim, cmp_ring, flash_attention
-    from repro_torch.kernels import paged_attention, ssd_scan, xlstm_scan
+    from repro_torch.kernels import norm_rope, paged_attention, ssd_scan, xlstm_scan
 
     walls = []
 
@@ -3252,6 +3357,7 @@ def main() -> int:
     rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], repaired["flash"])
     scan_rows = check_xlstm(xlstm_scan, args.seed) + check_ssd(ssd_scan, args.seed)
     scan_rows.append(check_cache_attention(cache_attention, gen))
+    fused_rows = check_norm_rope(norm_rope, gen)
     ca_after3 = cache_attention.launches
     phase(3, "kernels", t0)
 
@@ -3266,9 +3372,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = {"cmp_ring": cmp_ring, "paged_attention": paged_attention,
                "flash_attention": flash_attention, "cmp_claim": cmp_claim}
-    phase5 = dict.fromkeys(kernels, 0)
+    phase5 = dict.fromkeys((*kernels, *norm_rope.KERNELS), 0)
     for arch in SERVED:
-        for name, n in main_path(args.seed, kernels, arch).items():
+        for name, n in main_path(args.seed, kernels, norm_rope, arch).items():
             phase5[name] += n
         gc.collect()
         torch.cuda.empty_cache()
@@ -3343,6 +3449,11 @@ def main() -> int:
     for row in scan_rows:
         row["launches"] = scan_launches[row["name"]]
     rows += scan_rows
+    for row in fused_rows:  # phase 5's forwards, held to 2L + 1 and L a forward
+        row["launches"] = phase5[row["name"]]
+    log(f"[launches] the paged block's fused chains: phase 5 (Engine) "
+        f"{ {k: phase5[k] for k in norm_rope.KERNELS} }")
+    rows += fused_rows
     for row in rows:
         row["route"] = "cuda"
     keys = ["name", "route", "source", "replaces", "of", "launches", "max_abs_err", "ms",

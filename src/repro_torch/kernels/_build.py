@@ -48,6 +48,8 @@ SIGNATURES = {
     "rt_ssd_bwd": [_P] * 16 + [_I] * 7 + [_P],
     "rt_ssd_decode": [_P] * 8 + [_I] * 6 + [_P],
     "rt_cache_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "rt_rms_norm": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
+    "rt_rope_write": [_P] * 10 + [_I] * 9 + [_P],
     "rt_cmp_ring_max_n": [],
     "rt_paged_attention_max_rep_hd": [],
     "rt_flash_attention_max_hd": [],
@@ -59,6 +61,8 @@ SIGNATURES = {
     "rt_ssd_block_n": [],
     "rt_ssd_block_p": [],
     "rt_cache_attention_max_hd": [],
+    "rt_rms_norm_max_d": [],
+    "rt_rope_write_max_hd": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None

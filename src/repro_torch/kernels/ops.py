@@ -8,6 +8,7 @@ from repro_torch.kernels import cache_attention as _ca
 from repro_torch.kernels import cmp_claim as _claim
 from repro_torch.kernels import cmp_ring as _ring
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import norm_rope as _nr
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import xlstm_scan as _xs
@@ -35,6 +36,20 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *, softcap=0.0)
     """q [B, H, hd]; pages [P, KV, page, hd] -> [B, H, hd]."""
     return _pa.paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
                                softcap=softcap)
+
+
+def rms_norm(x, scale, *, residual=None):
+    """``layers.rms_norm`` of x [..., D]; with ``residual`` the pair (x +
+    residual, its rms_norm), the add rounded to x's dtype. Forward only."""
+    return _nr.rms_norm(x, scale, residual=residual)
+
+
+def rope_write(q, k, v, positions, inv_freq, block_tables, k_pages, v_pages):
+    """(q, k) RoPE'd at positions [B, S] (q [B, S, H, hd], k, v [B, S, KV,
+    hd]; ``inv_freq`` = ``layers.rope_freqs``), and the RoPE'd k and v
+    written into the pages [P, KV, pg, hd] at each token's (block_tables[b,
+    pos // pg], :, pos % pg), in place. Forward only."""
+    return _nr.rope_write(q, k, v, positions, inv_freq, block_tables, k_pages, v_pages)
 
 
 def ring_step(state, cycle, meta, req, *, k, window):

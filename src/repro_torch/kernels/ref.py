@@ -106,6 +106,51 @@ def ref_paged_attention_split(q, k_pages, v_pages, block_tables, seq_lens,
     return out.to(q.dtype)
 
 
+def ref_rms_norm(x, scale, *, eps=1e-6, residual=None):
+    """``models/layers.py``'s ``rms_norm`` of x (f32 inside, one rounding to
+    x's dtype), or, with ``residual``, of s = x + residual rounded to x's
+    dtype: then (s, rms_norm(s))."""
+    if residual is not None:
+        x = x + residual
+    dt = x.dtype
+    xf = x.float()
+    y = (xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+         * scale.float()).to(dt)
+    return y if residual is None else (x, y)
+
+
+def ref_rope(x, positions, inv_freq):
+    """``models/layers.py``'s ``apply_rope`` of x [B,S,heads,hd] at
+    positions [B,S], with the frequencies ``rope_freqs`` gives."""
+    hd = x.shape[-1]
+    angles = positions[..., :, None, None].float() * inv_freq
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def ref_scatter_pages(k_pages, v_pages, k_new, v_new, block_tables, positions):
+    """k_pages [P,KV,pg,hd]; k_new [B,S,KV,hd]; positions [B,S] absolute.
+    Writes in place. ``k_pages[rows, :, slots]`` is [B,S,KV,hd]: the two
+    index tensors are split by a slice, so their broadcast dims come first,
+    as in numpy and JAX. Idle lanes all write scratch page 0, slot 0; those
+    duplicate writes land in no live page."""
+    pg = k_pages.shape[2]
+    rows = torch.gather(block_tables, 1, positions // pg).long()
+    slots = (positions % pg).long()
+    k_pages[rows, :, slots] = k_new.to(k_pages.dtype)
+    v_pages[rows, :, slots] = v_new.to(v_pages.dtype)
+
+
+def ref_rope_write(q, k, v, positions, inv_freq, block_tables, k_pages, v_pages):
+    """RoPE on q [B,S,H,hd] and k [B,S,KV,hd], then the RoPE'd k and v into
+    the pages at each token's (block_tables[b, pos // pg], :, pos % pg), in
+    place: returns (q, k) RoPE'd."""
+    q, k = ref_rope(q, positions, inv_freq), ref_rope(k, positions, inv_freq)
+    ref_scatter_pages(k_pages, v_pages, k, v, block_tables, positions)
+    return q, k
+
+
 def ref_ring_step(state, cycle, meta, req, *, k, window):
     """The fused admission-ring step in plain torch: window reclaim +
     batched ring enqueue (contiguous prefix accept) + k-way earliest claim +

@@ -8,7 +8,9 @@ skip; on a machine with one, run them with
 Tolerances: 2e-5 in float32 (sums in another order), 3e-2 (flash, the MoE
 block) and 4e-2 (paged) in bfloat16, the reference tests' tolerances; the
 CMP kernels (ring, claim, the fused slot-pool claim), the slot pool and
-the admission ring bit-exact."""
+the admission ring bit-exact; the paged block's fused norm and RoPE chains
+within one bf16 ulp of their plain versions (float32: 1e-6), their V
+pages bit for bit."""
 
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.core import slotpool
 from repro_torch.kernels import cmp_claim, cmp_ring, flash_attention, paged_attention
+from torch_norm_rope_cases import NR_CALLS, NR_MODELS, norm_case, rope_case, within_one_ulp
 from torch_xlstm_cases import EXTREME_CASES, check_rows, extreme_case
 
 pytestmark = pytest.mark.cuda
@@ -1781,3 +1784,128 @@ def test_ssd_decode_is_one_kernel_under_the_profiler(dev):
     assert len(kernels) == 1 and "ssd_decode_kernel" in kernels[0].key, \
         [(e.key, e.count) for e in kernels]
     assert kernels[0].count == 1
+
+
+# ---------------------------------------------------------------------------
+# the paged block's fused chains (kernels/norm_rope.py)
+# ---------------------------------------------------------------------------
+
+
+def _nr_case(dev, model, call, dtype):
+    """One call's rope_write inputs from a generator seeded by its shape."""
+    B, S, _ = NR_CALLS[call]
+    g = torch.Generator(device=dev).manual_seed(B * S + NR_MODELS[model][2])
+    return rope_case(g, dev, model, call, DT[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("call", list(NR_CALLS))
+@pytest.mark.parametrize("model", list(NR_MODELS))
+def test_rope_write_kernel_matches_plain(dev, model, call, dtype):
+    """q and k RoPE'd and every K page within one bf16 ulp of the plain
+    version (float32: 1e-6), every V page bit for bit; scratch page 0's
+    slot 0 holds the idle lanes' writes (both versions race there)."""
+    from repro_torch.kernels import norm_rope
+
+    q, k, v, pos, inv_freq, bt, kp, vp = _nr_case(dev, model, call, dtype)
+    want_kp, want_vp = kp.clone(), vp.clone()
+    want_q, want_k = norm_rope.plain_rope_write(q, k, v, pos, inv_freq, bt, want_kp, want_vp)
+    before = norm_rope.launches["rope_write"]
+    got_q, got_k = norm_rope.rope_write(q, k, v, pos, inv_freq, bt, kp, vp)
+    torch.cuda.synchronize()
+    assert norm_rope.launches["rope_write"] == before + 1
+    within_one_ulp("q", got_q, want_q)
+    within_one_ulp("k", got_k, want_k)
+    idle = (bt == 0).all(1)
+    assert torch.equal(vp[1:], want_vp[1:]) and torch.equal(vp[0, :, 1:], want_vp[0, :, 1:])
+    within_one_ulp("k pages", kp[1:], want_kp[1:])
+    if idle.any():  # lanes may race element by element: each element one lane's
+        assert (vp[0, :, 0][None] == v[idle][:, 0]).any(0).all()
+        assert (kp[0, :, 0][None] == got_k[idle][:, 0]).any(0).all()
+    else:
+        assert torch.equal(vp[0], want_vp[0]) and torch.equal(kp[0], want_kp[0])
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("call", list(NR_CALLS))
+@pytest.mark.parametrize("model", list(NR_MODELS))
+def test_rms_norm_kernel_matches_plain(dev, model, call, dtype, residual):
+    """The norm within one bf16 ulp of the plain version (float32: 1e-6) at
+    the model's width over a call's rows; the residual sum bit for bit."""
+    from repro_torch.kernels import norm_rope
+
+    B, S, _ = NR_CALLS[call]
+    g = torch.Generator(device=dev).manual_seed(B * S + NR_MODELS[model][3])
+    x, r, scale = norm_case(g, dev, model, call, DT[dtype])
+    r = r if residual else None
+    before = norm_rope.launches["rms_norm"]
+    got = norm_rope.rms_norm(x, scale, residual=r)
+    want = norm_rope.plain_rms_norm(x, scale, residual=r)
+    torch.cuda.synchronize()
+    assert norm_rope.launches["rms_norm"] == before + 1
+    if residual:
+        assert torch.equal(got[0], want[0])
+        got, want = got[1], want[1]
+    within_one_ulp("rms_norm", got, want)
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "granite_moe", "musicgen_large"])
+def test_paged_forward_launches_the_fused_chains(dev, arch):
+    """One paged forward of L layers launches rms_norm 2L + 1 times (none
+    for a layernorm config) and rope_write L times, prefill and decode
+    alike; its logits are the CPU run's (float32 smoke config)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import norm_rope
+    from repro_torch.models import model as M
+    from repro_torch.serving.paged_model import paged_forward
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(arch, smoke=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda t: t.to(dev), params)
+    L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    kp = torch.zeros(L, 9, KV, 16, hd, dtype=getattr(torch, cfg.dtype))
+    pages = {"cpu": (kp, kp.clone()), "cuda": tuple(torch.zeros_like(kp, device=dev)
+                                                      for _ in "kv")}
+    bt = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32)
+    rms = 0 if cfg.norm == "layernorm" else 2 * L + 1
+    for toks, lens in (([[3, 1, 4, 1, 5], [9, 2, 6, 5, 3]], [0, 0]), ([[5], [8]], [5, 5])):
+        toks, lens = torch.tensor(toks, dtype=torch.int32), torch.tensor(lens, dtype=torch.int32)
+        want, _, _ = paged_forward(params, toks, cfg, *pages["cpu"], bt, lens)
+        before = dict(norm_rope.launches)
+        got, _, _ = paged_forward(card, toks.to(dev), cfg, *pages["cuda"], bt.to(dev),
+                                  lens.to(dev))
+        torch.cuda.synchronize()
+        assert norm_rope.launches["rms_norm"] - before["rms_norm"] == rms
+        assert norm_rope.launches["rope_write"] - before["rope_write"] == L
+        _close(got.cpu(), want, 2e-5)
+    for a, b in zip(pages["cuda"], pages["cpu"]):
+        _close(a.cpu(), b, 2e-5)
+
+
+def test_fused_chain_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """Each wrapper raises, and launches nothing, on a strided input, a
+    scale of another width, int64 positions, pages of another dtype than
+    q's or an odd head_dim."""
+    from repro_torch.kernels import norm_rope
+
+    q, k, v, pos, inv_freq, bt, kp, vp = _nr_case(dev, "granite_moe", "chunk64at100", "bfloat16")
+    x = torch.randn(4, 64, dtype=torch.bfloat16, device=dev)
+    before = dict(norm_rope.launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        norm_rope.rms_norm(x.t(), x[:, 0].contiguous())
+    with pytest.raises(ValueError, match="scale"):
+        norm_rope.rms_norm(x, x[0, :32])
+    with pytest.raises(ValueError, match="positions"):
+        norm_rope.rope_write(q, k, v, pos.long(), inv_freq, bt, kp, vp)
+    with pytest.raises(ValueError, match="k_pages must be contiguous torch.bfloat16"):
+        norm_rope.rope_write(q, k, v, pos, inv_freq, bt, kp.float(), vp.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        norm_rope.rope_write(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, pos,
+                             inv_freq, bt, kp, vp)
+    with pytest.raises(ValueError, match="hd even"):
+        norm_rope.rope_write(q[..., :63].contiguous(), k[..., :63].contiguous(),
+                             v[..., :63].contiguous(), pos, inv_freq[:31], bt,
+                             kp[..., :63].contiguous(), vp[..., :63].contiguous())
+    assert norm_rope.launches == before
