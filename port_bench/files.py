@@ -3,7 +3,9 @@
 Every configuration, traffic mix, cell, metric reader and roofline is a file
 of its own under this folder, named after the name ``BENCHMARK.json`` gives
 it: ``configs/<config>.json``, ``traffic/<mix>.json``,
-``workloads/<cell>.json``, ``metrics/<metric>.py``, ``rooflines/<kernel>.py``.
+``workloads/<cell>.json``, ``metrics/<metric>.py``, ``rooflines/<kernel>.py``;
+and the model family that a configuration file's ``"family"`` key names,
+``families/<family>.py``.
 """
 
 from __future__ import annotations
@@ -15,24 +17,32 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+# the family of a configuration file without a "family" key: the Llama-style
+# stack of dense or MoE blocks
+DEFAULT_FAMILY = "llama"
 
 
 def load_json(kind: str, name: str) -> dict:
     return json.loads((HERE / kind / f"{name}.json").read_text())
 
 
-def load_module(kind: str, name: str):
-    """The module ``<kind>/<name>.py`` (names may hold dots and dashes).
-    Without that file, a name with a dot suffix takes its stem's:
-    ``ttft_p95_ms.chat`` reads with ``metrics/ttft_p95_ms.py``."""
-    path = HERE / kind / f"{name}.py"
+def load_module(kind: str, name: str, where: Path = HERE):
+    """The module ``<kind>/<name>.py`` under ``where`` (names may hold dots
+    and dashes). Without that file, a name with a dot suffix takes its
+    stem's: ``ttft_p95_ms.chat`` reads with ``metrics/ttft_p95_ms.py``."""
+    path = Path(where) / kind / f"{name}.py"
     if not path.exists() and "." in name:
-        return load_module(kind, name.rsplit(".", 1)[0])
+        return load_module(kind, name.rsplit(".", 1)[0], where)
     mod_name = "port_bench_" + kind + "_" + re.sub(r"\W", "_", name)
     spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def family(cfg: dict, where: Path = HERE):
+    """The family module that the configuration ``cfg`` names."""
+    return load_module("families", cfg.get("family", DEFAULT_FAMILY), where)
 
 
 def benchmark(root: Path = ROOT) -> dict:

@@ -8,6 +8,10 @@ gets the harness's forward callable (``paged_forward`` itself, with a note
 of each call's shape). Each step is ``Fabric.step``; it ends in the
 engine's host read, so a token exists when the step that made it returns.
 
+The configuration file names its model family (``families/<family>.py``;
+``files.family``), through which the harness reaches the weights, the
+plain reference, the model FLOPs, the config check and the MoE capacity.
+
 Set-up: the kernel library (built into ``build/`` of the checkout at its
 first run), the weights made on the device from the seed, the fabric, then
 the clients' first requests and the steps until each has its lane. The
@@ -30,10 +34,9 @@ import torch
 
 from port_bench import files, judge, profiled, traffic, weights
 from port_bench.tails import median, percentile
-from port_bench.reference import model as ref
 
-# config-file key -> ModelConfig attribute of the port (the MoE's expert
-# width is its intermediate_size)
+# config-file key -> ModelConfig attribute of the port (a family adds its
+# own keys, and overrides these, by its ``config_fields``)
 PORT_FIELDS = {
     "num_hidden_layers": "num_layers", "hidden_size": "d_model",
     "num_attention_heads": "num_heads", "num_key_value_heads": "num_kv_heads",
@@ -55,6 +58,11 @@ class Cell:
     end_to_end: list
     per_layer: list
     port_cfg: object = None  # the program's config; None: get_config(cfg["arch"])
+    family: object = None    # the family module; None: the one cfg names
+
+    def __post_init__(self):
+        if self.family is None:
+            self.family = files.family(self.cfg)
 
 
 def load_cell(name: str, bench: dict) -> Cell:
@@ -65,48 +73,60 @@ def load_cell(name: str, bench: dict) -> Cell:
                 files.cell_metrics(bench, name, "per_layer"))
 
 
-def config_mismatches(cfg: dict, pc) -> List[str]:
-    """Where the program's config ``pc`` departs from the file's copy."""
+def per_layer(kinds, num_layers: int) -> tuple:
+    """A period of block kinds repeated over ``num_layers`` layers (as it
+    stands where the period does not divide them)."""
+    kinds = tuple(kinds)
+    return kinds * (num_layers // len(kinds)) if num_layers % len(kinds) == 0 else kinds
+
+
+def config_mismatches(cfg: dict, pc, family=None) -> List[str]:
+    """Where the program's config ``pc`` departs from the file's copy, by
+    the keys of ``PORT_FIELDS``, the block kind of each layer that the
+    family expects, and the family's own ``config_fields``."""
     from repro_torch.models import layers
 
-    moe = weights.moe(cfg)
+    family = family or files.family(cfg)
     have = {k: getattr(pc, a) for k, a in PORT_FIELDS.items()}
-    have["intermediate_size"] = pc.expert_d_ff if moe else pc.d_ff
-    have["block"] = pc.block_pattern
-    have["norm"] = pc.norm
-    have["rms_norm_eps"] = inspect.signature(layers.rms_norm).parameters["eps"].default
     want = {k: cfg.get(k, 0 if k in ("num_local_experts", "num_experts_per_tok") else None)
             for k in PORT_FIELDS}
-    if not moe:
-        want["capacity_factor"] = have["capacity_factor"]  # a dense model has none
-    want["intermediate_size"] = cfg["intermediate_size"]
-    want["block"] = ("moe",) if moe else ("dense",)
-    want["norm"] = "rmsnorm"
+    want["block"] = per_layer(family.expected_blocks(cfg), pc.num_layers)
+    have["block"] = per_layer(pc.block_pattern, pc.num_layers)
+    want["norm"], have["norm"] = "rmsnorm", pc.norm
     want["rms_norm_eps"] = cfg["rms_norm_eps"]
+    have["rms_norm_eps"] = inspect.signature(layers.rms_norm).parameters["eps"].default
+    for k, (w, h) in family.config_fields(cfg, pc).items():
+        want[k], have[k] = w, h
     return [f"{k}: file {want[k]!r}, program {have[k]!r}"
             for k in want if want[k] != have[k]]
 
 
-def port_config(cfg: dict):
+def port_config(cfg: dict, family=None, pc=None):
+    """The program's config of ``cfg`` (``get_config(arch)`` unless ``pc``
+    is given), stopping the run where it departs from the file."""
     from repro_torch.configs import get_config
 
-    pc = get_config(cfg["arch"])
-    bad = config_mismatches(cfg, pc)
+    pc = pc if pc is not None else get_config(cfg["arch"])
+    bad = config_mismatches(cfg, pc, family)
     if bad:
         raise SystemExit("the program's config departs from "
-                         f"port_bench/configs ({cfg['arch']}): " + "; ".join(bad))
+                         f"the configuration file ({cfg['arch']}): " + "; ".join(bad))
     return pc
 
 
 class Forward:
-    """The group's forward callable: ``paged_forward``, noting each call's
-    (batch, tokens) on the host and keeping on the device its logits' top
-    ``TOP`` values and ids a row (no host read), which the judge compares
-    with the reference's. ``fault`` breaks it for the harness's own test:
-    ``"altered_token"`` shifts a decode call's logits by one vocab entry,
-    ``"stale_state"`` leaves the KV pages unwritten. With ``ranges`` set
-    (the profiled slice) each decode call runs inside a ``pb.decode``
-    profiler range."""
+    """The group's forward callable: ``paged_forward(p, t, pc, *state)``
+    with every state argument the engine gives (the KV pages, block
+    tables, lengths, and whatever a family's serving path carries),
+    returning its output whole. It notes each call's (batch, tokens) on
+    the host and keeps on the device the top ``TOP`` values and ids a row
+    of the output's first entry, the logits (no host read), which the
+    judge compares with the reference's. ``fault`` breaks it for the
+    harness's own test: ``"altered_token"`` shifts a decode call's logits
+    by one vocab entry, ``"stale_state"`` runs the forward on clones of
+    every state tensor and returns the originals, unwritten, in their
+    place. With ``ranges`` set (the profiled slice) each decode call runs
+    inside a ``pb.decode`` profiler range."""
 
     TOP = 8
 
@@ -118,24 +138,27 @@ class Forward:
         self.top: List[tuple] = []
         self.ranges = False
 
-    def __call__(self, p, t, kp, vp, bt, sl):
+    def __call__(self, p, t, *state):
         self.calls.append(tuple(t.shape))
         if not (self.ranges and t.shape[1] == 1):
-            return self._call(p, t, kp, vp, bt, sl)
+            return self._call(p, t, state)
         from torch.profiler import record_function
 
         with record_function(profiled.DECODE):
-            return self._call(p, t, kp, vp, bt, sl)
+            return self._call(p, t, state)
 
-    def _call(self, p, t, kp, vp, bt, sl):
+    def _call(self, p, t, state):
         if self.fault == "stale_state":
-            logits, _, _ = self.fwd(p, t, self.pc, kp.clone(), vp.clone(), bt, sl)
+            clones = [s.clone() if isinstance(s, torch.Tensor) else s for s in state]
+            out = self.fwd(p, t, self.pc, *clones)
+            unwritten = {id(c): s for c, s in zip(clones, state)}
+            out = (out[0], *(unwritten.get(id(o), o) for o in out[1:]))
         else:
-            logits, kp, vp = self.fwd(p, t, self.pc, kp, vp, bt, sl)
+            out = self.fwd(p, t, self.pc, *state)
         if self.fault == "altered_token" and t.shape[1] == 1:
-            logits = logits.roll(1, dims=-1)
-        self.top.append(torch.topk(logits, self.TOP, dim=-1))
-        return logits, kp, vp
+            out = (out[0].roll(1, dims=-1), *out[1:])
+        self.top.append(torch.topk(out[0], self.TOP, dim=-1))
+        return out
 
 
 def build_fabric(cell: Cell, pc, params, fwd: Forward, device):
@@ -337,11 +360,11 @@ def judged(cell: Cell, loop: Loop, seed: int) -> tuple:
     earlier lane's on an expert; so a request that held a lane below the
     capacity had every decode claim kept, whatever its batch-mates routed,
     and only such requests are judged (the prefill is the request's own
-    call). A dense model's lanes do not interact."""
+    call). Without expert slots (the family's capacity 0) lanes do not
+    interact."""
     fin = loop.finished()
-    cap = 0
-    if weights.moe(cell.cfg):
-        cap = ref.capacity(cell.engine["max_batch"], cell.cfg)
+    cap = cell.family.capacity(cell.engine["max_batch"], cell.cfg)
+    if cap:
         fin = [r for r in fin if r["lane"] is not None and r["lane"] < cap]
     return judge.pick(fin, seed, cell.judge), cap
 
@@ -350,8 +373,9 @@ def compare(cell: Cell, params, sample: List[dict], tops: List[tuple], cap: int,
             control: bool = False) -> dict:
     """The readings of the judged requests against the reference (and with
     ``control`` the control's at the same positions)."""
-    seqs = judge.sequences(sample, cell.cfg, cap)
-    ref_logits = ref.logits(params, cell.cfg, seqs, device=device)
+    fam = cell.family
+    seqs = judge.sequences(sample, cell.cfg, fam, cap)
+    ref_logits = fam.logits(params, cell.cfg, seqs, device=device)
     tops = [(v.to(device), i.to(device)) for v, i in tops]
     out = {"gap": judge.served_gap(ref_logits, sample),
            "logit_err": judge.logit_err(ref_logits, tops),
@@ -360,7 +384,7 @@ def compare(cell: Cell, params, sample: List[dict], tops: List[tuple], cap: int,
            "in_vocab": all(0 <= t < cell.cfg["vocab_size"]
                            for r in sample for t in r["output"])}
     if control:
-        ctl = ref.logits(params, cell.cfg, seqs, low=ref.control_precision(cell.cfg),
+        ctl = fam.logits(params, cell.cfg, seqs, low=fam.control_precision(cell.cfg),
                          device=device)
         out["control_gap"] = judge.control_gap(ref_logits, ctl)
         out["control_logit_err"] = judge.logit_err(
@@ -410,12 +434,13 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, *, device="cuda",
     cuda = torch.device(device).type == "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False  # the reference's float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
-    pc = cell.port_cfg if cell.port_cfg is not None else port_config(cell.cfg)
+    pc = port_config(cell.cfg, cell.family, cell.port_cfg)
     if cuda:
         from repro_torch.kernels import _build
 
         _build.lib()
-    params = weights.make_weights(cell.cfg, seed, device)
+    params = cell.family.make_weights(cell.cfg, seed, device)
+    params_digest = weights.digest(params)
     fwd = Forward(pc, fault)
     fabric = build_fabric(cell, pc, params, fwd, device)
     gen = traffic.ClosedLoop(cell.mix, cell.cfg["vocab_size"], seed)
@@ -425,11 +450,12 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, *, device="cuda",
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_start
     log(f"[setup] {cell.name}: {cell.cfg['arch']}, {weights.nbytes(params) / 1e9:.3f} GB "
-        f"of weights, {gen.clients} clients, {len(loop.steps)} ramp steps, "
-        f"{setup_s:.3f} s")
+        f"of weights (digest {params_digest}), {gen.clients} clients, "
+        f"{len(loop.steps)} ramp steps, {setup_s:.3f} s")
     loop.window(seconds, sample_kv=trace)
     obs = loop.observations()
-    obs.update(setup_s=setup_s, cfg=cell.cfg, engine=cell.engine, profile=None)
+    obs.update(setup_s=setup_s, cfg=cell.cfg, family=cell.family, engine=cell.engine,
+               profile=None)
     prof = loop.profile(cell.trace_slice_s, cuda) if trace else None
     if prof is not None:
         obs.update(profile=prof, slice_steps=loop.slice_steps)

@@ -41,19 +41,20 @@ def pick(finished: List[dict], seed: int, judge: dict) -> List[dict]:
     return out
 
 
-def sequences(reqs: List[dict], cfg: dict, decode_capacity: int = 0) -> List[dict]:
+def sequences(reqs: List[dict], cfg: dict, family, decode_capacity: int = 0) -> List[dict]:
     """The reference's inputs: prompt + served tokens but the last, logits
-    from the prompt's last position on. For an MoE, the forward calls the
-    server ran over these positions: the prompt as one prefill call, each
-    served token but the last as a decode step at ``decode_capacity``."""
+    from the prompt's last position on. Where the family has expert slots
+    (its ``capacity``), the forward calls the server ran over these
+    positions: the prompt as one prefill call, each served token but the
+    last as a decode step at ``decode_capacity``."""
     seqs = []
     for r in reqs:
         toks = list(r["prompt"]) + list(r["output"][:-1])
         s = {"tokens": toks, "first": len(r["prompt"]) - 1}
-        if cfg.get("num_local_experts", 0):
-            from port_bench.reference.model import capacity
-            P = len(r["prompt"])
-            s["segments"] = [(0, P, capacity(P, cfg))] + [
+        P = len(r["prompt"])
+        cap = family.capacity(P, cfg)
+        if cap:
+            s["segments"] = [(0, P, cap)] + [
                 (p, p + 1, decode_capacity) for p in range(P, len(toks))]
         seqs.append(s)
     return seqs

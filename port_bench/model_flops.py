@@ -30,3 +30,9 @@ def step_flops(cfg: dict, step: dict) -> float:
     served = len(pre) + len(ctx)
     return (L * (2.0 * layer_params(cfg) * tokens + 4.0 * H * hd * keys)
             + 2.0 * cfg["hidden_size"] * cfg["vocab_size"] * served)
+
+
+def window_flops(obs: dict) -> float:
+    """The model FLOPs of the window's steps (``obs["steps"]``), by the
+    cell's family's ``step_flops``."""
+    return sum(obs["family"].step_flops(obs["cfg"], s) for s in obs["steps"])

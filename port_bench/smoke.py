@@ -10,19 +10,9 @@ from port_bench import files
 from port_bench.harness import Cell
 
 def config_dict(arch: str, pc) -> dict:
-    """The configuration-file form of the port's config ``pc``."""
-    cfg = {"arch": arch, "kv_head_map": "h % KV",
-           "num_hidden_layers": pc.num_layers, "hidden_size": pc.d_model,
-           "intermediate_size": pc.expert_d_ff if pc.num_experts else pc.d_ff,
-           "num_attention_heads": pc.num_heads, "num_key_value_heads": pc.num_kv_heads,
-           "head_dim": pc.resolved_head_dim, "vocab_size": pc.vocab_size,
-           "rope_theta": pc.rope_theta, "hidden_act": pc.act, "rms_norm_eps": 1e-6,
-           "tie_word_embeddings": pc.tie_embeddings, "torch_dtype": pc.dtype}
-    if pc.num_experts:
-        cfg.update(num_local_experts=pc.num_experts,
-                   num_experts_per_tok=pc.num_experts_per_tok,
-                   capacity_factor=pc.capacity_factor, min_capacity=8)
-    return cfg
+    """The configuration-file form of the port's config ``pc``, as the
+    default family (the Llama-style stack) writes it."""
+    return files.family({}).config_dict(arch, pc)
 
 
 # the smoke configs, wider: logits whose near ties a lower precision flips
@@ -34,9 +24,11 @@ WIDE = {"d_model": 256, "head_dim": 64, "vocab_size": 8192}
 LIMITS = {"max_logit_gap": 0.02, "logit_err_p50": 0.012}
 
 
-def cell(arch: str, *, dtype: str = "bfloat16", workload: str = None, **replace) -> Cell:
+def cell(arch: str, *, dtype: str = "bfloat16", workload: str = None, family=None,
+         **replace) -> Cell:
     """A small cell of ``arch`` in ``dtype`` (the smoke config at ``WIDE``
-    widths, updated by ``replace``), reporting the metrics that
+    widths, updated by ``replace``) of the family module ``family``
+    (default: the Llama-style stack), reporting the metrics that
     BENCHMARK.json gives ``workload`` (default: yi6b.longprompt's)."""
     from repro_torch.configs import get_config
 
@@ -50,6 +42,7 @@ def cell(arch: str, *, dtype: str = "bfloat16", workload: str = None, **replace)
     engine = {"max_batch": 4, "page_size": 8, "max_seq": 96, "kv_window": 2,
               "num_pages": 4 * 12 + 24 + 1}
     judge = dict(LIMITS, min_served=150, min_requests=3, max_requests=6)
-    return Cell(f"smoke.{arch}", config_dict(arch, pc), mix, engine, judge, 0.3,
+    family = family or files.family({})
+    return Cell(f"smoke.{arch}", family.config_dict(arch, pc), mix, engine, judge, 0.3,
                 files.cell_metrics(bench, workload, "end_to_end"),
-                files.cell_metrics(bench, workload, "per_layer"), port_cfg=pc)
+                files.cell_metrics(bench, workload, "per_layer"), port_cfg=pc, family=family)

@@ -69,7 +69,8 @@ def obs(**kw):
     steps = [{"ts": 0.0, "te": 0.5, "tokens": 4, "prefill": [3], "dec_ctx": [4, 5], "batch": 3},
              {"ts": 0.5, "te": 0.75, "tokens": 2, "prefill": [], "dec_ctx": [5, 6], "batch": 3},
              {"ts": 0.75, "te": 1.0, "tokens": 2, "prefill": [], "dec_ctx": [6, 7], "batch": 3}]
-    o = {"window_s": 1.0, "tokens": 8, "steps": steps, "cfg": DENSE, "kv_live": [0.5, 0.25],
+    o = {"window_s": 1.0, "tokens": 8, "steps": steps, "cfg": DENSE,
+         "family": files.family(DENSE), "kv_live": [0.5, 0.25],
          "ttft_ms": [float(i) for i in range(1, 21)], "itl_ms": [1.0] * 19 + [9.0],
          "admit_wait_ms": [2.0], "setup_s": 3.5, "profile": None, "slice_steps": steps}
     o.update(kw)

@@ -83,14 +83,33 @@ def test_run_without_a_card_prints_no_result():
     assert p.returncode != 0 and p.stdout.strip() == ""
 
 
-@pytest.mark.parametrize("name", [c["name"] for c in files.benchmark()["configs"]])
-def test_config_files_match_the_program(name):
+# the file as it is, and with each per-layer key of the family's
+# expected_blocks written out for a stack of one kind: each layer's entry
+# for that kind, and one that changes a layer
+PER_LAYER = {"layer_types": ({"dense": "full_attention", "moe": "attention"},
+                             {"dense": "mamba", "moe": "mamba"}),
+             "mlp_layer_types": ({"dense": "dense", "moe": "sparse"},
+                                 {"dense": "sparse", "moe": "dense"})}
+
+
+@pytest.mark.parametrize("name,key", [
+    pytest.param(c["name"], key, id=c["name"] if key is None else f"{c['name']}-{key}")
+    for c in files.benchmark()["configs"] for key in (None, *PER_LAYER)])
+def test_config_files_match_the_program(name, key):
     from repro_torch.configs import get_config
 
     cfg = files.load_json("configs", name)
-    assert harness.config_mismatches(cfg, get_config(cfg["arch"])) == []
-    assert harness.config_mismatches(dict(cfg, hidden_size=cfg["hidden_size"] + 1),
-                                     get_config(cfg["arch"]))
+    pc = get_config(cfg["arch"])
+    if key is not None:
+        fam, L = files.family(cfg), cfg["num_hidden_layers"]
+        (kind,) = fam.expected_blocks(cfg)
+        same, other = (entry[kind] for entry in PER_LAYER[key])
+        cfg = dict(cfg, **{key: [same] * L})
+        assert fam.expected_blocks(cfg) == (kind,) * L
+        changed = dict(cfg, **{key: [same] * (L - 1) + [other]})
+        assert any(m.startswith("block: ") for m in harness.config_mismatches(changed, pc))
+    assert harness.config_mismatches(cfg, pc) == []
+    assert harness.config_mismatches(dict(cfg, hidden_size=cfg["hidden_size"] + 1), pc)
 
 
 def test_benchmark_file_finds_its_files():

@@ -11,7 +11,12 @@ scale shows), the router float32.
 
 from __future__ import annotations
 
+import hashlib
+
 import torch
+
+DIGEST_ROW = 2 ** 16     # 32-bit words a row: |word| x 1..ROW summed stays inside int64
+DIGEST_SLAB = 2 ** 10    # rows a pass, which bounds the pass's int64 copies
 
 
 def generator(seed: int, device) -> torch.Generator:
@@ -62,3 +67,32 @@ def nbytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(nbytes(v) for v in tree.values())
     return tree.numel() * tree.element_size()
+
+
+def digest(tree) -> str:
+    """A digest of the bits of ``tree``'s leaves (nested dicts of tensors),
+    computed where they lie: each leaf's bytes as 32-bit words, in rows of
+    ``DIGEST_ROW`` summed with the weights 1 .. ``DIGEST_ROW`` by position
+    (exact in int64), the rows' sums, with each leaf's name, shape and type,
+    hashed on the host (SHA-256; the first 16 hex digits)."""
+    h = hashlib.sha256()
+
+    def walk(name, t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(f"{name}/{k}", t[k])
+            return
+        h.update(f"{name}:{tuple(t.shape)}:{t.dtype};".encode())
+        b = t.detach().contiguous().view(-1).view(torch.uint8)
+        words = b.view(torch.int32) if b.numel() % 4 == 0 else b
+        pos = torch.arange(1, DIGEST_ROW + 1, dtype=torch.int64, device=t.device)
+        step = DIGEST_ROW * DIGEST_SLAB
+        for s in range(0, words.numel(), step):
+            w = words[s:s + step].to(torch.int64)
+            pad = -w.numel() % DIGEST_ROW
+            if pad:
+                w = torch.cat([w, w.new_zeros(pad)])
+            h.update((w.view(-1, DIGEST_ROW) * pos).sum(dim=1).cpu().numpy().tobytes())
+
+    walk("", tree)
+    return h.hexdigest()[:16]
